@@ -1,0 +1,77 @@
+"""The PyTorch port stands alone: every ``repro_torch`` module imports with
+JAX blocked, and no module (nor ``chip_smoke.py`` or the port's scripts)
+imports JAX or the reference package ``repro``.  Its entry points run on
+the card unless the caller asks for the CPU."""
+import ast
+import inspect
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "scripts").glob("*.py")))
+
+
+def _module_name(path: Path) -> str:
+    rel = path.relative_to(ROOT / "src").with_suffix("")
+    parts = list(rel.parts)
+    if parts[-1] == "__init__":
+        parts.pop()
+    return ".".join(parts)
+
+
+def test_every_port_module_imports_with_jax_blocked():
+    names = [_module_name(p) for p in sorted(PORT.rglob("*.py"))]
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
+        "and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(names) >= 20
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_file_imports_neither_jax_nor_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    imported = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            imported.append(node.module)
+    bad = [m for m in imported
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path}: imports {bad}"
+
+
+ENTRY_POINTS = [
+    ("repro_torch.bridge", "to_torch"),
+    ("repro_torch.bridge", "to_tensor"),
+    ("repro_torch.models.transformer", "model_init"),
+    ("repro_torch.models.transformer", "init_cache"),
+    ("repro_torch.models.transformer", "init_paged_decode_cache"),
+    ("repro_torch.runtime.paging", "init_paged_cache"),
+    ("repro_torch.runtime.serve", "ContinuousBatchingEngine"),
+]
+
+
+@pytest.mark.parametrize("module,name", ENTRY_POINTS,
+                         ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])
+def test_entry_point_defaults_to_the_card(module, name):
+    import importlib
+    fn = getattr(importlib.import_module(module), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
