@@ -4,18 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version at the shapes the serving path gives
-it, serves a tiny model on CUDA and on the CPU and compares the greedy
-streams, then serves 12 greedy requests of the full-width Qwen3-14B config
-(random weights from a seed) through ``ContinuousBatchingEngine`` under the
-``"mpai"`` plan and the bf16 plan.  Prints one JSON line per phase, the
-card's name and power limit, a ``{"kernels": [...]}`` line, and as its last
-line ``{"ok": true, "device": {...}}``.  Any failed check raises, and the
-script exits non-zero; it also exits non-zero where there is no CUDA
-device.  Needs one card with 80 GB (the full-width f32 weights take 59 GB).
+each against its plain PyTorch version at the shapes the serving paths give
+it, serves a tiny dense model through the engine and ``rwkv6-smoke``
+through the windowed fallback on CUDA and on the CPU and compares the
+greedy streams, then drives the two full-width main paths, each with 12
+greedy requests under the ``"mpai"`` plan and the bf16 plan (random
+weights from a seed): RWKV-6 3B through ``engine_or_windowed``'s windowed
+fallback (wkv kernel in every prefill layer), then Qwen3-14B through
+``ContinuousBatchingEngine`` (flash attention in every admission round,
+paged attention in every decode step).  Prints one JSON line per phase,
+the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
+last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
+the script exits non-zero; it also exits non-zero where there is no CUDA
+device.  Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB;
+the RWKV-6 3B weights, 12.4 GB, are freed before the Qwen3-14B ones are
+made).
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -28,15 +35,26 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8
-# tensor-core ops/s, f32 CUDA-core flops/s.  bound_ms uses them.
+# and bf16 tensor-core ops/s, f32 CUDA-core flops/s.  bound_ms uses them.
 PEAK_BYTES = 3.35e12
 PEAK_INT8_OPS = 1979e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 
 PAGED_ATTENTION_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 INT8_MATMUL_SRC = "src/repro_torch/kernels/csrc/int8_matmul.cu"
+FLASH_ATTENTION_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
+WKV_SRC = "src/repro_torch/kernels/csrc/wkv.cu"
 PAGED_ATTENTION_TPU = "src/repro/kernels/paged_attention.py:92"
 INT8_MATMUL_TPU = "src/repro/kernels/int8_matmul.py:44"
+FLASH_ATTENTION_TPU = "src/repro/kernels/flash_attention.py:74"
+WKV_TPU = "src/repro/kernels/wkv.py:49"
+
+# The RWKV-6 3B serving shape: windows of 8 requests, prompts left-padded
+# to 128 tokens (the wkv kernel's S), room for 32 new tokens.
+RWKV_SERVE = dict(max_slots=8, prompt_len=128, max_len=160)
+# The Qwen3-14B engine shape (the flash kernel's S is prompt_len).
+QWEN_SERVE = dict(max_slots=8, prompt_len=32, max_len=128, block_size=16)
 
 # One Qwen3-14B decoder layer's int8 GEMMs, (K, N) each: wq, wk, wv, wo,
 # w_in, w_gate, w_out.
@@ -73,6 +91,13 @@ class Timer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def within(got, want, rel: float, abs_: float):
+    """(max |got - want|, every element within rel * |want| + abs_)."""
+    err = (got.float() - want.float()).abs()
+    return err.max().item(), bool((err <= rel * want.float().abs()
+                                   + abs_).all())
+
+
 def paged_attention_phase(timer, pa, dev) -> dict:
     """The paged-decode kernel against its plain version at Qwen3-14B
     decode shapes: B = 8 slots, KVp = 8, gp = 5, hd = 128, P = 16, a pool
@@ -106,13 +131,12 @@ def paged_attention_phase(timer, pa, dev) -> dict:
                              "entry)")
     if not torch.equal(out[0], torch.zeros_like(out[0])):
         raise AssertionError("paged_attention: a length-0 slot is not 0")
-    err = (out.float() - ref.float()).abs()
     # both sides accumulate in f32, in different orders, and round to
     # bf16: they may differ by a bf16 ulp or two (2**-7 relative each)
-    tol = 2 ** -6 * ref.float().abs() + 2 ** -10
-    if not bool((err <= tol).all()):
+    err, ok = within(out, ref, 2 ** -6, 2 ** -10)
+    if not ok:
         raise AssertionError(f"paged_attention disagrees with its plain "
-                             f"version: max |err| {err.max().item()}")
+                             f"version: max |err| {err}")
     blocks = int((-(-lengths // page)).sum())
     kv_bytes = 2 * blocks * page * kvp * hd * 2
     nbytes = kv_bytes + 2 * q.numel() * 2 + table.nbytes + lengths.nbytes
@@ -120,7 +144,7 @@ def paged_attention_phase(timer, pa, dev) -> dict:
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
     row = {"name": "paged_attention", "route": "cuda",
            "source": PAGED_ATTENTION_SRC, "replaces": PAGED_ATTENTION_TPU,
-           "launches": 0, "max_abs_err": err.max().item(),
+           "launches": 0, "max_abs_err": err,
            "ms": timer.ms(lambda: pa.paged_attention(*args)),
            "plain_ms": timer.ms(lambda: pa.paged_attention_plain(*args)),
            "bound_ms": max(t_bytes, t_ops),
@@ -183,6 +207,114 @@ def int8_matmul_phase(timer, im, dev) -> dict:
             "library_ms": None if None in lib else sum(lib),
             "shapes": "one decode layer: the 7 GEMMs of a Qwen3-14B layer "
                       "at M=8, summed"}
+
+
+def flash_attention_phase(timer, fa, dev) -> dict:
+    """The causal flash kernel against its plain version at the Qwen3-14B
+    admission round (B = 8 slots, S = prompt_len = 32, KVp = 8, gp = 5,
+    hd = 128), at a 2048-token prefill and at a ragged S; beside each, one
+    ``scaled_dot_product_attention`` call at the same shapes (timed only
+    here: the port never calls it)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    kvp, gp, hd = 8, 5, 128
+    rows, errs = {}, []
+    for b, s in ((QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"]),
+                 (1, 2048), (2, 301)):
+        q = torch.randn((b, s, kvp, gp, hd), generator=g,
+                        device=dev).bfloat16()
+        k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
+        out = fa.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attention: non-finite at B={b} S={s}")
+        err, ok = within(out, ref, 2 ** -6, 2 ** -10)
+        if not ok:
+            raise AssertionError(f"flash_attention disagrees with its plain "
+                                 f"version at B={b} S={s}: max |err| {err}")
+        errs.append(err)
+        # the library yardstick on [B, H, S, hd]
+        ql = q.reshape(b, s, kvp * gp, hd).transpose(1, 2).contiguous()
+        kl, vl = (t.transpose(1, 2).contiguous() for t in (k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            lib_ms = timer.ms(lambda: sdpa(ql, kl, vl, is_causal=True,
+                                           enable_gqa=True))
+        except (RuntimeError, TypeError) as e:
+            lib_ms, lib_note = None, str(e).splitlines()[0]
+        else:
+            lib_note = None
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        flops = 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        rows[(b, s)] = {
+            "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
+            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_f32_cuda_core_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "max_abs_err": err}
+        emit("kernel_flash_attention", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
+             **rows[(b, s)], library_note=lib_note,
+             tolerance="2**-6 * |ref| + 2**-10",
+             bound_peak="bf16 tensor cores, 989 TFLOP/s")
+    adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"])]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": FLASH_ATTENTION_SRC, "replaces": FLASH_ATTENTION_TPU,
+            "launches": 0, "max_abs_err": max(errs),
+            **{k: adm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "shapes": f"one admission layer of Qwen3-14B: B=8 S=32 KVp={kvp} "
+                      f"gp={gp} hd={hd}; bound on bf16 tensor cores"}
+
+
+def wkv_phase(timer, wk, dev) -> dict:
+    """The wkv kernel against its plain version, output and final state,
+    at the RWKV-6 3B prefill window (B = 8, S = 128, H = 40, N = 64) and
+    at a ragged S."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    h, n = 40, 64
+    rows, errs = {}, []
+    for b, s in ((RWKV_SERVE["max_slots"], RWKV_SERVE["prompt_len"]),
+                 (3, 37)):
+        mk = lambda: torch.randn((b, s, h, n), generator=g, device=dev)
+        r, k, v = mk(), mk(), mk()
+        w = torch.exp(-torch.exp(mk() - 1))
+        u = torch.randn((h, n), generator=g, device=dev)
+        y, s_fin = wk.wkv(r, k, v, w, u)
+        torch.cuda.synchronize()
+        y_p, s_p = wk.wkv_plain(r, k, v, w, u)
+        # f32 recurrences summed in two orders (fma chain vs einsum)
+        err_y, ok_y = within(y, y_p, 1e-4, 1e-4)
+        err_s, ok_s = within(s_fin, s_p, 1e-4, 1e-4)
+        if not (ok_y and ok_s):
+            raise AssertionError(f"wkv disagrees with its plain version at "
+                                 f"B={b} S={s}: max |err| y {err_y}, state "
+                                 f"{err_s}")
+        errs.append(max(err_y, err_s))
+        nbytes = 4 * (5 * r.numel() + u.numel() + s_fin.numel())
+        # per (b, t, h): r^T S (2 N^2), the decay and rank-1 update of S
+        # (3 N^2); the u-bonus term is O(N)
+        flops = 5 * n * n * b * s * h
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        rows[(b, s)] = {
+            "ms": timer.ms(lambda: wk.wkv(r, k, v, w, u)),
+            "plain_ms": timer.ms(lambda: wk.wkv_plain(r, k, v, w, u)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err_y": err_y, "max_abs_err_state": err_s}
+        emit("kernel_wkv", B=b, S=s, H=h, N=n, **rows[(b, s)],
+             library_ms=None, tolerance="1e-4 * |ref| + 1e-4")
+    main = rows[(RWKV_SERVE["max_slots"], RWKV_SERVE["prompt_len"])]
+    return {"name": "wkv", "route": "cuda", "source": WKV_SRC,
+            "replaces": WKV_TPU, "launches": 0, "max_abs_err": max(errs),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None,
+            "shapes": f"one RWKV-6 3B prefill layer: B=8 S=128 H={h} N={n}"}
 
 
 def tiny_params(cfg, seed: int) -> dict:
@@ -282,7 +414,208 @@ def tiny_phase(dev) -> None:
              streams_equal=len(trace) - ties, near_tie_divergences=ties)
 
 
-def full_width_phase(dev, card: str, pa, im) -> dict:
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels import (flash_attention, int8_matmul,
+                                     paged_attention, wkv)
+    for wrapper in (flash_attention.flash_attention, int8_matmul.int8_matmul,
+                    paged_attention.paged_attention, wkv.wkv):
+        wrapper.launches = 0
+
+
+def drive_windowed(server, trace, request_cls, logits=None) -> dict:
+    """Serve ``trace`` to the end through a windowed server, one step at a
+    time; returns ``{rid: tokens}``.  With ``logits`` (a list that the
+    model's calls append their last-position logits to), also returns, per
+    request, the logits row behind each of its tokens."""
+    for rid, prompt, max_new in trace:
+        server.submit(request_cls(rid, prompt, max_new=max_new))
+    behind, window, steps = {}, [], 0
+    while server.pending:
+        if server.occupancy == 0:            # this step starts a window
+            window = [r.rid for r in server.queue[:server.max_batch]]
+            t = 0
+        before = len(logits) if logits is not None else 0
+        server.step()
+        if logits is not None and len(logits) > before:
+            for row, rid in enumerate(window):
+                behind.setdefault(rid, {})[t] = logits[-1][row]
+        t += 1
+        steps += 1
+        if steps > 10_000:
+            raise AssertionError("windowed server made no progress")
+    out = {rid: server.done[rid].output.tolist() for rid, _, _ in trace}
+    return (out, behind) if logits is not None else out
+
+
+def tiny_windowed_phase(dev) -> None:
+    """``rwkv6-smoke`` through ``engine_or_windowed`` on CUDA (the wkv
+    kernel) and on the CPU (its plain version), same bridged weights, same
+    trace: equal greedy streams, unless the CPU logits are a near-tie
+    where they part."""
+    from repro_torch import bridge
+    from repro_torch.configs.rwkv6_3b import SMOKE
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import wkv as wk
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import (Request, WindowedBaselineServer,
+                                           engine_or_windowed)
+
+    cfg = SMOKE
+    weights = tree_map(lambda a: a.numpy(), T.model_init(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    rng = np.random.default_rng(6)
+    trace = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(1, 9))
+                                ).astype(np.int32), max_new)
+             for rid, max_new in enumerate([5, 0, 8, 1, 3, 7, 2])]
+    kw = dict(max_slots=3, prompt_len=8, max_len=20)
+    real_prefill, real_decode = T.prefill, T.decode_step
+    for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(2))),
+                       ("bf16", None)):
+        streams = {}
+        for side, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            fallbacks = []
+            srv = engine_or_windowed(bridge.to_torch(weights, where), cfg,
+                                     plan=plan, on_fallback=fallbacks.append,
+                                     device=where, **kw)
+            if not (isinstance(srv, WindowedBaselineServer)
+                    and len(fallbacks) == 1):
+                raise AssertionError(f"rwkv6-smoke: got {type(srv).__name__}"
+                                     f" and fallbacks {fallbacks}")
+            if side == "cuda":
+                wk.wkv.launches = 0
+                streams["cuda"] = drive_windowed(srv, trace, Request)
+                if wk.wkv.launches == 0:
+                    raise AssertionError("tiny windowed: no wkv launch")
+                continue
+            logits = []
+
+            def keep(fn):
+                def call(*a, **k):
+                    out = fn(*a, **k)
+                    logits.append(out.logits[:, -1].float())
+                    return out
+                return call
+            T.prefill, T.decode_step = keep(real_prefill), keep(real_decode)
+            try:
+                streams["cpu"], behind = drive_windowed(srv, trace, Request,
+                                                        logits)
+            finally:
+                T.prefill, T.decode_step = real_prefill, real_decode
+        ties = 0
+        for rid, _, _ in trace:
+            a, b = streams["cuda"][rid], streams["cpu"][rid]
+            if a == b:
+                continue
+            t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            top2 = torch.topk(behind[rid][t], 2).values
+            margin = float(top2[0] - top2[1])
+            # a tie within 4 bf16 ulps of the top logit
+            if margin > 2 ** -5 * abs(float(top2[0])):
+                raise AssertionError(
+                    f"tiny windowed {name}: request {rid} diverges at token "
+                    f"{t} (cuda {a[t]}, cpu {b[t]}) with top-2 margin "
+                    f"{margin}")
+            ties += 1
+        emit("tiny_windowed", plan=name, config=cfg.name,
+             requests=len(trace),
+             tokens=sum(len(s) for s in streams["cuda"].values()),
+             streams_equal=len(trace) - ties, near_tie_divergences=ties)
+
+
+def rwkv_full_width_phase(dev, card: str, wk, im, fa) -> dict:
+    """RWKV-6 3B at full width and depth through ``engine_or_windowed``'s
+    windowed fallback, under "mpai" and bf16.  Returns each kernel's
+    launches in each plan's run, counted from 0."""
+    from repro_torch.configs.rwkv6_3b import FULL
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import (Request, WindowedBaselineServer,
+                                           engine_or_windowed)
+
+    cfg = FULL
+    t0 = time.perf_counter()
+    params = T.model_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    emit("rwkv_full_width_init", config=cfg.name,
+         seconds=time.perf_counter() - t0,
+         param_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    rng = np.random.default_rng(7)
+    top = RWKV_SERVE["prompt_len"]                    # prompts of 2..128
+    room = RWKV_SERVE["max_len"] - top                # max_new of 1..32
+    trace = []
+    for rid in range(12):
+        n = top if rid == 5 else int(rng.integers(2, top + 1))
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        trace.append((rid, prompt,
+                      1 if rid == 2 else int(rng.integers(1, room + 1))))
+    warm = [(-1, np.array([1, 2, 3], np.int32), 2)]
+
+    launches = {"wkv": {}, "int8_matmul": {}}
+    mpai = qat.serve_plan(PartitionPlan.mpai(cfg.num_layers))
+    for name, plan in (("mpai", mpai), ("bf16", None)):
+        # keep the engine's refusal, not its traceback: the frames would
+        # hold the 12.4 GB of weights past this phase
+        fallbacks = []
+        srv = engine_or_windowed(
+            params, cfg, plan=plan, device=dev, **RWKV_SERVE,
+            on_fallback=lambda e: fallbacks.append(e.with_traceback(None)))
+        if not (isinstance(srv, WindowedBaselineServer) and len(fallbacks) == 1
+                and isinstance(fallbacks[0], ValueError)):
+            raise AssertionError(f"rwkv6-3b: engine_or_windowed gave "
+                                 f"{type(srv).__name__}, fallbacks "
+                                 f"{fallbacks}")
+        drive_windowed(srv, warm, Request)    # first-use costs
+        srv.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        windows = -(-len(trace) // srv.max_batch)
+        zero_counts()                         # the main path's counts
+        t0 = time.perf_counter()
+        out = drive_windowed(srv, trace, Request)
+        wall = time.perf_counter() - t0
+        wk_n, im_n = wk.wkv.launches, im.int8_matmul.launches
+        fa_n = fa.flash_attention.launches
+        launches["wkv"][f"{cfg.name}/{name}"] = wk_n
+        launches["int8_matmul"][f"{cfg.name}/{name}"] = im_n
+        for rid, _, max_new in trace:
+            toks = out[rid]
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+                raise AssertionError(f"rwkv {name}: request {rid} returned "
+                                     f"{toks} for max_new={max_new}")
+        if wk_n != cfg.num_layers * windows:
+            raise AssertionError(f"rwkv {name}: {wk_n} wkv launches for "
+                                 f"{windows} prefill windows")
+        if (im_n > 0) != (name == "mpai") or fa_n:
+            raise AssertionError(f"rwkv {name}: {im_n} int8_matmul and "
+                                 f"{fa_n} flash_attention launches")
+        st = srv.stats()
+        steps = st["decode_steps"]
+        emit("rwkv_full_width_serve", plan=name, card=card, config=cfg.name,
+             requests=len(trace), tokens=st["total_tokens"],
+             windows=windows, decode_steps=steps,
+             decode_tok_s=st["decode_tokens"] / st["decode_s"],
+             mean_step_ms=st["decode_s"] / steps * 1e3,
+             prefill_tokens=st["prefill_tokens"], wall_s=wall,
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             wkv_launches=wk_n, int8_matmul_launches=im_n)
+        del srv
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated(dev) > 2 ** 30:
+        raise AssertionError(f"rwkv phase left "
+                             f"{torch.cuda.memory_allocated(dev) / 1e9} GB "
+                             f"allocated")
+    return launches
+
+
+def full_width_phase(dev, card: str, pa, im, fa) -> dict:
     """Qwen3-14B at full width through the engine, under "mpai" and bf16.
     Returns each kernel's launches in each plan's run, counted from 0."""
     from repro_torch.configs.qwen3_14b import FULL
@@ -305,27 +638,34 @@ def full_width_phase(dev, card: str, pa, im) -> dict:
              else int(rng.integers(2, 33)))
         prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
         trace.append((rid, prompt, 1 if rid == 2 else int(rng.integers(1, 33))))
-    kw = dict(max_slots=8, prompt_len=32, max_len=128, block_size=16)
+    kw = QWEN_SERVE
     warm = [(-1, np.array([1, 2, 3], np.int32), 2),
             (-2, np.arange(1, 41, dtype=np.int32), 2)]
 
-    launches = {"paged_attention": {}, "int8_matmul": {}}
+    launches = {"paged_attention": {}, "int8_matmul": {},
+                "flash_attention": {}}
     mpai = qat.serve_plan(PartitionPlan.mpai(cfg.num_layers))
     for name, plan in (("mpai", mpai), ("bf16", None)):
         eng = ContinuousBatchingEngine(params, cfg, plan=plan, device=dev,
                                        **kw)
         serve(eng, warm, Request)     # first-use costs (cuBLAS, allocator)
         eng.reset_stats()
+        # every admission round is one bucket prefill: one flash launch
+        # per attention layer (chunked admissions attend through the pool)
+        rounds = []
+        eng.on_stage = lambda stage, *a: rounds.append(stage)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
-        pa.paged_attention.launches = 0   # the main path's counts start here
-        im.int8_matmul.launches = 0
+        zero_counts()                 # the main path's counts start here
         t0 = time.perf_counter()
         out = serve(eng, trace, Request)
         wall = time.perf_counter() - t0
         pa_n, im_n = pa.paged_attention.launches, im.int8_matmul.launches
-        launches["paged_attention"][name] = pa_n
-        launches["int8_matmul"][name] = im_n
+        fa_n = fa.flash_attention.launches
+        launches["paged_attention"][f"{cfg.name}/{name}"] = pa_n
+        launches["int8_matmul"][f"{cfg.name}/{name}"] = im_n
+        launches["flash_attention"][f"{cfg.name}/{name}"] = fa_n
+        admit_rounds = rounds.count("admit")
         st = eng.stats()
         for rid, _, max_new in trace:
             toks = out[rid]
@@ -339,6 +679,9 @@ def full_width_phase(dev, card: str, pa, im) -> dict:
                                  f"for {steps} decode steps")
         if (im_n > 0) != (name == "mpai"):
             raise AssertionError(f"{name}: {im_n} int8_matmul launches")
+        if fa_n != cfg.num_layers * admit_rounds or not admit_rounds:
+            raise AssertionError(f"{name}: {fa_n} flash_attention launches "
+                                 f"for {admit_rounds} admission rounds")
         emit("full_width_serve", plan=name, card=card, requests=len(trace),
              tokens=st["total_tokens"], decode_steps=steps,
              decode_tok_s=st["decode_tokens"] / st["decode_s"],
@@ -348,7 +691,8 @@ def full_width_phase(dev, card: str, pa, im) -> dict:
              deferrals=st["deferrals"],
              shared_block_hits=st["shared_block_hits"],
              peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-             paged_attention_launches=pa_n, int8_matmul_launches=im_n)
+             admission_rounds=admit_rounds, paged_attention_launches=pa_n,
+             int8_matmul_launches=im_n, flash_attention_launches=fa_n)
         del eng
     return launches
 
@@ -360,8 +704,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -385,12 +731,18 @@ def main() -> int:
 
     timer = Timer(dev)
     rows = [paged_attention_phase(timer, pa, dev),
-            int8_matmul_phase(timer, im, dev)]
+            int8_matmul_phase(timer, im, dev),
+            flash_attention_phase(timer, fa, dev),
+            wkv_phase(timer, wk, dev)]
+    del timer
     tiny_phase(dev)
-    launches = full_width_phase(dev, card, pa, im)
+    tiny_windowed_phase(dev)
+    launches = rwkv_full_width_phase(dev, card, wk, im, fa)
+    for name, by_plan in full_width_phase(dev, card, pa, im, fa).items():
+        launches.setdefault(name, {}).update(by_plan)
     for row in rows:
-        # each plan's run is a main path, counted from 0 on its own;
-        # "launches" is their sum and "launches_by_plan" keeps them apart
+        # each (config, plan) run is a main path, counted from 0 on its
+        # own; "launches" is their sum, "launches_by_plan" keeps them apart
         row["launches_by_plan"] = launches[row["name"]]
         row["launches"] = sum(launches[row["name"]].values())
     print(json.dumps({"kernels": rows}), flush=True)

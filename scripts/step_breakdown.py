@@ -4,8 +4,10 @@
     python3 scripts/step_breakdown.py
 
 Serves Qwen3-14B at full width (random weights from seed 0) through
-``ContinuousBatchingEngine`` with all 8 slots live, under the ``"mpai"``
-plan and then the bf16 plan, and prints one JSON line per plan:
+``ContinuousBatchingEngine`` with all 8 slots live, then RWKV-6 3B at full
+width and depth through the windowed server (``engine_or_windowed``'s
+fallback) with a window of 8 live requests, each under the ``"mpai"`` plan
+and then the bf16 plan, and prints one JSON line per (config, plan):
 
 - ``step_ms``: wall time of one engine decode step (host and device);
 - ``device_step_ms``: device time of the same decode step, captured once
@@ -20,13 +22,16 @@ plan and then the bf16 plan, and prints one JSON line per plan:
   flushed before each replay, times its count per step: the per-call
   weight conversion ``pdot`` does (quantize for int8 segments, bf16 cast
   for bf16 ones), the activation quantize, the GEMMs, the paged attention
-  kernel on the live caches, and the lm head.  ``other_device_ms`` is the
-  rest of ``device_step_ms``: norms, rope, epilogues, KV appends.
+  kernel on the live caches (Qwen3) or the one-step wkv recurrence (RWKV),
+  and the lm head.  ``other_device_ms`` is the rest of ``device_step_ms``:
+  norms, rope, epilogues, KV appends (Qwen3); token-shift mixes, decay and
+  mixing loras, group norm, gates (RWKV).
 
 Needs one card with 80 GB; builds the port's kernels on first use.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -73,12 +78,70 @@ class GraphTimer:
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
+def weight_parts(ws, m: int, cfg, plan, timer, dev) -> dict:
+    """Device ms per step of what ``pdot`` does with each weight in ``ws``
+    (one layer's matrices) at M = ``m`` rows, times the layers of each
+    precision: quantize or cast at use, activation quantize, the GEMM."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.kernels.ops import int8_matmul
+
+    n_int8 = sum(s.num_layers for s in (plan.segments if plan else ())
+                 if s.policy.mode == "quant")
+    n_bf16 = cfg.num_layers - n_int8
+    parts = {}
+    if n_int8:
+        conv = gemm = actq = 0.0
+        for w in ws:
+            x = torch.randn((m, w.shape[0]), device=dev).bfloat16()
+            xq, wq = quantize(x), quantize(w, channel_axis=-1)
+            conv += timer.ms(lambda: quantize(w, channel_axis=-1))
+            actq += timer.ms(lambda: quantize(x))
+            gemm += timer.ms(lambda: int8_matmul(xq.values, wq.values))
+        parts.update(int8_weight_quantize=n_int8 * conv,
+                     int8_activation_quantize=n_int8 * actq,
+                     int8_gemm=n_int8 * gemm)
+    if n_bf16:
+        conv = gemm = 0.0
+        for w in ws:
+            x = torch.randn((m, w.shape[0]), device=dev).bfloat16()
+            wb = w.bfloat16()
+            conv += timer.ms(lambda: w.to(torch.bfloat16))
+            gemm += timer.ms(lambda: torch.matmul(x, wb))
+        parts.update(bf16_weight_cast=n_bf16 * conv, bf16_gemm=n_bf16 * gemm)
+    return parts
+
+
+def host_split(fn) -> tuple:
+    """Median host ms to enqueue ``fn``, and to enqueue and finish it."""
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    return (float(np.median([h[0] for h in host])),
+            float(np.median([h[1] for h in host])))
+
+
+def report(cfg, name: str, card: str, m: int, step_ms: float,
+           device_step_ms: float, host: tuple, parts: dict) -> None:
+    print(json.dumps({
+        "phase": "step_breakdown", "config": cfg.name, "plan": name,
+        "card": card, "slots": m, "step_ms": step_ms,
+        "device_step_ms": device_step_ms,
+        "idle_share": 1 - device_step_ms / step_ms,
+        "enqueue_ms": host[0], "enqueue_and_run_ms": host[1],
+        "parts_ms": parts,
+        "other_device_ms": device_step_ms - sum(parts.values())}),
+        flush=True)
+
+
 def breakdown(params, cfg, plan, name: str, card: str, timer, dev) -> None:
     from repro_torch.core.precision import DEFAULT_POLICY
-    from repro_torch.core.quantization import quantize
     from repro_torch.core.tree import tree_map
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels.ops import int8_matmul
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import lm_logits
@@ -110,41 +173,12 @@ def breakdown(params, cfg, plan, name: str, card: str, timer, dev) -> None:
     caches = {k: type(c)(*(t.clone() for t in c))
               for k, c in eng.caches.items()}
     tok = torch.as_tensor(eng.last, device=dev)
-    host = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        T.decode_step(params, cfg, tok, caches, plan)
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        host.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+    host = host_split(lambda: T.decode_step(params, cfg, tok, caches, plan))
 
     sub = tree_map(lambda a: a[0], params["layers"])["sub_0"]
     ws = [sub["mixer"][k] for k in ("wq", "wk", "wv", "wo")] + \
          [sub["mlp"][k] for k in ("w_in", "w_gate", "w_out")]
-    n_int8 = sum(s.num_layers for s in (plan.segments if plan else ())
-                 if s.policy.mode == "quant")
-    n_bf16 = cfg.num_layers - n_int8
-    parts = {}
-    if n_int8:
-        conv = gemm = actq = 0.0
-        for w in ws:
-            x = torch.randn((m, w.shape[0]), device=dev).bfloat16()
-            xq, wq = quantize(x), quantize(w, channel_axis=-1)
-            conv += timer.ms(lambda: quantize(w, channel_axis=-1))
-            actq += timer.ms(lambda: quantize(x))
-            gemm += timer.ms(lambda: int8_matmul(xq.values, wq.values))
-        parts.update(int8_weight_quantize=n_int8 * conv,
-                     int8_activation_quantize=n_int8 * actq,
-                     int8_gemm=n_int8 * gemm)
-    if n_bf16:
-        conv = gemm = 0.0
-        for w in ws:
-            x = torch.randn((m, w.shape[0]), device=dev).bfloat16()
-            wb = w.bfloat16()
-            conv += timer.ms(lambda: w.to(torch.bfloat16))
-            gemm += timer.ms(lambda: torch.matmul(x, wb))
-        parts.update(bf16_weight_cast=n_bf16 * conv, bf16_gemm=n_bf16 * gemm)
+    parts = weight_parts(ws, m, cfg, plan, timer, dev)
     st = tree_map(lambda a: a[0], caches["sub_0"])
     lay = attn.head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
     q = torch.randn((m, lay.KVp, lay.gp, cfg.resolved_head_dim()),
@@ -158,15 +192,70 @@ def breakdown(params, cfg, plan, name: str, card: str, timer, dev) -> None:
                                                   head))
     device_step_ms = timer.ms(
         lambda: T.decode_step(params, cfg, tok, caches, plan), scrub=False)
-    print(json.dumps({
-        "phase": "step_breakdown", "plan": name, "card": card, "slots": m,
-        "step_ms": step_ms, "device_step_ms": device_step_ms,
-        "idle_share": 1 - device_step_ms / step_ms,
-        "enqueue_ms": float(np.median([h[0] for h in host])),
-        "enqueue_and_run_ms": float(np.median([h[1] for h in host])),
-        "parts_ms": parts,
-        "other_device_ms": device_step_ms - sum(parts.values())}),
-        flush=True)
+    report(cfg, name, card, m, step_ms, device_step_ms, host, parts)
+
+
+def rwkv_breakdown(params, cfg, plan, name: str, card: str, timer,
+                   dev) -> None:
+    from repro_torch.core.precision import DEFAULT_POLICY
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import rwkv as rwk
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.runtime.serve import Request, engine_or_windowed
+
+    m, prompt_len, max_len = 8, 128, 160
+    srv = engine_or_windowed(params, cfg, plan=plan, device=dev,
+                             max_slots=m, prompt_len=prompt_len,
+                             max_len=max_len)
+    rng = np.random.default_rng(4)
+    for i in range(m):
+        srv.submit(Request(i, rng.integers(0, cfg.vocab_size, 16)
+                           .astype(np.int32), max_new=32))
+    srv.step()                          # the window's prefill
+    srv.step()
+    torch.cuda.synchronize()
+    steps0, reps = srv.decode_steps, 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    if srv.decode_steps != steps0 + reps or srv.occupancy != 1.0:
+        raise AssertionError(f"{name}: the timed steps were not all "
+                             f"full-window decode steps")
+
+    # the same decode step on a state of its own, prefilled and stepped
+    # once so its dtypes are the ones decode sees
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (m, prompt_len)),
+                           dtype=torch.int32, device=dev)
+    out = T.prefill(params, cfg, toks,
+                    T.init_cache(cfg, m, max_len, device=dev), plan)
+    tok = torch.argmax(out.logits[:, -1], dim=-1)[:, None].int()
+    caches = T.decode_step(params, cfg, tok, out.cache, plan).cache
+    host = host_split(lambda: T.decode_step(params, cfg, tok, caches, plan))
+
+    sub = tree_map(lambda a: a[0], params["layers"])["sub_0"]
+    ws = [sub["mixer"][k] for k in ("w_r", "w_k", "w_v", "w_g", "w_o")] + \
+         [sub["mlp"][k] for k in ("w_kc", "w_vc", "w_rc")]
+    parts = weight_parts(ws, m, cfg, plan, timer, dev)
+    hp, n, _ = rwk.rwkv_dims(cfg, 1)
+    r, k, v, w = (torch.randn((m, hp, n), device=dev) for _ in range(4))
+    u = torch.randn((hp, n), device=dev)
+    state = caches["sub_0"][0].s
+
+    def recurrence():                   # time_mix_decode's exact step
+        kv = k[..., None] * v[..., None, :]
+        torch.einsum("bhn,bhnm->bhm", r, state + u[None, ..., None] * kv)
+        return w[..., None] * state + kv
+    parts["wkv_decode_step"] = cfg.num_layers * timer.ms(recurrence)
+    xh = torch.randn((m, 1, cfg.d_model), device=dev).bfloat16()
+    head = plan.head_policy if plan else DEFAULT_POLICY
+    parts["lm_head"] = timer.ms(lambda: lm_logits(params["lm_head"], xh,
+                                                  head))
+    device_step_ms = timer.ms(
+        lambda: T.decode_step(params, cfg, tok, caches, plan), scrub=False)
+    report(cfg, name, card, m, step_ms, device_step_ms, host, parts)
 
 
 def main() -> int:
@@ -174,7 +263,7 @@ def main() -> int:
         print("step_breakdown: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs.qwen3_14b import FULL
+    from repro_torch.configs import qwen3_14b, rwkv6_3b
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
     from repro_torch.models import transformer as T
@@ -186,12 +275,17 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    params = T.model_init(FULL, torch.Generator(device=dev).manual_seed(0),
-                          device=dev)
     timer = GraphTimer(dev)
-    for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(
-            FULL.num_layers))), ("bf16", None)):
-        breakdown(params, FULL, plan, name, card, timer, dev)
+    for cfg, run in ((qwen3_14b.FULL, breakdown),
+                     (rwkv6_3b.FULL, rwkv_breakdown)):
+        params = T.model_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                              device=dev)
+        for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(
+                cfg.num_layers))), ("bf16", None)):
+            run(params, cfg, plan, name, card, timer, dev)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     return 0
 
 

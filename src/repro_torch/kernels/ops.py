@@ -1,13 +1,15 @@
 """Front door of the port's kernels, as ``repro.kernels.ops`` is of the
-reference's: the model code calls ``int8_matmul`` and ``paged_attention``
-from here, and ``paged_chunk_attention``, which is plain PyTorch as it is
-XLA code in the reference."""
+reference's: the model code calls ``int8_matmul``, ``paged_attention``,
+``flash_attention`` and ``wkv`` from here, and ``paged_chunk_attention``,
+which is plain PyTorch as it is XLA code in the reference."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.int8_matmul import int8_matmul  # noqa: F401
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
+from repro_torch.kernels.wkv import wkv  # noqa: F401
 
 
 def paged_chunk_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -11,8 +11,11 @@ real q heads of one kv group contiguously across those slots.  Every padded
 q slot beyond the real heads carries zero weights, so the math is exact.
 
 Paths:
-  * ``full``    — materialized scores (prefill windows up to 2048 tokens)
-  * ``chunked`` — online-softmax loop over kv chunks (longer prefill)
+  * causal prefill — the flash-attention kernel of ``kernels/ops.py``
+    (every prefill whose sliding window does not bite)
+  * ``full``    — materialized scores (windowed prefill up to 2048 tokens)
+  * ``chunked`` — online-softmax loop over kv chunks (longer windowed
+    prefill)
   * paged decode / paged chunk prefill — against the block pools of
     ``runtime/paging.py``, through the kernels of ``kernels/ops.py``
 """
@@ -192,23 +195,29 @@ def attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                     policy: PrecisionPolicy = DEFAULT_POLICY,
                     chunked: Optional[bool] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Self-attention over a full sequence (prefill).  Returns the output
-    and the window's k, v [B, S, KVp, hd]: the reference projects them a
-    second time to fill its cache (``transformer._prefill_kv``); the same
-    deterministic ops on the same input give the same values, so the port
-    hands them over instead."""
+    """Self-attention over a full sequence (prefill) at positions 0..S-1.
+    Without a sliding window that bites, the causal flash kernel runs;
+    a biting window keeps the plain full / chunked paths.  Returns the
+    output and the window's k, v [B, S, KVp, hd]: the reference projects
+    them a second time to fill its cache (``transformer._prefill_kv``); the
+    same deterministic ops on the same input give the same values, so the
+    port hands them over instead."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
     kvp = k.shape[2]
     q = q.reshape(b, s, kvp, -1, hd)
-    pos1 = positions[0] if positions.ndim == 2 else positions
-    if chunked is None:
-        chunked = s > 2048
-    if chunked:
-        out = chunked_attention(q, k, v, pos1, pos1, cfg.sliding_window)
+    window = cfg.sliding_window
+    if not window or s <= window:
+        # the mask is exactly causal (prefill positions are 0..S-1), which
+        # is what the reference's full and chunked paths both compute
+        out = kops.flash_attention(q, k, v)
     else:
-        out = full_attention(q, k, v, pos1, pos1, cfg.sliding_window)
+        pos1 = positions[0] if positions.ndim == 2 else positions
+        if chunked is None:
+            chunked = s > 2048
+        attend = chunked_attention if chunked else full_attention
+        out = attend(q, k, v, pos1, pos1, window)
     out = out.reshape(b, s, -1)
     return pdot(out, params["wo"], policy), k, v
 

@@ -75,12 +75,18 @@ def mlp_init(n: int, d_model: int, d_ff: int, glu: bool,
     return p
 
 
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference runs it: ``x * 1 / (1 + exp(-x))``
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as the reference runs it: ``1 / (1 + exp(-x))``
     with every step rounded to ``x``'s dtype (XLA keeps no excess
-    precision in bf16), which ``F.silu``'s single rounding does not
+    precision in bf16), which ``torch.sigmoid``'s single rounding does not
     reproduce."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return 1 / (1 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference runs it: ``x * sigmoid(x)``, each
+    step rounded as :func:`sigmoid` says."""
+    return x * sigmoid(x)
 
 
 def mlp_apply(params: Dict, x: torch.Tensor, act: str = "silu",

@@ -1,13 +1,13 @@
-"""Model composition (the port of ``repro.models.transformer``, dense
-attention stacks).
+"""Model composition (the port of ``repro.models.transformer``: dense
+attention stacks and RWKV-6 stacks).
 
 Layer stacks are built from *super-blocks*, the smallest periodic unit of
-the layer pattern (one attention + MLP sublayer for a dense model), and
-every parameter carries a leading super-block axis, as in the reference.
-A :class:`~repro_torch.core.partition.PartitionPlan` splits the stack into
-contiguous segments; each runs its super-blocks under its own precision
-policy.  MoE, Mamba and RWKV stacks are later slices of the port and are
-refused.
+the layer pattern (one attention + MLP or one RWKV time-mix + channel-mix
+sublayer), and every parameter carries a leading super-block axis, as in
+the reference.  A :class:`~repro_torch.core.partition.PartitionPlan`
+splits the stack into contiguous segments; each runs its super-blocks
+under its own precision policy.  MoE and Mamba stacks are later slices of
+the port and are refused.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import rwkv as rwk
 from repro_torch.models.layers import (embed, embedding_init, lm_logits,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init)
@@ -47,12 +48,13 @@ def sublayer_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
     return pat
 
 
-def _dense_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
+def _ported_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
     pat = sublayer_pattern(cfg)
-    if any(kind != "attention" or is_moe for kind, is_moe in pat):
+    if any(kind not in ("attention", "rwkv6") or is_moe
+           for kind, is_moe in pat):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention stacks; MoE, Mamba "
-            f"and RWKV sublayers are not ported yet")
+            f"{cfg.name}: the port runs attention and RWKV-6 stacks; MoE "
+            f"and Mamba sublayers are not ported yet")
     return pat
 
 
@@ -64,15 +66,20 @@ def model_init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     """Random f32 parameters in the reference's tree, made on ``device``
     (``generator`` must live there too).  Values differ from the
     reference's ``jax.random`` init; parity tests bridge JAX weights."""
-    pat = _dense_pattern(cfg)
+    pat = _ported_pattern(cfg)
     n = cfg.num_layers // len(pat)
     d = cfg.d_model
-    layers = {f"sub_{j}": {
-        "norm1": rmsnorm_init((n, d), device),
-        "mixer": attn.attention_init(cfg, n, generator, device, tp),
-        "norm2": rmsnorm_init((n, d), device),
-        "mlp": mlp_init(n, d, cfg.d_ff, cfg.glu, generator, device)}
-        for j in range(len(pat))}
+
+    def sublayer(kind):
+        if kind == "rwkv6":
+            mixer = rwk.time_mix_init(cfg, n, generator, device, tp)
+            mlp = rwk.channel_mix_init(cfg, n, generator, device)
+        else:
+            mixer = attn.attention_init(cfg, n, generator, device, tp)
+            mlp = mlp_init(n, d, cfg.d_ff, cfg.glu, generator, device)
+        return {"norm1": rmsnorm_init((n, d), device), "mixer": mixer,
+                "norm2": rmsnorm_init((n, d), device), "mlp": mlp}
+    layers = {f"sub_{j}": sublayer(kind) for j, (kind, _) in enumerate(pat)}
     params = {"embed": embedding_init(cfg.vocab_size, d, generator, device),
               "layers": layers,
               "final_norm": rmsnorm_init((d,), device)}
@@ -87,18 +94,33 @@ def model_init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                device="cuda") -> Dict:
-    """Dense prefill-target caches, one per sublayer, stacked over
-    super-blocks: ``{"sub_j": KVCache([n_super, B, T, KVp, hd] x 2)}``."""
-    pat = _dense_pattern(cfg)
+    """Prefill-target caches, one per sublayer.
+
+    An attention sublayer gets a dense KVCache stacked over super-blocks
+    (``[n_super, B, T, KVp, hd]`` x 2); an RWKV-6 sublayer gets a list of
+    ``n_super`` :class:`~repro_torch.models.rwkv.RWKVCache`, one per
+    super-block.  The reference broadcasts one cache over the stack; here
+    each super-block owns its storage, and prefill and decode replace its
+    entry (so its dtypes follow the reference's, which change from the f32
+    zeros of a fresh cache to the residual stream's at the first prefill).
+    """
+    pat = _ported_pattern(cfg)
     n = cfg.num_layers // len(pat)
-    lay = attn.head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
-    length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
-              else max_len)
-    shape = (n, batch, length, lay.KVp, cfg.resolved_head_dim())
-    return {f"sub_{j}": attn.KVCache(
-                torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                torch.zeros(shape, dtype=torch.bfloat16, device=device))
-            for j in range(len(pat))}
+    caches = {}
+    for j, (kind, _) in enumerate(pat):
+        if kind == "rwkv6":
+            caches[f"sub_{j}"] = [rwk.init_rwkv_cache(cfg, batch, tp,
+                                                      device=device)
+                                  for _ in range(n)]
+            continue
+        lay = attn.head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
+        length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+                  else max_len)
+        shape = (n, batch, length, lay.KVp, cfg.resolved_head_dim())
+        caches[f"sub_{j}"] = attn.KVCache(
+            torch.zeros(shape, dtype=torch.bfloat16, device=device),
+            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+    return caches
 
 
 def init_paged_decode_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -164,6 +186,34 @@ def _prefill_kv(cache: attn.KVCache, k: torch.Tensor, v: torch.Tensor):
             buf[:, :s] = val
 
 
+def _rwkv_sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
+                         policy: PrecisionPolicy, tp: int,
+                         cache: Optional[rwk.RWKVCache], decode: bool):
+    """One RWKV-6 time-mix + channel-mix sublayer.  Returns ``(x, new
+    cache)`` (None without a cache); decode needs the cache."""
+    h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+    if decode:
+        y, s_new, x_last = rwk.time_mix_decode(sub["mixer"], cfg, h[:, 0],
+                                               cache.s, cache.x_tmix, tp,
+                                               policy)
+        out = y[:, None]
+    else:
+        prev = torch.zeros_like(h[:, 0]) if cache is None else cache.x_tmix
+        out, s_new, x_last = rwk.time_mix_apply(sub["mixer"], cfg, h, prev,
+                                                tp, policy)
+    x = x + out
+    h2 = rmsnorm(sub["norm2"], x, cfg.norm_eps)
+    if decode:
+        out2, x_last2 = rwk.channel_mix_decode(sub["mlp"], h2[:, 0],
+                                               cache.x_cmix, policy)
+        out2 = out2[:, None]
+    else:
+        prev = torch.zeros_like(h2[:, 0]) if cache is None else cache.x_cmix
+        out2, x_last2 = rwk.channel_mix_apply(sub["mlp"], h2, prev, policy)
+    new = None if cache is None else rwk.RWKVCache(s_new, x_last, x_last2)
+    return x + out2, new
+
+
 def _sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, policy: PrecisionPolicy,
                     cache=None, decode: bool = False,
@@ -202,13 +252,15 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             chunk: Optional[Tuple[int, int]] = None) -> LMOutput:
     """Unified forward; caches are updated in place and returned.
 
-    * prefill: tokens [B, S], cache None or a dense prefill-target cache
-    * decode: tokens [B, 1], paged cache required
+    * prefill: tokens [B, S], cache None or a prefill-target cache
+      (:func:`init_cache`)
+    * decode: tokens [B, 1]; a paged cache for attention sublayers, the
+      prefilled :func:`init_cache` for RWKV-6 ones
     * chunked paged prefill: tokens [1, C], paged cache, ``chunk`` =
       ``(seq, start)`` — one chunk of sequence ``seq`` at absolute
       positions ``start .. start+C-1`` (see :func:`prefill_paged_chunk`)
     """
-    pat = _dense_pattern(cfg)
+    pat = _ported_pattern(cfg)
     period = len(pat)
     plan = plan or PartitionPlan.uniform(cfg.num_layers)
     plan = plan.align_to_period(period, cfg.num_layers)
@@ -218,12 +270,17 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
               plan.embed_policy.precision.compute_dtype)
     dev = tokens.device
     if decode:
+        if cache is None:
+            raise ValueError("decode needs a cache")
         ps = first_paged_state(cache)
-        if ps is None:
+        if ps is not None:
+            # every batch slot sits at its own context length; copied
+            # because the first layer's append advances these in place
+            positions = ps.lengths[0][:, None].clone()
+        elif any(kind == "attention" for kind, _ in pat):
             raise NotImplementedError("dense-cache decode is not ported yet")
-        # every batch slot sits at its own context length; copied because
-        # the first layer's append advances these lengths in place
-        positions = ps.lengths[0][:, None].clone()
+        else:
+            positions = None          # recurrent state carries no positions
     elif chunk is not None:
         positions = (chunk[1] + torch.arange(x.shape[1], dtype=torch.int32,
                                              device=dev))[None, :]
@@ -234,14 +291,20 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     for seg in plan.segments:
         for i in range(seg.start // period, seg.end // period):
             blk = tree_map(lambda a: a[i], params["layers"])
-            blk_cache = (None if cache is None else
-                         {key: tree_map(lambda a: a[i], c)
-                          for key, c in cache.items()})
-            for j in range(period):
+            for j, (kind, _) in enumerate(pat):
                 key = f"sub_{j}"
+                c = None if cache is None else cache[key]
+                if kind == "rwkv6":
+                    x, new = _rwkv_sublayer_apply(
+                        blk[key], cfg, x, seg.policy, tp,
+                        None if c is None else c[i], decode)
+                    if c is not None:
+                        c[i] = new
+                    continue
                 x = _sublayer_apply(blk[key], cfg, x, positions, seg.policy,
-                                    None if blk_cache is None
-                                    else blk_cache[key], decode, chunk)
+                                    None if c is None
+                                    else tree_map(lambda a: a[i], c),
+                                    decode, chunk)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]

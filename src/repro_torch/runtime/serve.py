@@ -1,5 +1,8 @@
-"""Slot-based continuous batching over a paged KV pool (the port of
-``repro.runtime.serve.ContinuousBatchingEngine``).
+"""Serving loops (the port of ``repro.runtime.serve``): slot-based
+continuous batching over a paged KV pool, and the windowed loop that
+serves the stacks paged decode cannot.
+
+``ContinuousBatchingEngine``:
 
 A fixed set of *slots* shares a paged KV pool (``runtime/paging.py``).  A
 request is admitted into any free slot the moment enough KV blocks exist
@@ -17,12 +20,25 @@ reference).  Sampled requests, hardening (``harden=True``) and the
 prefill handoff are later slices of the port and raise
 ``NotImplementedError``.
 
-Progress: ``step()`` admits into free slots and runs one decode step;
-``flush()`` runs until at least one request completes.
+``WindowedBaselineServer`` — the windowed loop (greedy-only): a bounded
+window of requests prefills together (left-padded to ``prompt_len``), then
+every request decodes for ``max(max_new)`` steps.  The port serves RWKV-6
+stacks through it: their prefill runs the wkv kernel and their decode
+carries the recurrent state.  Stacks whose decode is not ported yet (dense
+attention caches, Mamba, MoE) are refused at construction.
+
+``engine_or_windowed`` builds the engine and falls back to the windowed
+loop for stacks paged decode cannot serve; ``BatchingServer`` is its
+deprecated shim.
+
+Progress: ``step()`` advances by one unit of work (the engine: admissions
+and one decode step; the windowed loop: a window's prefill or one decode
+step); ``flush()`` runs until at least one request completes.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -53,6 +69,17 @@ class _Slot:
     req: Request
     gen: List[int]                     # sampled tokens so far
     remaining: int                     # decode steps left (exact)
+
+
+@dataclass
+class _ActiveWindow:
+    """One in-progress bounded window (prefill done, decode underway)."""
+    batch: List[Request]
+    cache: Dict
+    last: torch.Tensor                 # [b, 1] last greedy token
+    gen: List[np.ndarray]
+    remaining: int                     # decode steps left
+    steps_done: int = 0                # decode steps taken so far
 
 
 _DEFER = object()        # admission verdict: blocks unavailable, retry later
@@ -469,3 +496,199 @@ class ContinuousBatchingEngine:
         self.lengths[i] = 0
         self._dirty = True        # device sees the freed row at next push
         return req
+
+
+# ---------------------------------------------------------------------------
+# The windowed loop, and the engine-with-windowed-fallback policy
+# ---------------------------------------------------------------------------
+def _refuse_unported_decode(cfg: ModelConfig) -> None:
+    """The windowed loop decodes against the caches of ``T.init_cache``;
+    the port decodes only the recurrent RWKV-6 ones so far."""
+    for kind, is_moe in T.sublayer_pattern(cfg):
+        if is_moe or kind == "mamba":
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba and MoE sublayers are not ported yet "
+                f"(ROADMAP queue 1, the Jamba slice)")
+        if kind == "attention":
+            raise NotImplementedError(
+                f"{cfg.name}: decode against dense attention caches "
+                f"(sliding window, int8 KV) is not ported yet (ROADMAP "
+                f"queue 1, the dense-cache decode slice)")
+
+
+class WindowedBaselineServer:
+    """The windowed batching loop (greedy-only).  Serves the stacks paged
+    decode cannot; the port runs it for RWKV-6 stacks."""
+
+    def __init__(self, params, cfg: ModelConfig,
+                 plan: Optional[PartitionPlan] = None, tp: int = 1,
+                 max_batch: int = 8, prompt_len: int = 32,
+                 max_len: int = 64, device="cuda"):
+        _refuse_unported_decode(cfg)
+        self.params, self.cfg, self.plan, self.tp = params, cfg, plan, tp
+        self.device = torch.device(device)
+        self.max_batch, self.prompt_len, self.max_len = (max_batch,
+                                                         prompt_len, max_len)
+        self.queue: List[Request] = []
+        self.done: Dict[int, Request] = {}
+        self._active: Optional[_ActiveWindow] = None
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.total_tokens = 0             # real sampled tokens only
+        self.decode_steps = 0
+        self.decode_tokens = 0            # tokens produced by decode steps
+        self.decode_s = 0.0               # wall time inside decode steps
+        self.prefill_tokens = 0           # prompt tokens prefilled
+        self.deferrals = 0                # windowed loop never defers
+
+    def submit(self, req: Request) -> None:
+        _require_prompt(req, "server")
+        assert req.prompt.shape[0] <= self.prompt_len
+        assert self.prompt_len + req.max_new <= self.max_len, \
+            (req.rid, req.max_new, self.max_len)
+        if req.sampling is not None and not req.sampling.greedy:
+            warnings.warn(
+                f"request {req.rid}: the windowed baseline decodes "
+                f"greedily and ignores SamplingParams")
+        self.queue.append(req)
+
+    @property
+    def pending(self) -> int:
+        """Requests admitted but not yet completed (queued + in-window)."""
+        return len(self.queue) + (len(self._active.batch)
+                                  if self._active else 0)
+
+    @property
+    def occupancy(self) -> float:
+        """Fraction of batch slots doing useful work right now."""
+        if self._active is None:
+            return 0.0
+        return len(self._active.batch) / self.max_batch
+
+    def step(self) -> List[Request]:
+        """Advance by one unit of work and return requests it completed.
+
+        No active window: start one (prefill + first token) from the queue.
+        Active window: run one decode step.  Returns [] until the window's
+        last decode step, at which point the whole batch is finalized.
+        """
+        if self._active is None:
+            if not self.queue:
+                return []
+            self._start_window()
+        else:
+            w = self._active
+            t0 = time.perf_counter()
+            out = T.decode_step(self.params, self.cfg, w.last, w.cache,
+                                self.plan, self.tp)
+            w.cache = out.cache
+            w.last = torch.argmax(out.logits[:, -1], dim=-1)[:, None].int()
+            w.gen.append(w.last.cpu().numpy())
+            self.decode_s += time.perf_counter() - t0
+            w.remaining -= 1
+            w.steps_done += 1
+            self.decode_steps += 1
+            # padding rows past a request's own max_new are not tokens
+            useful = sum(1 for r in w.batch if w.steps_done <= r.max_new - 1)
+            self.decode_tokens += useful
+            self.total_tokens += useful
+        return self._finish_if_done()
+
+    def flush(self) -> List[Request]:
+        """Serve one bounded window to completion (blocking form of step)."""
+        if self._active is None and not self.queue:
+            return []
+        while True:
+            batch = self.step()
+            if batch:
+                return batch
+
+    def stats(self) -> Dict[str, float]:
+        return {"total_tokens": self.total_tokens,
+                "decode_steps": self.decode_steps,
+                "decode_tokens": self.decode_tokens,
+                "decode_s": self.decode_s,
+                "prefill_tokens": self.prefill_tokens,
+                "deferrals": self.deferrals}
+
+    def _start_window(self) -> None:
+        batch = self.queue[:self.max_batch]
+        self.queue = self.queue[self.max_batch:]
+        b = self.max_batch                        # fixed bucket shape
+        toks = np.zeros((b, self.prompt_len), np.int32)
+        for i, r in enumerate(batch):
+            toks[i, -r.prompt.shape[0]:] = r.prompt   # left-pad
+        cache = T.init_cache(self.cfg, b, self.max_len, self.tp,
+                             device=self.device)
+        out = T.prefill(self.params, self.cfg,
+                        torch.as_tensor(toks, device=self.device), cache,
+                        self.plan, self.tp)
+        last = torch.argmax(out.logits[:, -1], dim=-1)[:, None].int()
+        max_new = max(r.max_new for r in batch)
+        self.prefill_tokens += self.prompt_len * len(batch)
+        self.total_tokens += sum(1 for r in batch if r.max_new >= 1)
+        self._active = _ActiveWindow(batch, out.cache, last,
+                                     [last.cpu().numpy()], max_new - 1)
+
+    def _finish_if_done(self) -> List[Request]:
+        w = self._active
+        if w is None or w.remaining > 0:
+            return []
+        gen = np.concatenate(w.gen, axis=1)       # [b, max(max_new, 1)]
+        for i, r in enumerate(w.batch):
+            r.output = gen[i, :r.max_new]
+            self.done[r.rid] = r
+        self._active = None
+        return w.batch
+
+
+def engine_or_windowed(params, cfg: ModelConfig,
+                       plan: Optional[PartitionPlan] = None, tp: int = 1,
+                       max_slots: int = 8, prompt_len: int = 32,
+                       max_len: int = 64, block_size: int = 8,
+                       num_blocks: Optional[int] = None,
+                       prefill_chunk: Optional[int] = None,
+                       harden: bool = False, watchdog_steps: int = 8,
+                       scrub_blocks: int = 2,
+                       on_fallback: Optional[Callable[[Exception], None]]
+                       = None, device="cuda"):
+    """The one engine-with-windowed-fallback policy.
+
+    Constructs a :class:`ContinuousBatchingEngine`; stacks paged decode
+    cannot serve (recurrent and hybrid mixers, sliding windows, int8 KV —
+    the engine raises ``ValueError``) fall back to the windowed loop, after
+    calling ``on_fallback(exc)`` if given.  ``watchdog_steps`` and
+    ``scrub_blocks`` tune hardened serving, which the port's engine does
+    not run yet (``harden=True`` raises ``NotImplementedError``).
+    """
+    del watchdog_steps, scrub_blocks
+    if max_len > prompt_len:
+        try:
+            return ContinuousBatchingEngine(
+                params, cfg, plan=plan, tp=tp, max_slots=max_slots,
+                prompt_len=prompt_len, max_len=max_len,
+                block_size=block_size, num_blocks=num_blocks,
+                prefill_chunk=prefill_chunk, harden=harden, device=device)
+        except ValueError as e:    # non-pageable: keep the windowed loop
+            if on_fallback is not None:
+                on_fallback(e)
+    return WindowedBaselineServer(params, cfg, plan=plan, tp=tp,
+                                  max_batch=max_slots,
+                                  prompt_len=prompt_len, max_len=max_len,
+                                  device=device)
+
+
+def BatchingServer(params, cfg: ModelConfig,
+                   plan: Optional[PartitionPlan] = None, tp: int = 1,
+                   max_batch: int = 8, prompt_len: int = 32,
+                   max_len: int = 64, device="cuda"):
+    """Deprecated windowed-server entry point: warns and forwards to
+    :func:`engine_or_windowed`."""
+    warnings.warn(
+        "BatchingServer is deprecated; serve through engine_or_windowed. "
+        "Forwarding to the continuous-batching engine.", DeprecationWarning,
+        stacklevel=2)
+    return engine_or_windowed(params, cfg, plan=plan, tp=tp,
+                              max_slots=max_batch, prompt_len=prompt_len,
+                              max_len=max_len, device=device)

@@ -66,6 +66,10 @@ ENTRY_POINTS = [
     ("repro_torch.models.transformer", "init_paged_decode_cache"),
     ("repro_torch.runtime.paging", "init_paged_cache"),
     ("repro_torch.runtime.serve", "ContinuousBatchingEngine"),
+    ("repro_torch.models.rwkv", "init_rwkv_cache"),
+    ("repro_torch.runtime.serve", "WindowedBaselineServer"),
+    ("repro_torch.runtime.serve", "engine_or_windowed"),
+    ("repro_torch.runtime.serve", "BatchingServer"),
 ]
 
 

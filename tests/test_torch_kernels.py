@@ -1,8 +1,9 @@
 """The port's kernels.  On the CPU: each plain version against the
-reference's Pallas kernel (interpret mode) and its XLA twin or oracle.  On
-a CUDA card (marker ``cuda``, skipped elsewhere): each CUDA kernel against
-its plain version, and the launch counts.  The card has no JAX, so the
-reference is imported only by the tests that use it; there, run
+reference's Pallas kernel (interpret mode) and its XLA twin or oracle (the
+wkv recurrence's CPU tests are in ``test_torch_rwkv.py``).  On a CUDA card
+(marker ``cuda``, skipped elsewhere): each CUDA kernel against its plain
+version, and the launch counts.  The card has no JAX, so the reference is
+imported only by the tests that use it; there, run
 
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_kernels.py
@@ -13,9 +14,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import wkv as wk
 
 RNG = np.random.default_rng(23)
 
@@ -37,11 +40,13 @@ def jx():
     jnp = pytest.importorskip("jax.numpy")
     import ml_dtypes
     from repro.kernels import ops, ref
+    from repro.kernels.flash_attention import flash_attention_pallas
     from repro.kernels.int8_matmul import int8_matmul_pallas
     from repro.kernels.paged_attention import paged_attention_pallas
     return types.SimpleNamespace(
         jnp=jnp, ops=ops, ref=ref, bf16=ml_dtypes.bfloat16,
         int8_matmul_pallas=int8_matmul_pallas,
+        flash_attention_pallas=flash_attention_pallas,
         paged_attention_pallas=paged_attention_pallas)
 
 
@@ -229,3 +234,172 @@ def test_paged_chunk_attention_matches_xla(jx, start, c, page, length):
         torch.tensor(q), torch.tensor(k_pool), torch.tensor(v_pool),
         torch.tensor(table[0]), torch.tensor(qpos)).numpy()
     np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (causal prefill, grouped-query layout)
+# ---------------------------------------------------------------------------
+def _flash_case(b, s, kvp, gp, hd):
+    q = RNG.normal(size=(b, s, kvp, gp, hd)).astype(np.float32)
+    k = RNG.normal(size=(b, s, kvp, hd)).astype(np.float32)
+    v = RNG.normal(size=(b, s, kvp, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _fold(q, k, v):
+    """Grouped layout -> the reference's folded [B*H, S, hd], kv heads
+    repeated (query head kv*gp + g reads kv head kv)."""
+    b, s, kvp, gp, hd = q.shape
+    fold = lambda t: t.transpose(0, 2, 1, 3).reshape(-1, s, hd)
+    return (fold(q.reshape(b, s, kvp * gp, hd)),
+            fold(np.repeat(k, gp, axis=2)), fold(np.repeat(v, gp, axis=2)))
+
+
+@pytest.mark.parametrize("b,s,kvp,gp,hd,block", [
+    (2, 16, 2, 2, 16, 8),         # GQA, two q and two kv blocks
+    (1, 32, 1, 4, 32, 16),
+    (2, 8, 4, 1, 8, 8),           # one query head per kv head
+])
+def test_flash_plain_matches_pallas_and_oracle(jx, b, s, kvp, gp, hd, block):
+    q, k, v = _flash_case(b, s, kvp, gp, hd)
+    fq, fk, fv = (jx.jnp.asarray(t) for t in _fold(q, k, v))
+    want_pallas = np.asarray(jx.flash_attention_pallas(
+        fq, fk, fv, bq=block, bk=block, interpret=True))
+    want_ref = np.asarray(jx.ref.flash_attention_ref(fq, fk, fv))
+    before = fa.flash_attention.launches
+    got = tops.flash_attention(*(torch.from_numpy(t) for t in (q, k, v)))
+    assert fa.flash_attention.launches == before           # CPU: plain
+    want_ops = np.asarray(jx.ops.flash_attention(   # [B, S, H, hd], GQA
+        *(jx.jnp.asarray(t) for t in (q.reshape(b, s, kvp * gp, hd), k, v)),
+        bq=block, bk=block))
+    np.testing.assert_allclose(got.numpy().reshape(want_ops.shape), want_ops,
+                               rtol=1e-5, atol=1e-5)
+    got = got.numpy().transpose(0, 2, 3, 1, 4).reshape(-1, s, hd)
+    np.testing.assert_allclose(got, want_ref, **F32_TOL)
+    np.testing.assert_allclose(got, want_pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [1, 37])
+def test_flash_plain_matches_oracle_at_ragged_s(jx, s):
+    q, k, v = _flash_case(2, s, 2, 3, 16)
+    want = np.asarray(jx.ref.flash_attention_ref(
+        *(jx.jnp.asarray(t) for t in _fold(q, k, v))))
+    got = fa.flash_attention_plain(*(torch.from_numpy(t) for t in (q, k, v)))
+    got = got.numpy().transpose(0, 2, 3, 1, 4).reshape(-1, s, 16)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_flash_plain_is_full_attention_on_causal_positions():
+    from repro_torch.models import attention as TA
+    q, k, v = (torch.from_numpy(t) for t in _flash_case(2, 9, 2, 2, 16))
+    pos = torch.arange(9, dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (q.to(dtype), k.to(dtype), v.to(dtype))
+        assert torch.equal(fa.flash_attention_plain(*args),
+                           TA.full_attention(*args, pos, pos, 0))
+
+
+def test_attention_apply_takes_flash_unless_the_window_bites(monkeypatch):
+    from repro_torch.configs.tiny import TINY
+    from repro_torch.models import attention as TA
+    calls = []
+    real = tops.flash_attention
+    monkeypatch.setattr(tops, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    g = torch.Generator().manual_seed(0)
+    s = 6
+    x = torch.randn((2, s, TINY.d_model), generator=g).bfloat16()
+    pos = torch.arange(s, dtype=torch.int32).expand(2, s)
+    for window, flash in ((0, True), (s, True), (s - 2, False)):
+        cfg = TINY.with_(sliding_window=window)
+        p = TA.attention_init(cfg, 1, g, "cpu")
+        p = {key: val[0] for key, val in p.items()}
+        calls.clear()
+        out, _, _ = TA.attention_apply(p, cfg, x, pos)
+        assert bool(calls) == flash, window
+        assert out.shape == x.shape
+
+
+def test_flash_wrapper_rejects_mismatched_shapes():
+    q, k, v = (torch.from_numpy(t) for t in _flash_case(1, 4, 2, 2, 8))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k[:, :3], v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q[:, :, :1], k, v)
+
+
+FLASH_CARD_CASES = [(8, 32, 8, 5, 128),     # Qwen3-14B admission round
+                    (1, 1, 2, 2, 64),       # S = 1
+                    (2, 37, 2, 3, 64),      # ragged S
+                    (1, 300, 1, 4, 128),    # many tiles, ragged last tile
+                    (2, 33, 4, 1, 16),
+                    (1, 64, 1, 2, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kvp,gp,hd", FLASH_CARD_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, b, s, kvp, gp, hd):
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16)
+               for t in _flash_case(b, s, kvp, gp, hd))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+    # f32 sums in two orders, rounded to bf16: a bf16 ulp or two apart
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=2 ** -10)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_f32_and_refusals_on_card(cuda):
+    q, k, v = (torch.from_numpy(t).to(cuda)
+               for t in _flash_case(2, 45, 2, 3, 32))
+    torch.testing.assert_close(fa.flash_attention(q, k, v),
+                               fa.flash_attention_plain(q, k, v),
+                               rtol=1e-5, atol=1e-5)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.bfloat16(), k, v)
+    with pytest.raises(ValueError):
+        fa.flash_attention(*(torch.zeros((1, 2, 1, 1, 512), device=cuda)
+                             if i == 0 else torch.zeros((1, 2, 1, 512),
+                                                        device=cuda)
+                             for i in range(3)))
+
+
+# ---------------------------------------------------------------------------
+# wkv (RWKV-6 recurrence; CPU tests of the plain version: test_torch_rwkv.py)
+# ---------------------------------------------------------------------------
+def _wkv_case(b, s, h, n, device):
+    mk = lambda: RNG.normal(size=(b, s, h, n)).astype(np.float32)
+    w = np.exp(-np.exp(RNG.normal(size=(b, s, h, n)) - 1)).astype(np.float32)
+    u = RNG.normal(size=(h, n)).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (mk(), mk(), mk(), w, u)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,n", [(8, 128, 40, 64),   # RWKV-6 3B prefill
+                                     (1, 1, 2, 64),       # S = 1
+                                     (2, 37, 3, 16),      # ragged S
+                                     (1, 50, 2, 128), (2, 21, 3, 8)])
+def test_wkv_kernel_matches_plain_output_and_state_on_card(cuda, b, s, h, n):
+    args = _wkv_case(b, s, h, n, cuda)
+    before = wk.wkv.launches
+    y, s_fin = wk.wkv(*args)
+    torch.cuda.synchronize()
+    assert wk.wkv.launches == before + 1
+    y_p, s_p = wk.wkv_plain(*args)
+    # f32 recurrences, summed in two orders
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, s_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u = _wkv_case(1, 4, 2, 64, cuda)
+    with pytest.raises(TypeError):
+        wk.wkv(r.bfloat16(), k, v, w, u)
+    r, k, v, w, u = _wkv_case(1, 4, 2, 24, cuda)
+    with pytest.raises(ValueError):
+        wk.wkv(r, k, v, w, u)
