@@ -5,20 +5,24 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serving paths give
-it, serves a tiny dense model through the engine and ``rwkv6-smoke``
-through the windowed fallback on CUDA and on the CPU and compares the
-greedy streams, then drives the two full-width main paths, each with 12
-greedy requests under the ``"mpai"`` plan and the bf16 plan (random
-weights from a seed): RWKV-6 3B through ``engine_or_windowed``'s windowed
-fallback (wkv kernel in every prefill layer), then Qwen3-14B through
-``ContinuousBatchingEngine`` (flash attention in every admission round,
-paged attention in every decode step).  Prints one JSON line per phase,
-the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
-last line ``{"ok": true, "device": {...}}``.  Any failed check raises, and
-the script exits non-zero; it also exits non-zero where there is no CUDA
-device.  Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB;
-the RWKV-6 3B weights, 12.4 GB, are freed before the Qwen3-14B ones are
-made).
+it, serves tiny models on CUDA and on the CPU and compares the greedy
+streams (a dense and a MoE stack through the engine; ``rwkv6-smoke``,
+``jamba-smoke``, a dense stack with a biting sliding window and one with
+int8 KV through the windowed fallback), then drives the three full-width
+main paths with 12 greedy requests each (random weights from a seed):
+RWKV-6 3B through ``engine_or_windowed``'s windowed fallback (wkv kernel in
+every prefill layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full width,
+one 8-layer super-block deep, through the same fallback (selective scan in
+every Mamba prefill, flash attention in the attention prefill, row-wise
+quant at every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with
+int8 KV; then Qwen3-14B through ``ContinuousBatchingEngine`` (flash
+attention in every admission round, paged attention in every decode step)
+under ``"mpai"`` and bf16.  Prints one JSON line per phase, the card's name
+and power limit, a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
+exits non-zero; it also exits non-zero where there is no CUDA device.
+Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB, Jamba's
+53 GB; each phase frees its weights before the next one makes its own).
 """
 from __future__ import annotations
 
@@ -45,14 +49,22 @@ PAGED_ATTENTION_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 INT8_MATMUL_SRC = "src/repro_torch/kernels/csrc/int8_matmul.cu"
 FLASH_ATTENTION_SRC = "src/repro_torch/kernels/csrc/flash_attention.cu"
 WKV_SRC = "src/repro_torch/kernels/csrc/wkv.cu"
+SELECTIVE_SCAN_SRC = "src/repro_torch/kernels/csrc/selective_scan.cu"
+ROWWISE_QUANT_SRC = "src/repro_torch/kernels/csrc/rowwise_quant.cu"
 PAGED_ATTENTION_TPU = "src/repro/kernels/paged_attention.py:92"
 INT8_MATMUL_TPU = "src/repro/kernels/int8_matmul.py:44"
 FLASH_ATTENTION_TPU = "src/repro/kernels/flash_attention.py:74"
 WKV_TPU = "src/repro/kernels/wkv.py:49"
+SELECTIVE_SCAN_TPU = "src/repro/kernels/selective_scan.py:63"
+ROWWISE_QUANT_TPU = "src/repro/kernels/quant.py:33"
 
 # The RWKV-6 3B serving shape: windows of 8 requests, prompts left-padded
 # to 128 tokens (the wkv kernel's S), room for 32 new tokens.
 RWKV_SERVE = dict(max_slots=8, prompt_len=128, max_len=160)
+# Jamba-v0.1 is served at the RWKV shape: windows of 8, S = 128 for the
+# selective scan and the flash kernel, decode against a 160-slot KV cache.
+JAMBA_SERVE = RWKV_SERVE
+JAMBA_LAYERS = 8          # one super-block: 1 attention + 7 Mamba layers
 # The Qwen3-14B engine shape (the flash kernel's S is prompt_len).
 QWEN_SERVE = dict(max_slots=8, prompt_len=32, max_len=128, block_size=16)
 
@@ -317,6 +329,102 @@ def wkv_phase(timer, wk, dev) -> dict:
             "shapes": f"one RWKV-6 3B prefill layer: B=8 S=128 H={h} N={n}"}
 
 
+def selective_scan_phase(timer, ss, dev) -> dict:
+    """The selective-scan kernel against its plain version, output and final
+    state, at the Jamba prefill window (B = 8, S = 128, d_inner = 8192,
+    N = 16), at a ragged B and S, and at one 2048-token prompt."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    dim, n = 8192, 16
+    rows, errs = {}, []
+    for b, s in ((JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"]),
+                 (3, 37), (1, 2048)):
+        x = torch.randn((b, s, dim), generator=g, device=dev)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, s, dim), generator=g, device=dev) - 3)
+        bm = torch.randn((b, s, n), generator=g, device=dev)
+        cm = torch.randn((b, s, n), generator=g, device=dev)
+        a = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(dim, n).contiguous()
+        d = torch.ones(dim, device=dev)
+        args = (x, dt, bm, cm, a, d)
+        y, h = ss.selective_scan(*args)
+        torch.cuda.synchronize()
+        y_p, h_p = ss.selective_scan_plain(*args)
+        # f32 recurrences: an exp and fma chain against exp and einsum
+        err_y, ok_y = within(y, y_p, 1e-4, 1e-4)
+        err_h, ok_h = within(h, h_p, 1e-4, 1e-4)
+        if not (ok_y and ok_h):
+            raise AssertionError(f"selective_scan disagrees with its plain "
+                                 f"version at B={b} S={s}: max |err| y "
+                                 f"{err_y}, state {err_h}")
+        errs.append(max(err_y, err_h))
+        # each input read once, y and the final state written once
+        nbytes = 4 * (3 * x.numel() + 2 * bm.numel() + a.numel() + dim
+                      + h.numel())
+        # per (b, t, d, n): dt*a, exp, the state's multiply and fma, the
+        # output's fma: 6 f32 operations (the exp counted as one)
+        ops_ = 6 * b * s * dim * n
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = ops_ / PEAK_F32_FLOPS * 1e3
+        rows[(b, s)] = {
+            "ms": timer.ms(lambda: ss.selective_scan(*args)),
+            "plain_ms": timer.ms(lambda: ss.selective_scan_plain(*args),
+                                 reps=3 if s > 512 else 15),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err_y": err_y, "max_abs_err_state": err_h}
+        emit("kernel_selective_scan", B=b, S=s, D=dim, N=n, **rows[(b, s)],
+             library_ms=None, tolerance="1e-4 * |ref| + 1e-4")
+    main = rows[(JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"])]
+    return {"name": "selective_scan", "route": "cuda",
+            "source": SELECTIVE_SCAN_SRC, "replaces": SELECTIVE_SCAN_TPU,
+            "launches": 0, "max_abs_err": max(errs),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by")},
+            "library_ms": None,
+            "shapes": f"one Jamba Mamba prefill layer: B=8 S=128 D={dim} "
+                      f"N={n}"}
+
+
+def rowwise_quant_phase(timer, rq, dev) -> dict:
+    """The row-wise quant kernel against its plain version, codes and
+    scales equal, at the int8 KV cache's shapes of the Jamba attention
+    layer (a decode step's k or v: 8 x 1 x 8 heads of 128; a prefill
+    window's: 8 x 128 x 8 heads), at a ragged M and K, in bf16 and f32."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows, shapes = {}, ((64, 128), (8192, 128), (37, 96))
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, k in shapes:
+            x = (torch.randn((m, k), generator=g, device=dev)
+                 * torch.rand((m, 1), generator=g, device=dev) * 30
+                 ).to(dtype)
+            x[0] = 0                          # the 1e-8 floor
+            q, scale = rq.rowwise_quant(x)
+            torch.cuda.synchronize()
+            q_p, s_p = rq.rowwise_quant_plain(x)
+            if not (torch.equal(q, q_p) and torch.equal(scale, s_p)):
+                raise AssertionError(f"rowwise_quant != plain at M={m} "
+                                     f"K={k} {dtype}")
+            nbytes = x.numel() * x.element_size() + q.numel() + 4 * m
+            # per element: abs, max, divide, round, clamp
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = 5 * x.numel() / PEAK_F32_FLOPS * 1e3
+            row = {"ms": timer.ms(lambda: rq.rowwise_quant(x)),
+                   "plain_ms": timer.ms(lambda: rq.rowwise_quant_plain(x)),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            rows[(m, k, dtype)] = row
+            emit("kernel_rowwise_quant", M=m, K=k,
+                 dtype=str(dtype).replace("torch.", ""), exact=True, **row,
+                 library_ms=None)
+    main = rows[(64, 128, torch.bfloat16)]
+    return {"name": "rowwise_quant", "route": "cuda",
+            "source": ROWWISE_QUANT_SRC, "replaces": ROWWISE_QUANT_TPU,
+            "launches": 0, "max_abs_err": 0.0, **main, "library_ms": None,
+            "shapes": "one int8 KV write of a Jamba decode step: k or v "
+                      "[8, 1, 8, 128] bf16 as M=64 rows of 128"}
+
+
 def tiny_params(cfg, seed: int) -> dict:
     """Reference-layout weights from a seeded numpy RNG (numpy tree, as the
     bridge takes it)."""
@@ -354,21 +462,55 @@ def serve(engine, trace, request_cls) -> dict:
     return {rid: engine.done[rid].output.tolist() for rid, _, _ in trace}
 
 
+def port_weights(cfg, seed: int) -> dict:
+    """The port's own random init of ``cfg`` on the CPU, as a numpy tree
+    (what the bridge takes)."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import transformer as T
+    return tree_map(lambda a: a.numpy(), T.model_init(
+        cfg, torch.Generator().manual_seed(seed), device="cpu"))
+
+
+def near_tie_divergences(what: str, streams: dict, trace, top2_of) -> int:
+    """Requests whose CUDA and CPU greedy streams part.  Each must part at
+    a near-tie of the CPU's top two logits (within 4 bf16 ulps of the top
+    logit: CUDA and CPU sum in different orders and may rank such a pair
+    either way); ``top2_of(rid, t)`` gives them."""
+    ties = 0
+    for rid, _, _ in trace:
+        a, b = streams["cuda"][rid], streams["cpu"][rid]
+        if a == b:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        top2 = top2_of(rid, t)
+        margin = float(top2[0] - top2[1])
+        if margin > 2 ** -5 * abs(float(top2[0])):
+            raise AssertionError(
+                f"{what}: request {rid} diverges at token {t} (cuda {a[t]}, "
+                f"cpu {b[t]}) with top-2 margin {margin}")
+        ties += 1
+    return ties
+
+
 def tiny_phase(dev) -> None:
-    """The tiny config through the engine on CUDA (kernels) and on the CPU
+    """Tiny configs through the engine on CUDA (kernels) and on the CPU
     (plain versions), same bridged weights, same trace: equal greedy
-    streams, unless the CPU logits are a near-tie where they part."""
+    streams, unless the CPU logits are a near-tie where they part.  A
+    dense stack with qk-norm, and a MoE stack (the engine serves MoE
+    attention stacks; its experts are bf16 einsums, not a kernel)."""
     from repro_torch import bridge
-    from repro_torch.configs.base import ModelConfig
+    from repro_torch.configs.base import ModelConfig, MoEConfig
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
     from repro_torch.models import transformer as T
-    from repro_torch.runtime.serve import ContinuousBatchingEngine, Request
+    from repro_torch.runtime.serve import (ContinuousBatchingEngine, Request,
+                                           engine_or_windowed)
 
-    cfg = ModelConfig(name="tiny-qk", family="dense", num_layers=2,
-                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
-                      vocab_size=256, qk_norm=True, remat=False)
-    weights = tiny_params(cfg, seed=0)
+    dense = ModelConfig(name="tiny-qk", family="dense", num_layers=2,
+                        d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                        vocab_size=256, qk_norm=True, remat=False)
+    moe = dense.with_(name="tiny-moe", qk_norm=False,
+                      moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32))
     rng = np.random.default_rng(2)
     shared = rng.integers(0, 256, 20).astype(np.int32)
     trace = []
@@ -379,47 +521,55 @@ def tiny_phase(dev) -> None:
             p = rng.integers(0, 256, int(rng.integers(1, 9))).astype(np.int32)
         trace.append((rid, p, [0, 1, 6, 8, 3, 7, 4, 2, 5][rid]))
     kw = dict(max_slots=3, prompt_len=8, max_len=40, block_size=4)
-    for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(2))),
-                       ("bf16", None)):
-        streams = {}
-        for where in (dev, torch.device("cpu")):
-            params = bridge.to_torch(weights, where)
-            eng = ContinuousBatchingEngine(params, cfg, plan=plan,
-                                           device=where, **kw)
-            streams[where.type] = serve(eng, trace, Request)
-            if where.type == "cpu":
-                cpu_params, padded_len = params, eng.padded_prompt_len
-        ties = 0
-        for rid, prompt, _ in trace:
-            a, b = streams["cuda"][rid], streams["cpu"][rid]
-            if a == b:
-                continue
-            t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            ctx = np.zeros(padded_len(len(prompt)), np.int32)
-            ctx[-len(prompt):] = prompt
-            ctx = np.concatenate([ctx, np.asarray(b[:t], np.int32)])
-            logits = T.forward(cpu_params, cfg, torch.as_tensor(ctx[None]),
-                               plan).logits[0, -1].float()
-            top2 = torch.topk(logits, 2).values
-            margin = float(top2[0] - top2[1])
-            # a tie within 4 bf16 ulps of the top logit: CUDA and CPU GEMMs
-            # sum in different orders and may rank such a pair either way
-            if margin > 2 ** -5 * abs(float(top2[0])):
-                raise AssertionError(
-                    f"tiny {name}: request {rid} diverges at token {t} "
-                    f"(cuda {a[t]}, cpu {b[t]}) with top-2 margin {margin}")
-            ties += 1
-        emit("tiny_engine", plan=name, requests=len(trace),
-             tokens=sum(len(s) for s in streams["cuda"].values()),
-             streams_equal=len(trace) - ties, near_tie_divergences=ties)
+    for cfg, weights in ((dense, tiny_params(dense, seed=0)),
+                         (moe, port_weights(moe, seed=0))):
+        for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(2))),
+                           ("bf16", None)):
+            streams = {}
+            for where in (dev, torch.device("cpu")):
+                params = bridge.to_torch(weights, where)
+                eng = engine_or_windowed(params, cfg, plan=plan,
+                                         device=where, **kw)
+                if not isinstance(eng, ContinuousBatchingEngine):
+                    raise AssertionError(f"{cfg.name}: engine_or_windowed "
+                                         f"gave {type(eng).__name__}")
+                streams[where.type] = serve(eng, trace, Request)
+                if where.type == "cpu":
+                    cpu_params, padded_len = params, eng.padded_prompt_len
+
+            def top2_of(rid, t):
+                prompt, out = trace[rid][1], streams["cpu"][rid]
+                ctx = np.zeros(padded_len(len(prompt)), np.int32)
+                ctx[-len(prompt):] = prompt
+                ctx = np.concatenate([ctx, np.asarray(out[:t], np.int32)])
+                logits = T.forward(cpu_params, cfg,
+                                   torch.as_tensor(ctx[None]),
+                                   plan).logits[0, -1].float()
+                return torch.topk(logits, 2).values
+            ties = near_tie_divergences(f"{cfg.name} {name}", streams, trace,
+                                        top2_of)
+            emit("tiny_engine", plan=name, config=cfg.name,
+                 requests=len(trace),
+                 tokens=sum(len(s) for s in streams["cuda"].values()),
+                 streams_equal=len(trace) - ties, near_tie_divergences=ties)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper, by its row name in the ``kernels`` line."""
+    from repro_torch.kernels import (flash_attention, int8_matmul,
+                                     paged_attention, quant, selective_scan,
+                                     wkv)
+    return {"paged_attention": paged_attention.paged_attention,
+            "int8_matmul": int8_matmul.int8_matmul,
+            "flash_attention": flash_attention.flash_attention,
+            "wkv": wkv.wkv,
+            "selective_scan": selective_scan.selective_scan,
+            "rowwise_quant": quant.rowwise_quant}
 
 
 def zero_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from repro_torch.kernels import (flash_attention, int8_matmul,
-                                     paged_attention, wkv)
-    for wrapper in (flash_attention.flash_attention, int8_matmul.int8_matmul,
-                    paged_attention.paged_attention, wkv.wkv):
+    for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
 
 
@@ -449,80 +599,83 @@ def drive_windowed(server, trace, request_cls, logits=None) -> dict:
 
 
 def tiny_windowed_phase(dev) -> None:
-    """``rwkv6-smoke`` through ``engine_or_windowed`` on CUDA (the wkv
-    kernel) and on the CPU (its plain version), same bridged weights, same
-    trace: equal greedy streams, unless the CPU logits are a near-tie
-    where they part."""
+    """Tiny stacks through ``engine_or_windowed``'s windowed fallback on
+    CUDA (the kernels) and on the CPU (their plain versions), same bridged
+    weights, same trace: equal greedy streams, unless the CPU logits are a
+    near-tie where they part.  ``rwkv6-smoke`` (wkv), ``jamba-smoke``
+    (selective scan, flash attention, MoE), and the tiny dense stack with a
+    sliding window that bites (ring cache) and with int8 KV (row-wise
+    quant)."""
     from repro_torch import bridge
-    from repro_torch.configs.rwkv6_3b import SMOKE
+    from repro_torch.configs.jamba_v0_1_52b import SMOKE as JAMBA
+    from repro_torch.configs.rwkv6_3b import SMOKE as RWKV
+    from repro_torch.configs.tiny import TINY
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
-    from repro_torch.core.tree import tree_map
-    from repro_torch.kernels import wkv as wk
     from repro_torch.models import transformer as T
     from repro_torch.runtime.serve import (Request, WindowedBaselineServer,
                                            engine_or_windowed)
 
-    cfg = SMOKE
-    weights = tree_map(lambda a: a.numpy(), T.model_init(
-        cfg, torch.Generator().manual_seed(0), device="cpu"))
-    rng = np.random.default_rng(6)
-    trace = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(1, 9))
-                                ).astype(np.int32), max_new)
-             for rid, max_new in enumerate([5, 0, 8, 1, 3, 7, 2])]
+    wrappers = kernel_wrappers()
+    # each config and the kernels its CUDA run must launch
+    cases = ((RWKV, ("wkv",)),
+             (JAMBA, ("selective_scan", "flash_attention")),
+             (TINY.with_(name="tiny-window", sliding_window=4), ()),
+             (TINY.with_(name="tiny-int8kv", kv_cache_dtype="int8"),
+              ("rowwise_quant", "flash_attention")))
     kw = dict(max_slots=3, prompt_len=8, max_len=20)
     real_prefill, real_decode = T.prefill, T.decode_step
-    for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(2))),
-                       ("bf16", None)):
-        streams = {}
-        for side, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
-            fallbacks = []
-            srv = engine_or_windowed(bridge.to_torch(weights, where), cfg,
-                                     plan=plan, on_fallback=fallbacks.append,
-                                     device=where, **kw)
-            if not (isinstance(srv, WindowedBaselineServer)
-                    and len(fallbacks) == 1):
-                raise AssertionError(f"rwkv6-smoke: got {type(srv).__name__}"
-                                     f" and fallbacks {fallbacks}")
-            if side == "cuda":
-                wk.wkv.launches = 0
-                streams["cuda"] = drive_windowed(srv, trace, Request)
-                if wk.wkv.launches == 0:
-                    raise AssertionError("tiny windowed: no wkv launch")
-                continue
-            logits = []
+    for cfg, kernels in cases:
+        weights = port_weights(cfg, seed=0)
+        rng = np.random.default_rng(6)
+        trace = [(rid, rng.integers(0, cfg.vocab_size,
+                                    int(rng.integers(1, 9))).astype(np.int32),
+                  max_new)
+                 for rid, max_new in enumerate([5, 0, 8, 1, 3, 7, 2])]
+        for name, plan in (("mpai", qat.serve_plan(
+                PartitionPlan.mpai(cfg.num_layers))), ("bf16", None)):
+            streams = {}
+            for side, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+                fallbacks = []
+                srv = engine_or_windowed(bridge.to_torch(weights, where), cfg,
+                                         plan=plan,
+                                         on_fallback=fallbacks.append,
+                                         device=where, **kw)
+                if not (isinstance(srv, WindowedBaselineServer)
+                        and len(fallbacks) == 1):
+                    raise AssertionError(f"{cfg.name}: got "
+                                         f"{type(srv).__name__} and "
+                                         f"fallbacks {fallbacks}")
+                if side == "cuda":
+                    zero_counts()
+                    streams["cuda"] = drive_windowed(srv, trace, Request)
+                    idle = [k for k in kernels if not wrappers[k].launches]
+                    if idle:
+                        raise AssertionError(f"tiny windowed {cfg.name}: no "
+                                             f"launch of {idle}")
+                    continue
+                logits = []
 
-            def keep(fn):
-                def call(*a, **k):
-                    out = fn(*a, **k)
-                    logits.append(out.logits[:, -1].float())
-                    return out
-                return call
-            T.prefill, T.decode_step = keep(real_prefill), keep(real_decode)
-            try:
-                streams["cpu"], behind = drive_windowed(srv, trace, Request,
-                                                        logits)
-            finally:
-                T.prefill, T.decode_step = real_prefill, real_decode
-        ties = 0
-        for rid, _, _ in trace:
-            a, b = streams["cuda"][rid], streams["cpu"][rid]
-            if a == b:
-                continue
-            t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
-            top2 = torch.topk(behind[rid][t], 2).values
-            margin = float(top2[0] - top2[1])
-            # a tie within 4 bf16 ulps of the top logit
-            if margin > 2 ** -5 * abs(float(top2[0])):
-                raise AssertionError(
-                    f"tiny windowed {name}: request {rid} diverges at token "
-                    f"{t} (cuda {a[t]}, cpu {b[t]}) with top-2 margin "
-                    f"{margin}")
-            ties += 1
-        emit("tiny_windowed", plan=name, config=cfg.name,
-             requests=len(trace),
-             tokens=sum(len(s) for s in streams["cuda"].values()),
-             streams_equal=len(trace) - ties, near_tie_divergences=ties)
+                def keep(fn):
+                    def call(*a, **k):
+                        out = fn(*a, **k)
+                        logits.append(out.logits[:, -1].float())
+                        return out
+                    return call
+                T.prefill = keep(real_prefill)
+                T.decode_step = keep(real_decode)
+                try:
+                    streams["cpu"], behind = drive_windowed(srv, trace,
+                                                            Request, logits)
+                finally:
+                    T.prefill, T.decode_step = real_prefill, real_decode
+            ties = near_tie_divergences(
+                f"tiny windowed {cfg.name} {name}", streams, trace,
+                lambda rid, t: torch.topk(behind[rid][t], 2).values)
+            emit("tiny_windowed", plan=name, config=cfg.name,
+                 requests=len(trace),
+                 tokens=sum(len(s) for s in streams["cuda"].values()),
+                 streams_equal=len(trace) - ties, near_tie_divergences=ties)
 
 
 def rwkv_full_width_phase(dev, card: str, wk, im, fa) -> dict:
@@ -610,6 +763,107 @@ def rwkv_full_width_phase(dev, card: str, wk, im, fa) -> dict:
     torch.cuda.empty_cache()
     if torch.cuda.memory_allocated(dev) > 2 ** 30:
         raise AssertionError(f"rwkv phase left "
+                             f"{torch.cuda.memory_allocated(dev) / 1e9} GB "
+                             f"allocated")
+    return launches
+
+
+def jamba_full_width_phase(dev, card: str) -> dict:
+    """Jamba-v0.1 at full width, one super-block (8 layers) deep, through
+    ``engine_or_windowed``'s windowed fallback, under "mpai", bf16 and
+    "mpai" with int8 KV.  Returns each kernel's launches in each run,
+    counted from 0."""
+    from repro_torch.configs.jamba_v0_1_52b import FULL
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import (Request, WindowedBaselineServer,
+                                           engine_or_windowed)
+
+    cfg = FULL.with_(num_layers=JAMBA_LAYERS)
+    pat = T.sublayer_pattern(cfg)
+    n_mamba = sum(kind == "mamba" for kind, _ in pat)
+    n_attn = sum(kind == "attention" for kind, _ in pat)
+    t0 = time.perf_counter()
+    params = T.model_init(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    emit("jamba_full_width_init", config=cfg.name, layers=cfg.num_layers,
+         params=cfg.param_count(), seconds=time.perf_counter() - t0,
+         param_gb=torch.cuda.memory_allocated(dev) / 1e9)
+    rng = np.random.default_rng(11)
+    top = JAMBA_SERVE["prompt_len"]                   # prompts of 2..128
+    room = JAMBA_SERVE["max_len"] - top               # max_new of 1..32
+    trace = []
+    for rid in range(12):
+        n = top if rid == 5 else int(rng.integers(2, top + 1))
+        prompt = rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+        trace.append((rid, prompt,
+                      1 if rid == 2 else int(rng.integers(1, room + 1))))
+    warm = [(-1, np.array([1, 2, 3], np.int32), 2)]
+
+    wrappers = kernel_wrappers()
+    launches = {k: {} for k in wrappers}
+    mpai = qat.serve_plan(PartitionPlan.mpai(cfg.num_layers))
+    runs = (("mpai", cfg, mpai), ("bf16", cfg, None),
+            ("mpai_int8kv", cfg.with_(kv_cache_dtype="int8"), mpai))
+    for name, run_cfg, plan in runs:
+        # keep the engine's refusal, not its traceback: the frames would
+        # hold the weights past this phase
+        fallbacks = []
+        srv = engine_or_windowed(
+            params, run_cfg, plan=plan, device=dev, **JAMBA_SERVE,
+            on_fallback=lambda e: fallbacks.append(e.with_traceback(None)))
+        if not (isinstance(srv, WindowedBaselineServer) and len(fallbacks) == 1
+                and isinstance(fallbacks[0], ValueError)):
+            raise AssertionError(f"jamba: engine_or_windowed gave "
+                                 f"{type(srv).__name__}, fallbacks "
+                                 f"{fallbacks}")
+        drive_windowed(srv, warm, Request)    # first-use costs
+        srv.reset_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        windows = -(-len(trace) // srv.max_batch)
+        zero_counts()                         # the main path's counts
+        t0 = time.perf_counter()
+        out = drive_windowed(srv, trace, Request)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, v in got.items():
+            launches[k][f"{cfg.name}/{name}"] = v
+        for rid, _, max_new in trace:
+            toks = out[rid]
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+                raise AssertionError(f"jamba {name}: request {rid} returned "
+                                     f"{toks} for max_new={max_new}")
+        st = srv.stats()
+        steps = st["decode_steps"]
+        want = {"selective_scan": n_mamba * windows,
+                "flash_attention": n_attn * windows,
+                "rowwise_quant": (2 * n_attn * (windows + steps)
+                                  if run_cfg.kv_cache_dtype == "int8" else 0),
+                "paged_attention": 0, "wkv": 0}
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad or (got["int8_matmul"] > 0) != (plan is not None):
+            raise AssertionError(f"jamba {name}: launches (got, want) {bad}, "
+                                 f"int8_matmul {got['int8_matmul']}")
+        emit("jamba_full_width_serve", plan=name, card=card,
+             config=cfg.name, layers=cfg.num_layers,
+             kv_cache_dtype=run_cfg.kv_cache_dtype, requests=len(trace),
+             tokens=st["total_tokens"], windows=windows, decode_steps=steps,
+             decode_tok_s=st["decode_tokens"] / st["decode_s"],
+             mean_step_ms=st["decode_s"] / steps * 1e3,
+             prefill_tokens=st["prefill_tokens"], wall_s=wall,
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             **{f"{k}_launches": v for k, v in got.items()})
+        del srv
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.cuda.memory_allocated(dev) > 2 ** 30:
+        raise AssertionError(f"jamba phase left "
                              f"{torch.cuda.memory_allocated(dev) / 1e9} GB "
                              f"allocated")
     return launches
@@ -707,8 +961,11 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant as rq
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import wkv as wk
 
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -733,18 +990,27 @@ def main() -> int:
     rows = [paged_attention_phase(timer, pa, dev),
             int8_matmul_phase(timer, im, dev),
             flash_attention_phase(timer, fa, dev),
-            wkv_phase(timer, wk, dev)]
+            wkv_phase(timer, wk, dev),
+            selective_scan_phase(timer, ss, dev),
+            rowwise_quant_phase(timer, rq, dev)]
     del timer
     tiny_phase(dev)
     tiny_windowed_phase(dev)
-    launches = rwkv_full_width_phase(dev, card, wk, im, fa)
-    for name, by_plan in full_width_phase(dev, card, pa, im, fa).items():
-        launches.setdefault(name, {}).update(by_plan)
+    launches = {row["name"]: {} for row in rows}
+    for phase in (lambda: rwkv_full_width_phase(dev, card, wk, im, fa),
+                  lambda: jamba_full_width_phase(dev, card),
+                  lambda: full_width_phase(dev, card, pa, im, fa)):
+        for name, by_plan in phase().items():
+            launches[name].update(by_plan)
     for row in rows:
         # each (config, plan) run is a main path, counted from 0 on its
         # own; "launches" is their sum, "launches_by_plan" keeps them apart
         row["launches_by_plan"] = launches[row["name"]]
         row["launches"] = sum(launches[row["name"]].values())
+        if row["name"] in ("selective_scan", "rowwise_quant") and \
+                not row["launches"]:
+            raise AssertionError(f"{row['name']}: no launch on the main path")
+    emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

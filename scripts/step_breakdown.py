@@ -5,9 +5,10 @@
 
 Serves Qwen3-14B at full width (random weights from seed 0) through
 ``ContinuousBatchingEngine`` with all 8 slots live, then RWKV-6 3B at full
-width and depth through the windowed server (``engine_or_windowed``'s
-fallback) with a window of 8 live requests, each under the ``"mpai"`` plan
-and then the bf16 plan, and prints one JSON line per (config, plan):
+width and depth and Jamba-v0.1 at full width, one 8-layer super-block
+deep, through the windowed server (``engine_or_windowed``'s fallback) with
+a window of 8 live requests, each under the ``"mpai"`` plan and then the
+bf16 plan, and prints one JSON line per (config, plan):
 
 - ``step_ms``: wall time of one engine decode step (host and device);
 - ``device_step_ms``: device time of the same decode step, captured once
@@ -22,10 +23,14 @@ and then the bf16 plan, and prints one JSON line per (config, plan):
   flushed before each replay, times its count per step: the per-call
   weight conversion ``pdot`` does (quantize for int8 segments, bf16 cast
   for bf16 ones), the activation quantize, the GEMMs, the paged attention
-  kernel on the live caches (Qwen3) or the one-step wkv recurrence (RWKV),
-  and the lm head.  ``other_device_ms`` is the rest of ``device_step_ms``:
-  norms, rope, epilogues, KV appends (Qwen3); token-shift mixes, decay and
-  mixing loras, group norm, gates (RWKV).
+  kernel on the live caches (Qwen3), the one-step wkv recurrence (RWKV),
+  or (Jamba) the seven Mamba layers' one-step recurrences, the four MoE
+  layers' expert weight casts and expert einsums, and the attention
+  layer's dense-cache decode attention; and the lm head.
+  ``other_device_ms`` is the rest of ``device_step_ms``: norms, rope,
+  epilogues, KV appends (Qwen3); token-shift mixes, decay and mixing
+  loras, group norm, gates (RWKV); the Mamba convs, ``dt`` projections and
+  gates, routers and dispatch (Jamba).
 
 Needs one card with 80 GB; builds the port's kernels on first use.
 """
@@ -80,14 +85,21 @@ class GraphTimer:
 
 def weight_parts(ws, m: int, cfg, plan, timer, dev) -> dict:
     """Device ms per step of what ``pdot`` does with each weight in ``ws``
-    (one layer's matrices) at M = ``m`` rows, times the layers of each
-    precision: quantize or cast at use, activation quantize, the GEMM."""
+    (one super-block's matrices) at M = ``m`` rows, times the super-blocks
+    of each precision: quantize or cast at use, activation quantize, the
+    GEMM."""
     from repro_torch.core.quantization import quantize
     from repro_torch.kernels.ops import int8_matmul
 
+    from repro_torch.models import transformer as T
+
+    # ``ws`` are one super-block's matrices
+    period = T.pattern_period(cfg)
+    if plan is not None:                # as forward runs it
+        plan = plan.align_to_period(period, cfg.num_layers)
     n_int8 = sum(s.num_layers for s in (plan.segments if plan else ())
-                 if s.policy.mode == "quant")
-    n_bf16 = cfg.num_layers - n_int8
+                 if s.policy.mode == "quant") // period
+    n_bf16 = cfg.num_layers // period - n_int8
     parts = {}
     if n_int8:
         conv = gemm = actq = 0.0
@@ -258,12 +270,118 @@ def rwkv_breakdown(params, cfg, plan, name: str, card: str, timer,
     report(cfg, name, card, m, step_ms, device_step_ms, host, parts)
 
 
+def jamba_breakdown(params, cfg, plan, name: str, card: str, timer,
+                    dev) -> None:
+    from repro_torch.core.precision import DEFAULT_POLICY
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import lm_logits
+    from repro_torch.runtime.serve import Request, engine_or_windowed
+
+    m, prompt_len, max_len = 8, 128, 160
+    srv = engine_or_windowed(params, cfg, plan=plan, device=dev,
+                             max_slots=m, prompt_len=prompt_len,
+                             max_len=max_len)
+    rng = np.random.default_rng(4)
+    for i in range(m):
+        srv.submit(Request(i, rng.integers(0, cfg.vocab_size, 16)
+                           .astype(np.int32), max_new=32))
+    srv.step()                          # the window's prefill
+    srv.step()
+    torch.cuda.synchronize()
+    steps0, reps = srv.decode_steps, 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / reps * 1e3
+    if srv.decode_steps != steps0 + reps or srv.occupancy != 1.0:
+        raise AssertionError(f"{name}: the timed steps were not all "
+                             f"full-window decode steps")
+
+    # the same decode step on caches of its own, prefilled and stepped once
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (m, prompt_len)),
+                           dtype=torch.int32, device=dev)
+    out = T.prefill(params, cfg, toks,
+                    T.init_cache(cfg, m, max_len, device=dev), plan)
+    tok = torch.argmax(out.logits[:, -1], dim=-1)[:, None].int()
+    caches = T.decode_step(params, cfg, tok, out.cache, plan).cache
+    host = host_split(lambda: T.decode_step(params, cfg, tok, caches, plan))
+
+    pat = T.sublayer_pattern(cfg)
+    blk = tree_map(lambda a: a[0], params["layers"])
+    ws, moes, mambas = [], [], []
+    for j, (kind, is_moe) in enumerate(pat):
+        sub = blk[f"sub_{j}"]
+        if kind == "attention":
+            ws += [sub["mixer"][k] for k in ("wq", "wk", "wv", "wo")]
+            kv = tree_map(lambda a: a[0], caches[f"sub_{j}"])
+        else:
+            ws += [sub["mixer"][k] for k in ("in_proj", "x_proj",
+                                             "out_proj")]
+            mambas.append((sub["mixer"], caches[f"sub_{j}"][0]))
+        if is_moe:
+            moes.append(sub["mlp"])
+        else:
+            ws += [sub["mlp"][k] for k in ("w_in", "w_gate", "w_out")]
+    n_super = cfg.num_layers // len(pat)
+    parts = weight_parts(ws, m, cfg, plan, timer, dev)
+    policy = plan.segments[0].policy if plan else DEFAULT_POLICY
+    dt = policy.precision.compute_dtype
+    cast = lambda p: [p[k].to(dt) for k in ("w_in", "w_gate", "w_out")]
+    parts["moe_expert_cast"] = n_super * sum(
+        timer.ms(lambda: cast(p)) for p in moes)
+    # the flat decode dispatch: every expert runs its t * k slots
+    buf = torch.randn((cfg.moe.num_experts, m * cfg.moe.top_k,
+                       cfg.d_model), device=dev).to(dt)
+    einsum_ms = 0.0
+    for p in moes:
+        experts = dict(zip(("w_in", "w_gate", "w_out"), cast(p)))
+        einsum_ms += timer.ms(lambda: moe_mod._expert_ffn(
+            experts, buf, cfg.act, cfg.glu, policy))
+        del experts
+    parts["moe_expert_einsum"] = n_super * einsum_ms
+    mc = cfg.mamba
+    di = mc.expand * cfg.d_model
+    dt_, xcf = (torch.rand((m, di), device=dev) * 0.1,
+                torch.randn((m, di), device=dev))
+    b_t, c_t = (torch.randn((m, mc.d_state), device=dev) for _ in range(2))
+
+    def recurrence(mix, st):            # mamba_decode_step's exact step
+        a = -torch.exp(mix["A_log"])
+        h = (torch.exp(dt_[..., None] * a) * st.h
+             + (dt_ * xcf)[..., None] * b_t[:, None, :])
+        return torch.einsum("bdn,bn->bd", h, c_t) + xcf * mix["D"]
+    parts["mamba_decode_step_recurrence"] = n_super * sum(
+        timer.ms(lambda: recurrence(mix, st)) for mix, st in mambas)
+    lay = attn.head_layout(cfg.num_heads, cfg.num_kv_heads, 1)
+    hd = cfg.resolved_head_dim()
+    q = torch.randn((m, 1, lay.KVp, lay.gp, hd), device=dev)
+
+    def dense_attention():              # decode_attention_apply's read
+        s = torch.einsum("bskgd,btkd->bkgst", q,
+                         attn._cache_deq(kv.k, kv.k_scale))
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgst,btkd->bskgd", w,
+                            attn._cache_deq(kv.v, kv.v_scale))
+    parts["dense_decode_attention"] = n_super * timer.ms(dense_attention)
+    xh = torch.randn((m, 1, cfg.d_model), device=dev).bfloat16()
+    head = plan.head_policy if plan else DEFAULT_POLICY
+    parts["lm_head"] = timer.ms(lambda: lm_logits(params["lm_head"], xh,
+                                                  head))
+    device_step_ms = timer.ms(
+        lambda: T.decode_step(params, cfg, tok, caches, plan), scrub=False)
+    report(cfg, name, card, m, step_ms, device_step_ms, host, parts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("step_breakdown: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import qwen3_14b, rwkv6_3b
+    from repro_torch.configs import jamba_v0_1_52b, qwen3_14b, rwkv6_3b
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
     from repro_torch.models import transformer as T
@@ -277,7 +395,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     timer = GraphTimer(dev)
     for cfg, run in ((qwen3_14b.FULL, breakdown),
-                     (rwkv6_3b.FULL, rwkv_breakdown)):
+                     (rwkv6_3b.FULL, rwkv_breakdown),
+                     (jamba_v0_1_52b.FULL.with_(num_layers=8),
+                      jamba_breakdown)):
         params = T.model_init(cfg, torch.Generator(device=dev).manual_seed(0),
                               device=dev)
         for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(

@@ -22,9 +22,7 @@ import torch
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops as kops
-
-INT8_QMAX = 127.0
-INV_QMAX = float(torch.tensor(1.0 / INT8_QMAX, dtype=torch.float32))
+from repro_torch.kernels.quant import INT8_QMAX, INV_QMAX
 
 
 class QTensor(NamedTuple):

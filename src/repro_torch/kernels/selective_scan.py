@@ -1,0 +1,89 @@
+"""Mamba-1 selective scan: the CUDA kernel and its plain version.
+
+Replaces the TPU kernel ``selective_scan_pallas`` (``repro/kernels/
+selective_scan.py``), which computes the same recurrence as the Mamba
+mixer's chunked associative scan (``mamba._chunk_scan``): per channel d,
+``h_t = exp(dt_t a_d) h_{t-1} + (dt_t x_t) B_t`` and ``y_t = h_t . C_t +
+D_d x_t``, from a zero state.  Both versions here also return the final
+state ``h_S`` ``[B, D, N]``, which the prefill hands to the decode cache
+(the TPU kernel keeps it in VMEM scratch and drops it).
+
+The kernel (``csrc/selective_scan.cu``) keeps one channel's N states in a
+thread's registers for the whole sequence, 64 channels a block, timesteps
+staged through shared memory in chunks.  It takes any S and D, so the
+reference wrapper's padding is not needed.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+STATE_SIZES = (4, 8, 16, 32, 64)     # N values compiled in
+# x, dt, b, c, a, d, y, h_fin, B, S, D, N, stream (csrc/selective_scan.cu)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def selective_scan_plain(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                         c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
+    """The sequential recurrence in f32 (the reference's
+    ``ref.selective_scan_ref``).
+
+    x, dt: [B, S, D]; b, c: [B, S, N]; a: [D, N]; d: [D] -> (y [B, S, D],
+    final state [B, D, N]), both f32."""
+    bsz, s, dim = x.shape
+    x, dt, b, c, a, d = (t.float() for t in (x, dt, b, c, a, d))
+    h = torch.zeros((bsz, dim, a.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        a_bar = torch.exp(dt[:, t, :, None] * a)                  # [B,D,N]
+        h = a_bar * h + (dt[:, t] * x[:, t])[:, :, None] * b[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]) + d * x[:, t])
+    y = (torch.stack(ys, dim=1) if ys else
+         torch.zeros((bsz, 0, dim), dtype=torch.float32, device=x.device))
+    return y, h
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+                   c: torch.Tensor, a: torch.Tensor, d: torch.Tensor):
+    """Fused selective scan (shapes as the plain version; ragged S and D
+    are fine).
+
+    CUDA tensors launch the kernel (f32 everywhere, N in ``STATE_SIZES``);
+    CPU tensors take the plain version."""
+    bsz, s, dim = x.shape
+    n = a.shape[-1]
+    if (dt.shape != x.shape or b.shape != (bsz, s, n) or c.shape != b.shape
+            or a.shape != (dim, n) or d.shape != (dim,)):
+        raise ValueError(f"selective_scan: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, b {tuple(b.shape)}, c "
+                         f"{tuple(c.shape)}, a {tuple(a.shape)}, d "
+                         f"{tuple(d.shape)}")
+    if not x.is_cuda:
+        return selective_scan_plain(x, dt, b, c, a, d)
+    if any(t.dtype != torch.float32 for t in (x, dt, b, c, a, d)):
+        raise TypeError("selective_scan kernel takes f32 x, dt, b, c, a, d")
+    if n not in STATE_SIZES:
+        raise ValueError(f"selective_scan kernel: state size {n} (compiled: "
+                         f"{STATE_SIZES})")
+    for t in (dt, b, c, a, d):
+        if t.device != x.device:
+            raise ValueError("selective_scan: tensors on different devices")
+    x, dt, b, c, a, d = (t.contiguous() for t in (x, dt, b, c, a, d))
+    y = torch.empty_like(x)
+    h_fin = torch.empty((bsz, dim, n), dtype=torch.float32, device=x.device)
+    if bsz == 0 or dim == 0:
+        return y, h_fin
+    fn = build.entry("selective_scan", "selective_scan_f32", _ARGTYPES)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
+                   a.data_ptr(), d.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
+                   bsz, s, dim, n, stream), "selective_scan")
+    selective_scan.launches += 1
+    return y, h_fin
+
+
+selective_scan.launches = 0

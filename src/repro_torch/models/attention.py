@@ -18,6 +18,9 @@ Paths:
     prefill)
   * paged decode / paged chunk prefill — against the block pools of
     ``runtime/paging.py``, through the kernels of ``kernels/ops.py``
+  * dense decode — against a :class:`KVCache` (the windowed loop; ring
+    buffer under a sliding window, int8 KV through the row-wise quant
+    kernel)
 """
 from __future__ import annotations
 
@@ -223,10 +226,100 @@ def attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 class KVCache(NamedTuple):
-    """Dense prefill-target cache of one attention sublayer (bf16 KV; the
-    engine pastes it into its paged pools)."""
-    k: torch.Tensor       # [B, T, KVp, hd]
+    """Dense cache of one attention sublayer: the prefill target the engine
+    pastes into its paged pools, and the cache the windowed loop decodes
+    against.  Prefill and decode write it in place."""
+    k: torch.Tensor       # [B, T, KVp, hd]  (bf16, or int8 + scales)
     v: torch.Tensor
+    pos: torch.Tensor     # [] int32: tokens seen so far
+    k_scale: Optional[torch.Tensor] = None  # [B, T, KVp, 1] f32 (int8 mode)
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+def _cache_quant(x: torch.Tensor):
+    """Per-token-per-head absmax int8 through the row-wise quant kernel.
+    x: [..., hd] -> (int8 [..., hd], f32 scale [..., 1])."""
+    q, scale = kops.rowwise_quant(x.reshape(-1, x.shape[-1]))
+    return q.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
+
+
+def _cache_deq(q: torch.Tensor,
+               scale: Optional[torch.Tensor]) -> torch.Tensor:
+    if scale is None:
+        return q.float()
+    return q.float() * scale
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
+                  lead: Tuple[int, ...] = (), device="cuda") -> KVCache:
+    """A fresh dense cache (``lead`` prepends stacking axes, e.g. the
+    super-block axis): bf16 k/v, or int8 k/v with f32 scales of one when
+    ``cfg.kv_cache_dtype == "int8"``; a sliding window bounds its length."""
+    lay = head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
+    hd = cfg.resolved_head_dim()
+    length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
+              else max_len)
+    shape = (*lead, batch, length, lay.KVp, hd)
+    pos = torch.zeros(lead, dtype=torch.int32, device=device)
+    if cfg.kv_cache_dtype == "int8":
+        sshape = (*lead, batch, length, lay.KVp, 1)
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       pos,
+                       torch.ones(sshape, dtype=torch.float32, device=device),
+                       torch.ones(sshape, dtype=torch.float32, device=device))
+    return KVCache(torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                   torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                   pos)
+
+
+def decode_slot(cfg: ModelConfig, pos: torch.Tensor, t: int) -> torch.Tensor:
+    """The cache slot a decode step at position ``pos`` writes: the ring
+    slot ``pos % t`` under a sliding window, else ``min(pos, t - 1)``."""
+    return pos % t if cfg.sliding_window else pos.clamp(max=t - 1)
+
+
+def decode_attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                           cache: KVCache,
+                           policy: PrecisionPolicy = DEFAULT_POLICY
+                           ) -> torch.Tensor:
+    """One-token decode step against a dense cache.  x: [B, 1, D].
+
+    The new token's k/v (quantized in int8 mode) are written at
+    :func:`decode_slot` and ``pos`` advances, in place; attention then reads
+    every slot written so far (the whole ring under a sliding window) in
+    f32, as the reference does in XLA."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim()
+    t = cache.k.shape[1]
+    q, k, v = _project_qkv(params, cfg, x, cache.pos.expand(b, 1), policy)
+    slot = decode_slot(cfg, cache.pos, t).reshape(1).long()
+    if cache.quantized:
+        (k, ks), (v, vs) = _cache_quant(k), _cache_quant(v)
+        cache.k_scale.index_copy_(1, slot, ks)
+        cache.v_scale.index_copy_(1, slot, vs)
+    cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
+    cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+    valid = (torch.arange(t, device=x.device)
+             < torch.clamp(cache.pos + 1, max=t))
+    cache.pos.add_(1)
+    kvp = k.shape[2]
+    # XLA's jit folds the reference's ``/ sqrt(hd)`` into a product with
+    # the f32 reciprocal; the same product here gives the same scores
+    inv_sqrt = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32))
+    qh = q.reshape(b, 1, kvp, -1, hd).float() * inv_sqrt
+    scores = torch.einsum("bskgd,btkd->bkgst", qh,
+                          _cache_deq(cache.k, cache.k_scale))
+    scores = torch.where(valid, scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", w,
+                       _cache_deq(cache.v, cache.v_scale))
+    out = out.to(x.dtype).reshape(b, 1, -1)
+    return pdot(out, params["wo"], policy)
 
 
 def paged_decode_attention_apply(params: Dict, cfg: ModelConfig,

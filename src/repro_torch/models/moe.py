@@ -1,0 +1,128 @@
+"""Token-choice top-k Mixture-of-Experts with capacity-bounded scatter
+dispatch (the port of ``repro.models.moe``).
+
+Slot indices come from a cumulative sum over the flattened top-k
+assignments, token embeddings are scattered into a dense ``[E, C, D]``
+buffer, experts run as one batched einsum, and outputs gather back with
+their gate weights.  Small batches (``t * k <= 4096``: decode, short
+prefills) use one flat dropless buffer; larger ones a buffer per batch row
+whose capacity drops overflowing tokens (Switch/GShard semantics).
+
+Routers run in f32 and are never quantized.  The expert products are bf16
+einsums in the policy's compute dtype, as in the reference (XLA code
+there, not a Pallas kernel), so ``"mpai"`` leaves them unquantized.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
+from repro_torch.core.quantization import QTensor
+from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, silu
+
+FLAT_DISPATCH_MAX = 4096       # t * k at or below: flat dropless dispatch
+
+
+def moe_init(n: int, d_model: int, moe: MoEConfig, glu: bool,
+             generator: torch.Generator, device) -> Dict:
+    """``n`` stacked MoE MLPs, f32, made on ``device``."""
+    e, f = moe.num_experts, moe.d_ff_expert
+    p = {"router": dense_init((n, d_model, e), generator, device, 0.02),
+         "w_in": dense_init((n, e, d_model, f), generator, device,
+                            d_model ** -0.5),
+         "w_out": dense_init((n, e, f, d_model), generator, device,
+                             f ** -0.5)}
+    if glu:
+        p["w_gate"] = dense_init((n, e, d_model, f), generator, device,
+                                 d_model ** -0.5)
+    if moe.shared_d_ff:
+        p["shared"] = mlp_init(n, d_model, moe.shared_d_ff, glu, generator,
+                               device)
+    return p
+
+
+def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
+                policy: PrecisionPolicy) -> torch.Tensor:
+    """buf: [E, C, D] or [G, E, C, D] -> same, through each expert's MLP."""
+    if policy.mode == "fake":
+        raise NotImplementedError("MoE experts under fake quantization (QAT) "
+                                  "are not ported yet")
+    a = silu if act == "silu" else functools.partial(F.gelu,
+                                                     approximate="tanh")
+    dt = policy.precision.compute_dtype
+    dq = lambda w: w.dequantize(dt) if isinstance(w, QTensor) else w
+    w_in, w_out = dq(params["w_in"]).to(dt), dq(params["w_out"]).to(dt)
+    bufc = buf.to(dt)
+    g = "g" if buf.ndim == 4 else ""
+    h = torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_in)
+    if "w_gate" in params:
+        h = a(torch.einsum(f"{g}ecd,edf->{g}ecf", bufc,
+                           dq(params["w_gate"]).to(dt))) * h
+    else:
+        h = a(h)
+    return torch.einsum(f"{g}ecf,efd->{g}ecd", h, w_out)
+
+
+def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
+              act: str = "silu", glu: bool = True,
+              policy: PrecisionPolicy = DEFAULT_POLICY
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, D] -> (out [B, S, D], aux_loss []): the load-balancing
+    loss, E * sum(fraction of assignments * mean router probability)."""
+    b, s, d = x.shape
+    t, k, e = b * s, moe.top_k, moe.num_experts
+    xf = x.reshape(t, d)
+
+    logits = xf.float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)                        # [T, E]
+    gate, expert_ids = torch.topk(probs, k, dim=-1)              # [T, k]
+    gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+
+    frac = F.one_hot(expert_ids, e).float().mean(dim=(0, 1))
+    aux = e * torch.sum(frac * probs.mean(dim=0))
+
+    if t * k <= FLAT_DISPATCH_MAX:
+        # decode / small batches: flat dropless dispatch
+        cap = t * k
+        flat_e = expert_ids.reshape(t * k)                       # token-major
+        onehot = F.one_hot(flat_e, e)
+        slot = (torch.cumsum(onehot, dim=0) - onehot)[
+            torch.arange(t * k, device=x.device), flat_e]
+        x_rep = xf[:, None].expand(t, k, d).reshape(t * k, d)    # [T*k, D]
+        buf = torch.zeros((e, cap, d), dtype=xf.dtype, device=x.device)
+        buf.index_put_((flat_e, slot), x_rep, accumulate=True)
+        out_buf = _expert_ffn(params, buf, act, glu, policy)     # [E, C, D]
+        gathered = out_buf[flat_e, slot]
+        gathered = gathered * gate.reshape(t * k, 1).to(gathered.dtype)
+        out = gathered.reshape(t, k, d).sum(dim=1)
+    else:
+        # a capacity buffer per batch row; slots past it are dropped
+        sk = s * k
+        cap = max(1, int(k * s * moe.capacity_factor / e))
+        eids = expert_ids.reshape(b, sk)                         # [B, S*k]
+        onehot = F.one_hot(eids, e)                              # [B, S*k, E]
+        pos = torch.cumsum(onehot, dim=1) - onehot
+        slot = torch.gather(pos, -1, eids[..., None])[..., 0]    # [B, S*k]
+        keep = slot < cap
+        x_rep = x[:, :, None].expand(b, s, k, d).reshape(b, sk, d)
+        b_idx = torch.arange(b, device=x.device)[:, None].expand(b, sk)
+        # dropped slots are masked out before indexing: the reference's
+        # scatter drops out-of-range writes, torch would raise on them
+        idx = (b_idx[keep], eids[keep], slot[keep])
+        buf = torch.zeros((b, e, cap, d), dtype=xf.dtype, device=x.device)
+        buf.index_put_(idx, x_rep[keep], accumulate=True)
+        out_buf = _expert_ffn(params, buf, act, glu, policy)     # [B,E,C,D]
+        gathered = torch.zeros((b, sk, d), dtype=out_buf.dtype,
+                               device=x.device)
+        gathered[keep] = out_buf[idx]                            # fill 0
+        w = (gate.reshape(b, sk, 1) * keep[..., None]).to(gathered.dtype)
+        out = (gathered * w).reshape(b, s, k, d).sum(dim=2).reshape(t, d)
+
+    if "shared" in params:
+        out = out + mlp_apply(params["shared"], xf, act, glu, policy)
+    return out.reshape(b, s, d).to(x.dtype), aux

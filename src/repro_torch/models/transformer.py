@@ -1,13 +1,14 @@
 """Model composition (the port of ``repro.models.transformer``: dense
-attention stacks and RWKV-6 stacks).
+attention, RWKV-6 and hybrid Mamba/attention stacks, with dense or MoE
+MLPs).
 
 Layer stacks are built from *super-blocks*, the smallest periodic unit of
-the layer pattern (one attention + MLP or one RWKV time-mix + channel-mix
-sublayer), and every parameter carries a leading super-block axis, as in
-the reference.  A :class:`~repro_torch.core.partition.PartitionPlan`
-splits the stack into contiguous segments; each runs its super-blocks
-under its own precision policy.  MoE and Mamba stacks are later slices of
-the port and are refused.
+the layer pattern (one attention + MLP sublayer for a dense stack; eight
+for Jamba's one attention per eight layers with a MoE MLP on every other),
+and every parameter carries a leading super-block axis, as in the
+reference.  A :class:`~repro_torch.core.partition.PartitionPlan` splits
+the stack into contiguous segments; each runs its super-blocks under its
+own precision policy.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwk
 from repro_torch.models.layers import (embed, embedding_init, lm_logits,
                                        mlp_apply, mlp_init, rmsnorm,
@@ -48,16 +51,6 @@ def sublayer_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
     return pat
 
 
-def _ported_pattern(cfg: ModelConfig) -> Tuple[Tuple[str, bool], ...]:
-    pat = sublayer_pattern(cfg)
-    if any(kind not in ("attention", "rwkv6") or is_moe
-           for kind, is_moe in pat):
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs attention and RWKV-6 stacks; MoE "
-            f"and Mamba sublayers are not ported yet")
-    return pat
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -66,20 +59,27 @@ def model_init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
     """Random f32 parameters in the reference's tree, made on ``device``
     (``generator`` must live there too).  Values differ from the
     reference's ``jax.random`` init; parity tests bridge JAX weights."""
-    pat = _ported_pattern(cfg)
+    pat = sublayer_pattern(cfg)
     n = cfg.num_layers // len(pat)
     d = cfg.d_model
 
-    def sublayer(kind):
+    def sublayer(kind, is_moe):
         if kind == "rwkv6":
             mixer = rwk.time_mix_init(cfg, n, generator, device, tp)
-            mlp = rwk.channel_mix_init(cfg, n, generator, device)
+        elif kind == "mamba":
+            mixer = mam.mamba_init(cfg, n, generator, device)
         else:
             mixer = attn.attention_init(cfg, n, generator, device, tp)
+        if kind == "rwkv6":
+            mlp = rwk.channel_mix_init(cfg, n, generator, device)
+        elif is_moe:
+            mlp = moe_mod.moe_init(n, d, cfg.moe, cfg.glu, generator, device)
+        else:
             mlp = mlp_init(n, d, cfg.d_ff, cfg.glu, generator, device)
         return {"norm1": rmsnorm_init((n, d), device), "mixer": mixer,
                 "norm2": rmsnorm_init((n, d), device), "mlp": mlp}
-    layers = {f"sub_{j}": sublayer(kind) for j, (kind, _) in enumerate(pat)}
+    layers = {f"sub_{j}": sublayer(kind, is_moe)
+              for j, (kind, is_moe) in enumerate(pat)}
     params = {"embed": embedding_init(cfg.vocab_size, d, generator, device),
               "layers": layers,
               "final_norm": rmsnorm_init((d,), device)}
@@ -94,17 +94,20 @@ def model_init(cfg: ModelConfig, generator: torch.Generator, device="cuda",
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                device="cuda") -> Dict:
-    """Prefill-target caches, one per sublayer.
+    """Prefill-target and dense-decode caches, one per sublayer.
 
-    An attention sublayer gets a dense KVCache stacked over super-blocks
-    (``[n_super, B, T, KVp, hd]`` x 2); an RWKV-6 sublayer gets a list of
-    ``n_super`` :class:`~repro_torch.models.rwkv.RWKVCache`, one per
-    super-block.  The reference broadcasts one cache over the stack; here
-    each super-block owns its storage, and prefill and decode replace its
-    entry (so its dtypes follow the reference's, which change from the f32
-    zeros of a fresh cache to the residual stream's at the first prefill).
+    An attention sublayer gets a :class:`~repro_torch.models.attention.
+    KVCache` stacked over super-blocks (``[n_super, B, T, KVp, hd]`` k/v,
+    bf16 or int8 with f32 scales, and ``pos`` ``[n_super]``; ``T`` is the
+    sliding window where there is one); prefill and decode write it in
+    place.  A recurrent sublayer (RWKV-6, Mamba) gets a list of ``n_super``
+    per-super-block caches, which prefill and decode replace (so their
+    dtypes follow the reference's, which change from the f32 zeros of a
+    fresh RWKV cache to the residual stream's at the first prefill).  The
+    reference broadcasts one cache over the stack; here each super-block
+    owns its storage.
     """
-    pat = _ported_pattern(cfg)
+    pat = sublayer_pattern(cfg)
     n = cfg.num_layers // len(pat)
     caches = {}
     for j, (kind, _) in enumerate(pat):
@@ -112,15 +115,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
             caches[f"sub_{j}"] = [rwk.init_rwkv_cache(cfg, batch, tp,
                                                       device=device)
                                   for _ in range(n)]
-            continue
-        lay = attn.head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
-        length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
-                  else max_len)
-        shape = (n, batch, length, lay.KVp, cfg.resolved_head_dim())
-        caches[f"sub_{j}"] = attn.KVCache(
-            torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            torch.zeros(shape, dtype=torch.bfloat16, device=device))
+        elif kind == "mamba":
+            caches[f"sub_{j}"] = [mam.init_mamba_cache(cfg, batch,
+                                                       device=device)
+                                  for _ in range(n)]
+        else:
+            caches[f"sub_{j}"] = attn.init_kv_cache(cfg, batch, max_len, tp,
+                                                    lead=(n,), device=device)
     return caches
+
+
+def cache_position(cfg: ModelConfig, cache) -> torch.Tensor:
+    """Current decode position: the first attention cache's ``pos`` (a
+    0-d int32 tensor; 0 for a stack without attention caches)."""
+    for c in (cache or {}).values():
+        if isinstance(c, attn.KVCache):
+            return c.pos[0]
+    return torch.zeros((), dtype=torch.int32)
 
 
 def init_paged_decode_cache(cfg: ModelConfig, batch: int, num_blocks: int,
@@ -175,15 +186,22 @@ def first_paged_state(cache) -> Optional[PagedKVState]:
 # Apply
 # ---------------------------------------------------------------------------
 def _prefill_kv(cache: attn.KVCache, k: torch.Tensor, v: torch.Tensor):
-    """Write the prefill window's k/v into one layer's dense cache, in
-    place (the reference returns a new cache)."""
+    """Write the prefill window's k/v (quantized in int8 mode) into one
+    layer's dense cache and advance ``pos``, in place (the reference
+    returns a new cache)."""
     s, t = k.shape[1], cache.k.shape[1]
-    for buf, val in ((cache.k, k), (cache.v, v)):
+    vals = [(cache.k, k), (cache.v, v)]
+    if cache.quantized:
+        (k, ks), (v, vs) = attn._cache_quant(k), attn._cache_quant(v)
+        vals = [(cache.k, k), (cache.v, v), (cache.k_scale, ks),
+                (cache.v_scale, vs)]
+    for buf, val in vals:
         if s >= t:        # keep only the trailing window, ring-aligned so
             # that position p lands in slot p % t
             buf.copy_(torch.roll(val[:, s - t:], (s - t) % t, dims=1))
         else:
             buf[:, :s] = val
+    cache.pos.add_(s)
 
 
 def _rwkv_sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -214,19 +232,26 @@ def _rwkv_sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
     return x + out2, new
 
 
-def _sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, policy: PrecisionPolicy,
-                    cache=None, decode: bool = False,
-                    chunk: Optional[Tuple[int, int]] = None) -> torch.Tensor:
-    """One attention + MLP sublayer.  ``cache`` is this super-block's view:
-    decode and ``chunk`` (``(seq, start)``, chunked paged prefill) take a
-    PagedKVState, plain prefill an optional dense KVCache."""
-    h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+def _mixer_apply(sub: Dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+                 positions: torch.Tensor, policy: PrecisionPolicy, cache,
+                 decode: bool, chunk: Optional[Tuple[int, int]]):
+    """The attention or Mamba mixer of one sublayer.  Returns ``(out, new
+    cache)``: attention caches are written in place and returned as they
+    are; a Mamba cache is replaced (None without a cache)."""
+    if kind == "mamba":
+        if decode:
+            return mam.mamba_decode_step(sub["mixer"], cfg, h, cache, policy)
+        if cache is None:
+            return mam.mamba_apply(sub["mixer"], cfg, h, policy), None
+        return mam.mamba_apply(sub["mixer"], cfg, h, policy,
+                               return_state=True)
     if decode:
-        if not isinstance(cache, PagedKVState):
-            raise NotImplementedError("dense-cache decode is not ported yet")
-        out = attn.paged_decode_attention_apply(sub["mixer"], cfg, h, cache,
-                                                positions, policy)
+        if isinstance(cache, PagedKVState):
+            out = attn.paged_decode_attention_apply(sub["mixer"], cfg, h,
+                                                    cache, positions, policy)
+        else:
+            out = attn.decode_attention_apply(sub["mixer"], cfg, h, cache,
+                                              policy)
     elif chunk is not None:
         out = attn.paged_chunk_attention_apply(sub["mixer"], cfg, h, cache,
                                                positions, chunk[0], chunk[1],
@@ -236,14 +261,36 @@ def _sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,
                                          policy)
         if cache is not None:
             _prefill_kv(cache, k, v)
+    return out, cache
+
+
+def _sublayer_apply(sub: Dict, cfg: ModelConfig, kind: str, is_moe: bool,
+                    x: torch.Tensor, positions: torch.Tensor,
+                    policy: PrecisionPolicy, cache=None,
+                    decode: bool = False,
+                    chunk: Optional[Tuple[int, int]] = None):
+    """One attention or Mamba mixer + dense or MoE MLP sublayer.  ``cache``
+    is this super-block's view: decode and ``chunk`` (``(seq, start)``,
+    chunked paged prefill) take a PagedKVState for attention, dense decode
+    a KVCache (or a MambaCache), plain prefill an optional dense cache.
+    Returns ``(x, new cache, aux loss)``, the loss None for a dense MLP."""
+    h = rmsnorm(sub["norm1"], x, cfg.norm_eps)
+    out, new = _mixer_apply(sub, cfg, kind, h, positions, policy, cache,
+                            decode, chunk)
     x = x + out
     h2 = rmsnorm(sub["norm2"], x, cfg.norm_eps)
-    return x + mlp_apply(sub["mlp"], h2, cfg.act, cfg.glu, policy)
+    if is_moe:
+        out2, aux = moe_mod.moe_apply(sub["mlp"], cfg.moe, h2, cfg.act,
+                                      cfg.glu, policy)
+    else:
+        out2, aux = mlp_apply(sub["mlp"], h2, cfg.act, cfg.glu, policy), None
+    return x + out2, new, aux
 
 
 class LMOutput(NamedTuple):
     logits: torch.Tensor
     cache: Optional[Dict]
+    aux_loss: torch.Tensor        # [] f32: the MoE load-balancing losses
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -254,13 +301,13 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     * prefill: tokens [B, S], cache None or a prefill-target cache
       (:func:`init_cache`)
-    * decode: tokens [B, 1]; a paged cache for attention sublayers, the
-      prefilled :func:`init_cache` for RWKV-6 ones
+    * decode: tokens [B, 1]; a paged cache (attention-only stacks, the
+      engine) or the prefilled :func:`init_cache` (the windowed loop)
     * chunked paged prefill: tokens [1, C], paged cache, ``chunk`` =
       ``(seq, start)`` — one chunk of sequence ``seq`` at absolute
       positions ``start .. start+C-1`` (see :func:`prefill_paged_chunk`)
     """
-    pat = _ported_pattern(cfg)
+    pat = sublayer_pattern(cfg)
     period = len(pat)
     plan = plan or PartitionPlan.uniform(cfg.num_layers)
     plan = plan.align_to_period(period, cfg.num_layers)
@@ -273,12 +320,13 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         if cache is None:
             raise ValueError("decode needs a cache")
         ps = first_paged_state(cache)
+        # copied: the first layer's write advances these in place
         if ps is not None:
-            # every batch slot sits at its own context length; copied
-            # because the first layer's append advances these in place
+            # every batch slot sits at its own context length
             positions = ps.lengths[0][:, None].clone()
-        elif any(kind == "attention" for kind, _ in pat):
-            raise NotImplementedError("dense-cache decode is not ported yet")
+        elif any(isinstance(c, attn.KVCache) for c in cache.values()):
+            positions = cache_position(cfg, cache).expand(x.shape[0],
+                                                          1).clone()
         else:
             positions = None          # recurrent state carries no positions
     elif chunk is not None:
@@ -288,10 +336,11 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=dev).expand(x.shape[:2])
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for seg in plan.segments:
         for i in range(seg.start // period, seg.end // period):
             blk = tree_map(lambda a: a[i], params["layers"])
-            for j, (kind, _) in enumerate(pat):
+            for j, (kind, is_moe) in enumerate(pat):
                 key = f"sub_{j}"
                 c = None if cache is None else cache[key]
                 if kind == "rwkv6":
@@ -301,14 +350,22 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                     if c is not None:
                         c[i] = new
                     continue
-                x = _sublayer_apply(blk[key], cfg, x, positions, seg.policy,
-                                    None if c is None
-                                    else tree_map(lambda a: a[i], c),
-                                    decode, chunk)
+                if kind == "mamba":
+                    view = None if c is None else c[i]
+                else:
+                    view = (None if c is None
+                            else tree_map(lambda a: a[i], c))
+                x, new, aux = _sublayer_apply(blk[key], cfg, kind, is_moe, x,
+                                              positions, seg.policy, view,
+                                              decode, chunk)
+                if kind == "mamba" and c is not None:
+                    c[i] = new
+                if aux is not None:
+                    aux_total = aux_total + aux
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return LMOutput(lm_logits(table, x, plan.head_policy), cache)
+    return LMOutput(lm_logits(table, x, plan.head_policy), cache, aux_total)
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, cache,

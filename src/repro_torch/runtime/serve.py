@@ -13,7 +13,9 @@ is re-admittable.  Admission that would overcommit the pool raises
 :class:`~repro_torch.runtime.paging.OutOfBlocksError` internally; the
 request waits in the queue and the deferral is counted.  Attention runs
 the paged-decode kernel (``kernels/paged_attention.py``), and the int8
-segments of an ``"mpai"`` plan run the int8 GEMM kernel.
+segments of an ``"mpai"`` plan run the int8 GEMM kernel.  It serves every
+attention-only stack without a sliding window or int8 KV, MoE MLPs
+included.
 
 Decoding is greedy (``argmax``, ties to the lowest index, as in the
 reference).  Sampled requests, hardening (``harden=True``) and the
@@ -22,10 +24,12 @@ prefill handoff are later slices of the port and raise
 
 ``WindowedBaselineServer`` — the windowed loop (greedy-only): a bounded
 window of requests prefills together (left-padded to ``prompt_len``), then
-every request decodes for ``max(max_new)`` steps.  The port serves RWKV-6
-stacks through it: their prefill runs the wkv kernel and their decode
-carries the recurrent state.  Stacks whose decode is not ported yet (dense
-attention caches, Mamba, MoE) are refused at construction.
+every request decodes for ``max(max_new)`` steps against the dense caches
+of ``T.init_cache``.  It serves what paged decode cannot: RWKV-6 stacks
+(wkv kernel at prefill, recurrent state at decode), hybrid Mamba/attention
+stacks such as Jamba (selective-scan kernel at prefill), and attention
+stacks with a sliding window (a ring cache) or int8 KV (row-wise quant
+kernel at every cache write).
 
 ``engine_or_windowed`` builds the engine and falls back to the windowed
 loop for stacks paged decode cannot serve; ``BatchingServer`` is its
@@ -501,30 +505,15 @@ class ContinuousBatchingEngine:
 # ---------------------------------------------------------------------------
 # The windowed loop, and the engine-with-windowed-fallback policy
 # ---------------------------------------------------------------------------
-def _refuse_unported_decode(cfg: ModelConfig) -> None:
-    """The windowed loop decodes against the caches of ``T.init_cache``;
-    the port decodes only the recurrent RWKV-6 ones so far."""
-    for kind, is_moe in T.sublayer_pattern(cfg):
-        if is_moe or kind == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba and MoE sublayers are not ported yet "
-                f"(ROADMAP queue 1, the Jamba slice)")
-        if kind == "attention":
-            raise NotImplementedError(
-                f"{cfg.name}: decode against dense attention caches "
-                f"(sliding window, int8 KV) is not ported yet (ROADMAP "
-                f"queue 1, the dense-cache decode slice)")
-
-
 class WindowedBaselineServer:
     """The windowed batching loop (greedy-only).  Serves the stacks paged
-    decode cannot; the port runs it for RWKV-6 stacks."""
+    decode cannot: recurrent and hybrid mixers, sliding windows, int8
+    KV."""
 
     def __init__(self, params, cfg: ModelConfig,
                  plan: Optional[PartitionPlan] = None, tp: int = 1,
                  max_batch: int = 8, prompt_len: int = 32,
                  max_len: int = 64, device="cuda"):
-        _refuse_unported_decode(cfg)
         self.params, self.cfg, self.plan, self.tp = params, cfg, plan, tp
         self.device = torch.device(device)
         self.max_batch, self.prompt_len, self.max_len = (max_batch,

@@ -67,6 +67,8 @@ ENTRY_POINTS = [
     ("repro_torch.runtime.paging", "init_paged_cache"),
     ("repro_torch.runtime.serve", "ContinuousBatchingEngine"),
     ("repro_torch.models.rwkv", "init_rwkv_cache"),
+    ("repro_torch.models.mamba", "init_mamba_cache"),
+    ("repro_torch.models.attention", "init_kv_cache"),
     ("repro_torch.runtime.serve", "WindowedBaselineServer"),
     ("repro_torch.runtime.serve", "engine_or_windowed"),
     ("repro_torch.runtime.serve", "BatchingServer"),

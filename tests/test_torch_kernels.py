@@ -1,6 +1,8 @@
 """The port's kernels.  On the CPU: each plain version against the
 reference's Pallas kernel (interpret mode) and its XLA twin or oracle (the
-wkv recurrence's CPU tests are in ``test_torch_rwkv.py``).  On a CUDA card
+CPU tests of the wkv recurrence are in ``test_torch_rwkv.py``, of the
+selective scan in ``test_torch_mamba.py``, of the row-wise quantization in
+``test_torch_dense_decode.py``).  On a CUDA card
 (marker ``cuda``, skipped elsewhere): each CUDA kernel against its plain
 version, and the launch counts.  The card has no JAX, so the reference is
 imported only by the tests that use it; there, run
@@ -18,6 +20,8 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import quant as rq
+from repro_torch.kernels import selective_scan as ss
 from repro_torch.kernels import wkv as wk
 
 RNG = np.random.default_rng(23)
@@ -403,3 +407,76 @@ def test_wkv_kernel_refuses_what_it_does_not_take(cuda):
     r, k, v, w, u = _wkv_case(1, 4, 2, 24, cuda)
     with pytest.raises(ValueError):
         wk.wkv(r, k, v, w, u)
+
+
+# ---------------------------------------------------------------------------
+# selective scan (Mamba; CPU tests of the plain version: test_torch_mamba.py)
+# ---------------------------------------------------------------------------
+def _scan_case(b, s, d, n, device):
+    x = RNG.normal(size=(b, s, d)).astype(np.float32)
+    dt = np.log1p(np.exp(RNG.normal(size=(b, s, d)) - 3)).astype(np.float32)
+    bm = RNG.normal(size=(b, s, n)).astype(np.float32)
+    cm = RNG.normal(size=(b, s, n)).astype(np.float32)
+    a = -np.tile(np.arange(1, n + 1, dtype=np.float32), (d, 1))
+    dd = np.ones(d, np.float32)
+    return [torch.from_numpy(v).to(device) for v in (x, dt, bm, cm, a, dd)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,d,n", [(8, 128, 8192, 16),   # Jamba prefill
+                                     (1, 2048, 8192, 16),  # a long prompt
+                                     (3, 37, 200, 16),     # ragged S and D
+                                     (1, 1, 64, 4), (2, 70, 128, 4),
+                                     (2, 33, 96, 64)])
+def test_selective_scan_kernel_matches_plain_output_and_state_on_card(
+        cuda, b, s, d, n):
+    args = _scan_case(b, s, d, n, cuda)
+    before = ss.selective_scan.launches
+    y, h = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.selective_scan.launches == before + 1
+    y_p, h_p = ss.selective_scan_plain(*args)
+    # f32 recurrences, exp and fma against exp and einsum
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_selective_scan_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, bm, cm, a, dd = _scan_case(1, 4, 64, 16, cuda)
+    with pytest.raises(TypeError):
+        ss.selective_scan(x.bfloat16(), dt, bm, cm, a, dd)
+    with pytest.raises(ValueError):
+        ss.selective_scan(x, dt, bm[:, :3], cm, a, dd)
+    x, dt, bm, cm, a, dd = _scan_case(1, 4, 64, 12, cuda)
+    with pytest.raises(ValueError):
+        ss.selective_scan(x, dt, bm, cm, a, dd)
+
+
+# ---------------------------------------------------------------------------
+# row-wise int8 quantization (CPU tests: test_torch_dense_decode.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(64, 128),        # int8 KV decode, k or v
+                                 (8192, 128),      # int8 KV prefill window
+                                 (37, 96), (1, 5), (3, 1000)])
+def test_rowwise_quant_kernel_equals_plain_on_card(cuda, m, k, dtype):
+    x = RNG.normal(size=(m, k)) * RNG.uniform(0.01, 30, size=(m, 1))
+    x[0] = 0.0                                   # the 1e-8 floor
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda, dtype)
+    before = rq.rowwise_quant.launches
+    q, scale = rq.rowwise_quant(x)
+    torch.cuda.synchronize()
+    assert rq.rowwise_quant.launches == before + 1
+    q_p, s_p = rq.rowwise_quant_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(scale, s_p)
+
+
+@pytest.mark.cuda
+def test_rowwise_quant_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        rq.rowwise_quant(torch.zeros((2, 3), dtype=torch.float16,
+                                     device=cuda))
+    with pytest.raises(ValueError):
+        rq.rowwise_quant(torch.zeros((2, 3, 4), device=cuda))

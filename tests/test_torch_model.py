@@ -300,8 +300,9 @@ def test_head_layout_and_slot_maps_equal(h, kv, tp):
 
 @pytest.mark.parametrize("mixer", ["rwkv6", "mamba", "moe"])
 def test_non_dense_stacks_are_refused(mixer):
-    """RWKV-6 stacks are ported (their init builds); Mamba and MoE ones
-    are still refused."""
+    """No stack is refused any more: RWKV-6, Mamba and MoE inits build the
+    reference's mixer and MLP trees (a name kept from when Mamba and MoE
+    were refused)."""
     from repro_torch.configs.base import MoEConfig
     if mixer == "rwkv6":
         from repro_torch.configs.rwkv6_3b import SMOKE
@@ -310,8 +311,20 @@ def test_non_dense_stacks_are_refused(mixer):
         return
     cfg = (TINY.with_(mixer="mamba") if mixer == "mamba" else
            TINY.with_(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32)))
-    with pytest.raises(NotImplementedError):
-        TT.model_init(cfg, torch.Generator(), device="cpu")
+    params = TT.model_init(cfg, torch.Generator(), device="cpu")
+    sub = params["layers"]["sub_0"]
+    n = cfg.num_layers
+    if mixer == "mamba":
+        di = 2 * cfg.d_model
+        assert set(sub["mixer"]) == {"in_proj", "conv_w", "conv_b", "x_proj",
+                                     "dt_proj", "dt_bias", "A_log", "D",
+                                     "out_proj"}
+        assert sub["mixer"]["in_proj"].shape == (n, cfg.d_model, 2 * di)
+        assert set(sub["mlp"]) == {"w_in", "w_gate", "w_out"}
+    else:
+        assert set(sub["mlp"]) == {"router", "w_in", "w_gate", "w_out"}
+        assert sub["mlp"]["w_in"].shape == (n, 4, cfg.d_model, 32)
+        assert set(sub["mixer"]) >= {"wq", "wk", "wv", "wo"}
 
 
 if __name__ == "__main__":
