@@ -5,27 +5,32 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serving paths give
-it, serves tiny models on CUDA and on the CPU and compares the greedy
-streams (a dense and a MoE stack through the engine; ``rwkv6-smoke``,
-``jamba-smoke``, a dense stack with a biting sliding window and one with
-int8 KV through the windowed fallback), then drives the three full-width
-main paths with 12 greedy requests each (random weights from a seed):
-RWKV-6 3B through ``engine_or_windowed``'s windowed fallback (wkv kernel in
-every prefill layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full width,
-one 8-layer super-block deep, through the same fallback (selective scan in
-every Mamba prefill, flash attention in the attention prefill, row-wise
-quant at every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with
-int8 KV; then Qwen3-14B through ``ContinuousBatchingEngine`` (flash
+it (the int8 GEMM at decode, admission-bucket and window-prefill M; flash
+attention at the Qwen3 admission round, Jamba's prefill window and a
+2048-token prefill), serves tiny models on CUDA and on the CPU and compares
+the greedy streams (a dense and a MoE stack through the engine;
+``rwkv6-smoke``, ``jamba-smoke``, a dense stack with a biting sliding window
+and one with int8 KV through the windowed fallback), then drives the three
+full-width main paths with 12 greedy requests each (random weights from a
+seed): RWKV-6 3B through ``engine_or_windowed``'s windowed fallback (wkv
+kernel in every prefill layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full
+width, one 8-layer super-block deep, through the same fallback (selective
+scan in every Mamba prefill, flash attention in the attention prefill,
+row-wise quant at every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"``
+with int8 KV; then Qwen3-14B through ``ContinuousBatchingEngine`` (flash
 attention in every admission round, paged attention in every decode step)
-under ``"mpai"`` and bf16.  Prints one JSON line per phase, the card's name
-and power limit, a ``{"kernels": [...]}`` line, and as its last line
-``{"ok": true, "device": {...}}``.  Any failed check raises, and the script
-exits non-zero; it also exits non-zero where there is no CUDA device.
+under ``"mpai"`` and bf16.  Each full-width run also prints the histogram of
+the ``(M, K, N)`` shapes its int8 GEMMs took.  Prints one JSON line per
+phase, the card's name and power limit, a ``{"kernels": [...]}`` line, and
+as its last line ``{"ok": true, "device": {...}}``.  Any failed check
+raises, and the script exits non-zero; it also exits non-zero where there
+is no CUDA device.
 Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB, Jamba's
 53 GB; each phase frees its weights before the next one makes its own).
 """
 from __future__ import annotations
 
+import collections
 import gc
 import json
 import subprocess
@@ -72,6 +77,12 @@ QWEN_SERVE = dict(max_slots=8, prompt_len=32, max_len=128, block_size=16)
 # w_in, w_gate, w_out.
 QWEN_LAYER_GEMMS = [(5120, 5120), (5120, 1024), (5120, 1024), (5120, 5120),
                     (5120, 17408), (5120, 17408), (17408, 5120)]
+# The widths of a window prefill (M = 8 x 128): RWKV-6 3B's projections and
+# channel mix, Jamba-v0.1's Mamba in_proj and out_proj.
+WINDOW_GEMMS = [(2560, 2560), (2560, 8960), (8960, 2560), (4096, 16384),
+                (8192, 4096)]
+# torch._int_mm takes M > 16 only: the decode yardstick pads x with zero rows
+INT_MM_PAD_M = 32
 
 
 def emit(phase: str, **kv) -> None:
@@ -169,42 +180,50 @@ def paged_attention_phase(timer, pa, dev) -> dict:
 
 
 def int8_matmul_phase(timer, im, dev) -> dict:
-    """The int8 GEMM against its plain version, bit for bit, at every
-    (K, N) of a Qwen3-14B layer, at decode (M = 8 slots) and at a full
-    bucket prefill (M = 8 x 32); times it per shape."""
+    """The int8 GEMM against its plain version, bit for bit, at every shape
+    of the main paths: each (K, N) of a Qwen3-14B layer at decode (M = 8
+    slots) and at a full admission bucket (M = 8 x 32), and RWKV-6's and
+    Jamba's widths at a window prefill (M = 8 x 128); times it per shape
+    beside ``torch._int_mm`` (at M = 8 on x padded with zero rows to
+    ``INT_MM_PAD_M``: ``_int_mm`` refuses M <= 16)."""
     g = torch.Generator(device=dev).manual_seed(1)
+    shapes = [(m, k, n) for m in (8, 8 * 32)
+              for k, n in sorted(set(QWEN_LAYER_GEMMS))]
+    shapes += [(8 * 128, k, n) for k, n in WINDOW_GEMMS]
     per_shape = {}
-    for m in (8, 8 * 32):
-        for k, n in sorted(set(QWEN_LAYER_GEMMS)):
-            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
-                              dtype=torch.int8)
-            w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
-                              dtype=torch.int8)
-            out = im.int8_matmul(x, w)
-            torch.cuda.synchronize()
-            if not torch.equal(out, im.int8_matmul_plain(x, w)):
-                raise AssertionError(f"int8_matmul != plain at M={m} K={k} "
-                                     f"N={n}")
-            try:     # the library yardstick only; the port never calls it
-                lib_ms = timer.ms(lambda: torch._int_mm(x, w))
-            except RuntimeError as e:
-                lib_ms, lib_note = None, str(e).splitlines()[0]
-            else:
-                lib_note = None
-            nbytes = m * k + k * n + 4 * m * n
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
-            per_shape[(m, k, n)] = {
-                "ms": timer.ms(lambda: im.int8_matmul(x, w)),
-                "plain_ms": timer.ms(lambda: im.int8_matmul_plain(x, w)),
-                "library_ms": lib_ms, "t_bytes": t_bytes, "t_ops": t_ops}
-            emit("kernel_int8_matmul", M=m, K=k, N=n, exact=True,
-                 splits=im.k_splits(m, k, n, im.sm_count(dev.index)),
-                 ms=per_shape[(m, k, n)]["ms"],
-                 plain_ms=per_shape[(m, k, n)]["plain_ms"],
-                 library_ms=lib_ms, library_note=lib_note,
-                 bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+    for m, k, n in shapes:
+        x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                          dtype=torch.int8)
+        out = im.int8_matmul(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(out, im.int8_matmul_plain(x, w)):
+            raise AssertionError(f"int8_matmul != plain at M={m} K={k} N={n}")
+        # the library yardstick only; the port never calls it
+        xl = x if m > 16 else torch.cat(
+            [x, x.new_zeros((INT_MM_PAD_M - m, k))])
+        try:
+            lib_ms = timer.ms(lambda: torch._int_mm(xl, w))
+        except RuntimeError as e:
+            lib_ms, lib_note = None, str(e).splitlines()[0]
+        else:
+            lib_note = (None if m > 16 else
+                        f"torch._int_mm on x zero-padded to M={INT_MM_PAD_M}")
+        nbytes = m * k + k * n + 4 * m * n
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+        per_shape[(m, k, n)] = {
+            "ms": timer.ms(lambda: im.int8_matmul(x, w)),
+            "plain_ms": timer.ms(lambda: im.int8_matmul_plain(x, w)),
+            "library_ms": lib_ms, "t_bytes": t_bytes, "t_ops": t_ops}
+        emit("kernel_int8_matmul", M=m, K=k, N=n, exact=True,
+             plan=im.plan(m, k, n, im.sm_count(dev.index))._asdict(),
+             ms=per_shape[(m, k, n)]["ms"],
+             plain_ms=per_shape[(m, k, n)]["plain_ms"],
+             library_ms=lib_ms, library_note=lib_note,
+             bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations")
     # the kernels line reports one decode layer's seven GEMMs at M = 8
     layer = [per_shape[(8, k, n)] for k, n in QWEN_LAYER_GEMMS]
     lib = [r["library_ms"] for r in layer]
@@ -217,6 +236,8 @@ def int8_matmul_phase(timer, im, dev) -> dict:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None if None in lib else sum(lib),
+            "library_note": f"torch._int_mm on x zero-padded to "
+                            f"M={INT_MM_PAD_M} (it refuses M <= 16)",
             "shapes": "one decode layer: the 7 GEMMs of a Qwen3-14B layer "
                       "at M=8, summed"}
 
@@ -224,14 +245,16 @@ def int8_matmul_phase(timer, im, dev) -> dict:
 def flash_attention_phase(timer, fa, dev) -> dict:
     """The causal flash kernel against its plain version at the Qwen3-14B
     admission round (B = 8 slots, S = prompt_len = 32, KVp = 8, gp = 5,
-    hd = 128), at a 2048-token prefill and at a ragged S; beside each, one
+    hd = 128), at Jamba's attention prefill (B = 8, S = 128, gp = 4), at a
+    2048-token Qwen3 prefill and at a ragged S; beside each, one
     ``scaled_dot_product_attention`` call at the same shapes (timed only
     here: the port never calls it)."""
     g = torch.Generator(device=dev).manual_seed(4)
-    kvp, gp, hd = 8, 5, 128
+    kvp, hd = 8, 128
     rows, errs = {}, []
-    for b, s in ((QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"]),
-                 (1, 2048), (2, 301)):
+    for b, s, gp in ((QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 5),
+                     (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 4),
+                     (1, 2048, 5), (2, 301, 5)):
         q = torch.randn((b, s, kvp, gp, hd), generator=g,
                         device=dev).bfloat16()
         k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
@@ -261,7 +284,7 @@ def flash_attention_phase(timer, fa, dev) -> dict:
         flops = 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
         t_bytes = nbytes / PEAK_BYTES * 1e3
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        rows[(b, s)] = {
+        rows[(b, s, gp)] = {
             "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
@@ -269,10 +292,10 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             "bound_f32_cuda_core_ms": flops / PEAK_F32_FLOPS * 1e3,
             "max_abs_err": err}
         emit("kernel_flash_attention", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
-             **rows[(b, s)], library_note=lib_note,
+             **rows[(b, s, gp)], library_note=lib_note,
              tolerance="2**-6 * |ref| + 2**-10",
              bound_peak="bf16 tensor cores, 989 TFLOP/s")
-    adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"])]
+    adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 5)]
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_ATTENTION_SRC, "replaces": FLASH_ATTENTION_TPU,
             "launches": 0, "max_abs_err": max(errs),
@@ -567,6 +590,33 @@ def kernel_wrappers() -> dict:
             "rowwise_quant": quant.rowwise_quant}
 
 
+class Int8Shapes:
+    """Counts the (M, K, N) of every int8 GEMM the model calls while it is
+    entered, by standing in for ``ops.int8_matmul`` (the model's call
+    site); the wrapper's own launch count is untouched."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops, self.real = ops, ops.int8_matmul
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        def counted(x, w):
+            self.counts[(x.shape[0], x.shape[1], w.shape[1])] += 1
+            return self.real(x, w)
+        self.ops.int8_matmul = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.int8_matmul = self.real
+
+    def emit(self, config: str, plan: str) -> None:
+        emit("int8_gemm_shapes", config=config, plan=plan,
+             launches=sum(self.counts.values()),
+             shapes=[{"M": m, "K": k, "N": n, "launches": c}
+                     for (m, k, n), c in sorted(self.counts.items())])
+
+
 def zero_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
     for wrapper in kernel_wrappers().values():
@@ -729,8 +779,10 @@ def rwkv_full_width_phase(dev, card: str, wk, im, fa) -> dict:
         windows = -(-len(trace) // srv.max_batch)
         zero_counts()                         # the main path's counts
         t0 = time.perf_counter()
-        out = drive_windowed(srv, trace, Request)
+        with Int8Shapes() as shapes:
+            out = drive_windowed(srv, trace, Request)
         wall = time.perf_counter() - t0
+        shapes.emit(cfg.name, name)
         wk_n, im_n = wk.wkv.launches, im.int8_matmul.launches
         fa_n = fa.flash_attention.launches
         launches["wkv"][f"{cfg.name}/{name}"] = wk_n
@@ -826,9 +878,11 @@ def jamba_full_width_phase(dev, card: str) -> dict:
         windows = -(-len(trace) // srv.max_batch)
         zero_counts()                         # the main path's counts
         t0 = time.perf_counter()
-        out = drive_windowed(srv, trace, Request)
+        with Int8Shapes() as shapes:
+            out = drive_windowed(srv, trace, Request)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        shapes.emit(cfg.name, name)
         got = {k: w.launches for k, w in wrappers.items()}
         for k, v in got.items():
             launches[k][f"{cfg.name}/{name}"] = v
@@ -912,8 +966,10 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
         zero_counts()                 # the main path's counts start here
         t0 = time.perf_counter()
-        out = serve(eng, trace, Request)
+        with Int8Shapes() as shapes:
+            out = serve(eng, trace, Request)
         wall = time.perf_counter() - t0
+        shapes.emit(cfg.name, name)
         pa_n, im_n = pa.paged_attention.launches, im.int8_matmul.launches
         fa_n = fa.flash_attention.launches
         launches["paged_attention"][f"{cfg.name}/{name}"] = pa_n

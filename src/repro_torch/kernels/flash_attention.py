@@ -8,11 +8,18 @@ not bite, so ``attention_apply`` routes those prefills here.
 
 The layout is the grouped one ``attention_apply`` already has, q
 ``[B, S, KVp, gp, hd]`` and k, v ``[B, S, KVp, hd]``, so KV heads are never
-repeated: the kernel (``csrc/flash_attention.cu``) stages each K/V tile
-once for the gp query heads that share it, skips the tiles wholly above
-the diagonal and masks ragged edges, so any S works (the TPU wrapper's
-rule that S divides the block sizes does not carry over).  The plain
-version is the reference's ``full_attention`` math with the causal mask.
+repeated: the kernel (``csrc/flash_attention.cu``) packs the gp query heads
+of a kv head as rows ``s*gp + g`` that share each K/V tile, skips the tiles
+wholly above the diagonal and masks ragged edges, so any S works (the TPU
+wrapper's rule that S divides the block sizes does not carry over).  The
+route is chosen by dtype, never on a failure: bf16 runs on the bf16 tensor
+cores (``mma.sync`` m16n8k16 with f32 accumulators, 128 query rows by
+64-key tiles double-buffered with ``cp.async``, P split into two bf16
+halves so the P.V product keeps 16 bits of P); f32 keeps the CUDA-core
+kernel, since tensor cores would round f32 to TF32.  At the admission
+round it is bound by bytes and the launch, at a long prefill by tensor-core
+operations.  The plain version is the reference's ``full_attention`` math
+with the causal mask.
 """
 from __future__ import annotations
 

@@ -89,16 +89,60 @@ def test_int8_wrapper_rejects_what_the_kernel_does_not_take():
                        torch.zeros(5, 3, dtype=torch.int8))
 
 
+def _check_plan(m, k, n, sms):
+    """``int8_matmul.plan``: the tile by M, every K tile in exactly one
+    split, splits no shorter than ``LEAST_K_STEPS`` (or all of K), at most
+    ``MAX_SPLITS`` of a 64- or 128-row tile, and a grid that fills the card
+    and stays within one wave of ``BLOCKS_PER_SM`` blocks per SM, unless
+    the tiles alone exceed it, K is too short to split further or the
+    splits are at their cap."""
+    p = im.plan(m, k, n, sms)
+    assert p.bm == (16 if m <= 16 else 64 if m <= 64 else 128)
+    assert (p.bn, p.bk) == ((im.DECODE_BN, im.DECODE_BK) if m <= 16
+                            else (im.TILE_BN, im.TILE_BK))
+    tiles = -(-n // p.bn) * -(-m // p.bm)
+    k_tiles = -(-k // p.bk)
+    cap = k_tiles if m <= 16 else min(k_tiles, im.MAX_SPLITS)
+    assert 1 <= p.splits <= cap
+    assert (p.splits - 1) * p.per < k_tiles <= p.splits * p.per
+    least = min(k_tiles, im.LEAST_K_STEPS)
+    assert p.per >= least
+    assert tiles * p.splits <= max(tiles, im.BLOCKS_PER_SM * sms)
+    assert tiles * p.splits >= sms or p.per == least \
+        or p.splits == im.MAX_SPLITS and m > 16 \
+        or p.splits == 1 and tiles >= sms // im.BLOCKS_PER_SM
+    return p, tiles * p.splits
+
+
 @pytest.mark.parametrize("m,k,n", [(8, 5120, 1024), (8, 17408, 5120),
                                    (256, 5120, 17408), (3, 7, 2)])
 def test_k_splits_fill_the_card_and_cover_k(m, k, n):
-    sms = 132
-    s = im.k_splits(m, k, n, sms)
-    tiles = -(-n // im.BN) * -(-m // im.BM)
-    k_tiles = -(-k // im.BK)
-    per = -(-k_tiles // s)
-    assert 1 <= s <= k_tiles and (s - 1) * per < k_tiles <= s * per
-    assert s == k_tiles or tiles * s >= im.BLOCKS_PER_SM * sms // 2
+    _check_plan(m, k, n, 132)
+
+
+# (K, N) of the int8 GEMMs on the main paths: a Qwen3-14B layer, an RWKV-6
+# 3B layer, a Jamba-v0.1 attention, Mamba and MLP layer
+MAIN_PATH_KN = [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120),
+                (2560, 2560), (2560, 8960), (8960, 2560),
+                (4096, 4096), (4096, 1024), (4096, 16384), (8192, 4096),
+                (8192, 288), (256, 8192), (4096, 14336), (14336, 4096)]
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 256, 1024])
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_int8_plan_fills_the_card_at_main_path_shapes(m, k, n):
+    p, blocks = _check_plan(m, k, n, 132)
+    if blocks < 132:
+        # only a K too short to split, or the split cap, leaves SMs idle
+        assert p.per == min(-(-k // p.bk), im.LEAST_K_STEPS) \
+            or m > 16 and p.splits == im.MAX_SPLITS
+
+
+@pytest.mark.parametrize("sms", [1, 7, 132])
+@pytest.mark.parametrize("m,k,n", [(15, 33, 17), (17, 4096, 1024),
+                                   (64, 100, 300), (65, 17408, 5120)])
+def test_int8_plan_covers_k_at_ragged_shapes(m, k, n, sms):
+    _check_plan(m, k, n, sms)
 
 
 @pytest.mark.cuda
@@ -111,6 +155,38 @@ def test_int8_kernel_equals_plain_on_card(cuda, m, k, n):
     got = im.int8_matmul(x, w)
     torch.cuda.synchronize()
     assert im.int8_matmul.launches == before + 1
+    assert torch.equal(got, im.int8_matmul_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 8, 15, 16, 17, 256, 1024])
+@pytest.mark.parametrize("k,n", [(5120, 1024),      # aligned, split K
+                                 (1000, 520),       # K % 16 = 8, K % 32 = 8
+                                 (77, 131),         # K and N odd
+                                 (4100, 2049)])     # K % 32 = 4, N odd
+def test_int8_kernel_is_exact_at_tile_edges_on_card(cuda, m, k, n):
+    x = torch.tensor(_int8((m, k)), device=cuda)
+    w = torch.tensor(_int8((k, n)), device=cuda)
+    before = im.int8_matmul.launches
+    got = im.int8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert im.int8_matmul.launches == before + 1
+    assert torch.equal(got, im.int8_matmul_plain(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 256])
+@pytest.mark.parametrize("sx,sw", [(127, 127), (127, -127), (-127, -127)])
+def test_int8_kernel_is_exact_at_the_largest_sums_on_card(cuda, m, sx, sw):
+    # K 17408 (Qwen3's MLP down projection): 127 * 127 * 17408 is the
+    # largest int32 sum on the main path
+    k, n = 17408, 1040
+    x = torch.full((m, k), sx, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n), sw, dtype=torch.int8, device=cuda)
+    got = im.int8_matmul(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.full((m, n), sx * sw * k,
+                                       dtype=torch.int32, device=cuda))
     assert torch.equal(got, im.int8_matmul_plain(x, w))
 
 
@@ -352,6 +428,36 @@ def test_flash_kernel_matches_plain_on_card(cuda, b, s, kvp, gp, hd):
     want = fa.flash_attention_plain(q, k, v)
     assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     # f32 sums in two orders, rounded to bf16: a bf16 ulp or two apart
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=2 ** -10)
+
+
+FLASH_EDGE_CASES = [(2, 1, 2, 5, 128),       # S = 1
+                    (1, 63, 2, 4, 64),        # one ragged key tile
+                    (1, 64, 1, 5, 128),       # one whole key tile
+                    (2, 65, 1, 1, 256),       # a key tile of one key
+                    (1, 65, 2, 4, 16),
+                    (1, 2048, 1, 5, 128),     # long prefill, 80 row tiles
+                    (1, 2048, 2, 1, 64),
+                    (8, 128, 8, 4, 128),      # Jamba's attention prefill
+                    (1, 200, 1, 3, 40),       # hd padded to 64
+                    (1, 70, 1, 2, 100)]       # hd 100: not 16-byte rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kvp,gp,hd", FLASH_EDGE_CASES)
+def test_flash_kernel_is_within_tolerance_at_tile_edges_on_card(
+        cuda, b, s, kvp, gp, hd):
+    # a 128-row tile spans 128 / gp positions; rows of one position sit
+    # in two tiles where gp does not divide 128
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16)
+               for t in _flash_case(b, s, kvp, gp, hd))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = fa.flash_attention_plain(q, k, v)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
                                atol=2 ** -10)
 
