@@ -5,26 +5,29 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version at the shapes the serving paths give
-it (the int8 GEMM at decode, admission-bucket and window-prefill M; flash
+it (paged attention at the Qwen3 decode layer and at 4096-token contexts;
+the int8 GEMM at decode, admission-bucket and window-prefill M; flash
 attention at the Qwen3 admission round, Jamba's prefill window and a
-2048-token prefill), serves tiny models on CUDA and on the CPU and compares
-the greedy streams (a dense and a MoE stack through the engine;
-``rwkv6-smoke``, ``jamba-smoke``, a dense stack with a biting sliding window
-and one with int8 KV through the windowed fallback), then drives the three
-full-width main paths with 12 greedy requests each (random weights from a
-seed): RWKV-6 3B through ``engine_or_windowed``'s windowed fallback (wkv
-kernel in every prefill layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full
-width, one 8-layer super-block deep, through the same fallback (selective
-scan in every Mamba prefill, flash attention in the attention prefill,
-row-wise quant at every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"``
-with int8 KV; then Qwen3-14B through ``ContinuousBatchingEngine`` (flash
-attention in every admission round, paged attention in every decode step)
-under ``"mpai"`` and bf16.  Each full-width run also prints the histogram of
-the ``(M, K, N)`` shapes its int8 GEMMs took.  Prints one JSON line per
-phase, the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``.  Any failed check
-raises, and the script exits non-zero; it also exits non-zero where there
-is no CUDA device.
+2048-token prefill; wkv at the RWKV window and a 2048-token prompt) and
+times each around its wrapper (``ms``) and as a CUDA-graph replay of one
+wrapper call (``device_ms``, the kernel without the host), serves tiny
+models on CUDA and on the CPU and compares the greedy streams (a dense and
+a MoE stack through the engine; ``rwkv6-smoke``, ``jamba-smoke``, a dense
+stack with a biting sliding window and one with int8 KV through the
+windowed fallback), then drives the three full-width main paths with 12
+greedy requests each (random weights from a seed): RWKV-6 3B through
+``engine_or_windowed``'s windowed fallback (wkv kernel in every prefill
+layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full width, one 8-layer
+super-block deep, through the same fallback (selective scan in every Mamba
+prefill, flash attention in the attention prefill, row-wise quant at every
+int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with int8 KV; then
+Qwen3-14B through ``ContinuousBatchingEngine`` (flash attention in every
+admission round, paged attention in every decode step) under ``"mpai"`` and
+bf16. Each full-width run also prints the histogram of the ``(M, K, N)``
+shapes its int8 GEMMs took. Prints one JSON line per phase, the card's name
+and power limit, a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``. Any failed check raises, and the script
+exits non-zero; it also exits non-zero where there is no CUDA device.
 Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB, Jamba's
 53 GB; each phase frees its weights before the next one makes its own).
 """
@@ -92,18 +95,21 @@ def emit(phase: str, **kv) -> None:
 class Timer:
     """Median device time of ``fn`` over ``reps`` launches, each after a
     write of 128 MB that evicts the 50 MB L2 (the serving path reads each
-    weight and each KV block once per step, so it finds them cold)."""
+    weight and each KV block once per step, so it finds them cold).  With
+    ``clean``, the scrub reads the 128 MB instead: the L2 is as cold but
+    holds no dirty lines for the launch to write back."""
 
-    def __init__(self, device):
-        self.scrub = torch.empty(32 * 2 ** 20, dtype=torch.float32,
+    def __init__(self, device, clean: bool = False):
+        self.scrub = torch.zeros(32 * 2 ** 20, dtype=torch.float32,
                                  device=device)
+        self.flush = (lambda: self.scrub.sum()) if clean else self.scrub.zero_
 
     def ms(self, fn, reps: int = 15) -> float:
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(reps):
-            self.scrub.zero_()
+            self.flush()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -111,6 +117,33 @@ class Timer:
             end.record()
             pairs.append((start, end))
         torch.cuda.synchronize()
+        return float(np.median([s.elapsed_time(e) for s, e in pairs]))
+
+    def device_ms(self, fn, reps: int = 15) -> float:
+        """Median device time of one ``fn`` call captured in a CUDA graph
+        and replayed after the same scrub: the kernel without the wrapper's
+        host time (``ms`` brackets the wrapper)."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()                      # scratch and counters of this stream
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(reps):
+            self.flush()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        del graph
         return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
@@ -121,62 +154,103 @@ def within(got, want, rel: float, abs_: float):
                                    + abs_).all())
 
 
-def paged_attention_phase(timer, pa, dev) -> dict:
-    """The paged-decode kernel against its plain version at Qwen3-14B
-    decode shapes: B = 8 slots, KVp = 8, gp = 5, hd = 128, P = 16, a pool
-    of 64 blocks plus the trash row, table width 8 (max_len 128)."""
-    b, kvp, gp, hd, page, mb, num_blocks = 8, 8, 5, 128, 16, 8, 64
-    lengths = np.array([0, 1, 16, 17, 40, 77, 127, 128], np.int32)
-    rng = np.random.default_rng(0)
-    free = rng.permutation(num_blocks)
+def paged_case(dev, lengths, seed: int, num_blocks: int = 0,
+               page: int = 16, kvp: int = 8, gp: int = 5,
+               hd: int = 128) -> tuple:
+    """Paged-decode inputs: a pool of ``num_blocks`` blocks (at least the
+    live ones and one more) plus a NaN trash row (any read of it shows), a
+    shuffled block per live table column, -1 past each length, and a stale
+    entry left in a length-0 slot's first column."""
+    lengths = np.asarray(lengths, np.int32)
+    b, need = len(lengths), -(-lengths // page)
+    mb = max(1, int(need.max()))
+    num_blocks = max(num_blocks, int(need.sum()) + 1)
+    free = np.random.default_rng(seed).permutation(num_blocks)
     table = -np.ones((b, mb), np.int32)
     used = 0
-    for i, n in enumerate(-(-lengths // page)):
+    for i, n in enumerate(need):
         table[i, :n] = free[used:used + n]
         used += n
-    table[0, 0] = free[used]          # a stale entry of a length-0 slot
-    g = torch.Generator(device=dev).manual_seed(0)
+    for i in np.flatnonzero(lengths == 0):
+        table[i, 0] = free[used]      # a stale entry: must not be read
+    g = torch.Generator(device=dev).manual_seed(seed)
     shape = (num_blocks + 1, page, kvp, hd)
     k_pool = torch.randn(shape, generator=g, device=dev).bfloat16()
     v_pool = torch.randn(shape, generator=g, device=dev).bfloat16()
-    k_pool[-1] = float("nan")         # the trash row: any read shows as NaN
+    k_pool[-1] = float("nan")
     v_pool[-1] = float("nan")
     q = torch.randn((b, kvp, gp, hd), generator=g, device=dev).bfloat16()
-    tbl = torch.as_tensor(table, device=dev)
-    lens = torch.as_tensor(lengths, device=dev)
-    args = (q, k_pool, v_pool, tbl, lens)
+    return (q, k_pool, v_pool, torch.as_tensor(table, device=dev),
+            torch.as_tensor(lengths, device=dev))
 
-    out = pa.paged_attention(*args)
-    torch.cuda.synchronize()
-    ref = pa.paged_attention_plain(*args)
-    if not torch.isfinite(out).all():
-        raise AssertionError("paged_attention read a NaN (trash row or dead "
-                             "entry)")
-    if not torch.equal(out[0], torch.zeros_like(out[0])):
-        raise AssertionError("paged_attention: a length-0 slot is not 0")
-    # both sides accumulate in f32, in different orders, and round to
-    # bf16: they may differ by a bf16 ulp or two (2**-7 relative each)
-    err, ok = within(out, ref, 2 ** -6, 2 ** -10)
-    if not ok:
-        raise AssertionError(f"paged_attention disagrees with its plain "
-                             f"version: max |err| {err}")
-    blocks = int((-(-lengths // page)).sum())
-    kv_bytes = 2 * blocks * page * kvp * hd * 2
-    nbytes = kv_bytes + 2 * q.numel() * 2 + table.nbytes + lengths.nbytes
-    flops = 4 * int(lengths.sum()) * kvp * gp * hd
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
-    row = {"name": "paged_attention", "route": "cuda",
-           "source": PAGED_ATTENTION_SRC, "replaces": PAGED_ATTENTION_TPU,
-           "launches": 0, "max_abs_err": err,
-           "ms": timer.ms(lambda: pa.paged_attention(*args)),
-           "plain_ms": timer.ms(lambda: pa.paged_attention_plain(*args)),
-           "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None,
-           "shapes": f"one decode layer: B={b} KVp={kvp} gp={gp} hd={hd} "
-                     f"P={page} lengths={lengths.tolist()}"}
-    emit("kernel_paged_attention", **row, tolerance="2**-6 * |ref| + 2**-10")
-    return row
+
+# Paged decode attention (KVp 8, gp 5, hd 128, P 16): (label, lengths, pool
+# blocks) of the Qwen3-14B decode layer (8 slots, table width 8 for max_len
+# 128, a 64-block pool), of 8 sequences of 4096 tokens and of one
+PAGED_CASES = (("qwen3 decode layer", [0, 1, 16, 17, 40, 77, 127, 128], 64),
+               ("B=8 x 4096", [4096] * 8, 0), ("B=1 x 4096", [4096], 0))
+
+
+def paged_attention_phase(timer, pa, dev) -> dict:
+    """The paged-decode kernel against its plain version at ``PAGED_CASES``,
+    each also as a CUDA graph replay (``device_ms``)."""
+    rows = {}
+    for seed, (label, lengths, num_blocks) in enumerate(PAGED_CASES):
+        args = paged_case(dev, lengths, seed, num_blocks)
+        q, k_pool, v_pool, tbl, lens = args
+        b, kvp, gp, hd = q.shape
+        page, mb = k_pool.shape[1], tbl.shape[1]
+        out = pa.paged_attention(*args)
+        again = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        ref = pa.paged_attention_plain(*args)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"paged_attention read a NaN (trash row or "
+                                 f"dead entry) at {label}")
+        for i, n in enumerate(lengths):
+            if n == 0 and not torch.equal(out[i], torch.zeros_like(out[i])):
+                raise AssertionError("paged_attention: a length-0 slot is "
+                                     "not 0")
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_attention: two launches differ at "
+                                 f"{label}")
+        # both sides accumulate in f32, in different orders, and round to
+        # bf16: they may differ by a bf16 ulp or two (2**-7 relative each)
+        err, ok = within(out, ref, 2 ** -6, 2 ** -10)
+        if not ok:
+            raise AssertionError(f"paged_attention disagrees with its plain "
+                                 f"version at {label}: max |err| {err}")
+        ln = np.asarray(lengths)
+        blocks = int((-(-ln // page)).sum())
+        kv_bytes = 2 * blocks * page * kvp * hd * 2
+        nbytes = kv_bytes + 2 * q.numel() * 2 + 4 * tbl.numel() + 4 * b
+        flops = 4 * int(ln.sum()) * kvp * gp * hd
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        rows[label] = {
+            "max_abs_err": err, "bit_identical": True,
+            "plan": pa.plan(b, kvp, mb, torch.cuda.get_device_properties(
+                dev).multi_processor_count)._asdict(),
+            "ms": timer.ms(lambda: pa.paged_attention(*args)),
+            "device_ms": timer.device_ms(lambda: pa.paged_attention(*args)),
+            "plain_ms": timer.ms(lambda: pa.paged_attention_plain(*args),
+                                 reps=3 if mb > 8 else 15),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        emit("kernel_paged_attention", shape=label, B=b, KVp=kvp, gp=gp,
+             hd=hd, P=page, MB=mb, **rows[label], library_ms=None,
+             tolerance="2**-6 * |ref| + 2**-10")
+        del args, q, k_pool, v_pool, out, again, ref
+    main = rows["qwen3 decode layer"]
+    return {"name": "paged_attention", "route": "cuda",
+            "source": PAGED_ATTENTION_SRC, "replaces": PAGED_ATTENTION_TPU,
+            "launches": 0,
+            "max_abs_err": max(r["max_abs_err"] for r in rows.values()),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None,
+            "shapes": "one decode layer: B=8 KVp=8 gp=5 hd=128 P=16 "
+                      "lengths=[0, 1, 16, 17, 40, 77, 127, 128]"}
 
 
 def int8_matmul_phase(timer, im, dev) -> dict:
@@ -187,6 +261,7 @@ def int8_matmul_phase(timer, im, dev) -> dict:
     beside ``torch._int_mm`` (at M = 8 on x padded with zero rows to
     ``INT_MM_PAD_M``: ``_int_mm`` refuses M <= 16)."""
     g = torch.Generator(device=dev).manual_seed(1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = [(m, k, n) for m in (8, 8 * 32)
               for k, n in sorted(set(QWEN_LAYER_GEMMS))]
     shapes += [(8 * 128, k, n) for k, n in WINDOW_GEMMS]
@@ -215,11 +290,13 @@ def int8_matmul_phase(timer, im, dev) -> dict:
         t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
         per_shape[(m, k, n)] = {
             "ms": timer.ms(lambda: im.int8_matmul(x, w)),
+            "device_ms": timer.device_ms(lambda: im.int8_matmul(x, w)),
             "plain_ms": timer.ms(lambda: im.int8_matmul_plain(x, w)),
             "library_ms": lib_ms, "t_bytes": t_bytes, "t_ops": t_ops}
         emit("kernel_int8_matmul", M=m, K=k, N=n, exact=True,
-             plan=im.plan(m, k, n, im.sm_count(dev.index))._asdict(),
+             plan=im.plan(m, k, n, sms)._asdict(),
              ms=per_shape[(m, k, n)]["ms"],
+             device_ms=per_shape[(m, k, n)]["device_ms"],
              plain_ms=per_shape[(m, k, n)]["plain_ms"],
              library_ms=lib_ms, library_note=lib_note,
              bound_ms=max(t_bytes, t_ops),
@@ -232,6 +309,7 @@ def int8_matmul_phase(timer, im, dev) -> dict:
     return {"name": "int8_matmul", "route": "cuda", "source": INT8_MATMUL_SRC,
             "replaces": INT8_MATMUL_TPU, "launches": 0, "max_abs_err": 0.0,
             "ms": sum(r["ms"] for r in layer),
+            "device_ms": sum(r["device_ms"] for r in layer),
             "plain_ms": sum(r["plain_ms"] for r in layer),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -286,6 +364,7 @@ def flash_attention_phase(timer, fa, dev) -> dict:
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         rows[(b, s, gp)] = {
             "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
+            "device_ms": timer.device_ms(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -299,27 +378,31 @@ def flash_attention_phase(timer, fa, dev) -> dict:
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_ATTENTION_SRC, "replaces": FLASH_ATTENTION_TPU,
             "launches": 0, "max_abs_err": max(errs),
-            **{k: adm[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")},
+            **{k: adm[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")},
             "shapes": f"one admission layer of Qwen3-14B: B=8 S=32 KVp={kvp} "
                       f"gp={gp} hd={hd}; bound on bf16 tensor cores"}
 
 
 def wkv_phase(timer, wk, dev) -> dict:
     """The wkv kernel against its plain version, output and final state,
-    at the RWKV-6 3B prefill window (B = 8, S = 128, H = 40, N = 64) and
-    at a ragged S."""
+    at the RWKV-6 3B prefill window (B = 8, S = 128, H = 40, N = 64), at a
+    ragged S and at one 2048-token prompt; two launches must agree bit for
+    bit."""
     g = torch.Generator(device=dev).manual_seed(5)
     h, n = 40, 64
     rows, errs = {}, []
     for b, s in ((RWKV_SERVE["max_slots"], RWKV_SERVE["prompt_len"]),
-                 (3, 37)):
+                 (3, 37), (1, 2048)):
         mk = lambda: torch.randn((b, s, h, n), generator=g, device=dev)
         r, k, v = mk(), mk(), mk()
         w = torch.exp(-torch.exp(mk() - 1))
         u = torch.randn((h, n), generator=g, device=dev)
         y, s_fin = wk.wkv(r, k, v, w, u)
+        y2, s_fin2 = wk.wkv(r, k, v, w, u)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(s_fin, s_fin2)):
+            raise AssertionError(f"wkv: two launches differ at B={b} S={s}")
         y_p, s_p = wk.wkv_plain(r, k, v, w, u)
         # f32 recurrences summed in two orders (fma chain vs einsum)
         err_y, ok_y = within(y, y_p, 1e-4, 1e-4)
@@ -337,17 +420,20 @@ def wkv_phase(timer, wk, dev) -> dict:
         t_ops = flops / PEAK_F32_FLOPS * 1e3
         rows[(b, s)] = {
             "ms": timer.ms(lambda: wk.wkv(r, k, v, w, u)),
-            "plain_ms": timer.ms(lambda: wk.wkv_plain(r, k, v, w, u)),
+            "device_ms": timer.device_ms(lambda: wk.wkv(r, k, v, w, u)),
+            "plain_ms": timer.ms(lambda: wk.wkv_plain(r, k, v, w, u),
+                                 reps=3 if s > 512 else 15),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err_y": err_y, "max_abs_err_state": err_s}
+            "max_abs_err_y": err_y, "max_abs_err_state": err_s,
+            "bit_identical": True}
         emit("kernel_wkv", B=b, S=s, H=h, N=n, **rows[(b, s)],
              library_ms=None, tolerance="1e-4 * |ref| + 1e-4")
     main = rows[(RWKV_SERVE["max_slots"], RWKV_SERVE["prompt_len"])]
     return {"name": "wkv", "route": "cuda", "source": WKV_SRC,
             "replaces": WKV_TPU, "launches": 0, "max_abs_err": max(errs),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by")},
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
             "library_ms": None,
             "shapes": f"one RWKV-6 3B prefill layer: B=8 S=128 H={h} N={n}"}
 
@@ -391,6 +477,7 @@ def selective_scan_phase(timer, ss, dev) -> dict:
         t_ops = ops_ / PEAK_F32_FLOPS * 1e3
         rows[(b, s)] = {
             "ms": timer.ms(lambda: ss.selective_scan(*args)),
+            "device_ms": timer.device_ms(lambda: ss.selective_scan(*args)),
             "plain_ms": timer.ms(lambda: ss.selective_scan_plain(*args),
                                  reps=3 if s > 512 else 15),
             "bound_ms": max(t_bytes, t_ops),
@@ -402,8 +489,8 @@ def selective_scan_phase(timer, ss, dev) -> dict:
     return {"name": "selective_scan", "route": "cuda",
             "source": SELECTIVE_SCAN_SRC, "replaces": SELECTIVE_SCAN_TPU,
             "launches": 0, "max_abs_err": max(errs),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by")},
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
             "library_ms": None,
             "shapes": f"one Jamba Mamba prefill layer: B=8 S=128 D={dim} "
                       f"N={n}"}
@@ -433,6 +520,7 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
             t_bytes = nbytes / PEAK_BYTES * 1e3
             t_ops = 5 * x.numel() / PEAK_F32_FLOPS * 1e3
             row = {"ms": timer.ms(lambda: rq.rowwise_quant(x)),
+                   "device_ms": timer.device_ms(lambda: rq.rowwise_quant(x)),
                    "plain_ms": timer.ms(lambda: rq.rowwise_quant_plain(x)),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the causal flash-attention and int8 GEMM kernels at the shapes the
-serving paths give them, for one checkout of the port.
+"""Time the paged decode attention, wkv, causal flash-attention and int8
+GEMM kernels at the shapes the serving paths give them, for one checkout of
+the port.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
 
@@ -9,11 +10,14 @@ this checkout's), so two versions of the kernels can be held side by side
 on one card: run it once per checkout, in turns (A, B, B, A), on the same
 card.  Each kernel builds into its own checkout's ``build/``.  Prints
 one JSON line: the card's name and power limit, and per shape the median
-device time of the wrapper over CUDA events, twice: ``ms`` with the L2
-scrubbed by writing 128 MB before each launch, as ``chip_smoke.py`` times
-it (the launch then also pays for writing back up to the 50 MB of dirty
-lines it evicts), and ``ms_clean_l2`` with the L2 scrubbed by reading
-128 MB (cold and clean).  Needs a CUDA card.
+device time of the wrapper over CUDA events, twice, with ``chip_smoke.py``'s
+timer: ``ms`` with the L2 scrubbed by writing 128 MB before each launch
+(the launch then also pays for writing back up to the 50 MB of dirty lines
+it evicts), and ``ms_clean_l2`` with the L2 scrubbed by reading 128 MB
+(cold and clean); paged attention and wkv also get ``device_ms``, one
+wrapper call captured in a CUDA graph and replayed after the write scrub
+(the kernel without the wrapper's host time).  The paged-attention inputs
+are ``chip_smoke.py``'s.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -23,10 +27,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import PAGED_CASES, Timer, paged_case  # noqa: E402
 
 # (B, S, gp) with KVp 8, hd 128: the Qwen3-14B admission round, Jamba's
 # attention prefill window, a 2048-token Qwen3 prefill
@@ -34,27 +39,13 @@ FLASH_SHAPES = [(8, 32, 5), (8, 128, 4), (1, 2048, 5)]
 # (M, K, N): a Qwen3-14B layer at decode (M 8) and at the admission bucket
 # (M 256); RWKV-6 3B's and Jamba's widths at a window prefill (M 1024)
 QWEN_KN = [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120)]
+# wkv (H 40, N 64): the RWKV-6 3B prefill window, one 2048-token prompt
+WKV_SHAPES = [(8, 128), (1, 2048)]
 INT8_SHAPES = ([(8, k, n) for k, n in QWEN_KN]
                + [(256, k, n) for k, n in QWEN_KN]
                + [(1024, k, n) for k, n in [(2560, 2560), (2560, 8960),
                                             (8960, 2560), (4096, 16384),
                                             (8192, 4096)]])
-
-
-def median_ms(fn, flush, reps: int = 15) -> float:
-    fn()
-    torch.cuda.synchronize()
-    pairs = []
-    for _ in range(reps):
-        flush()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        pairs.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
 def main() -> int:
@@ -68,35 +59,57 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import wkv as wk
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    scrub = torch.zeros(32 * 2 ** 20, dtype=torch.float32, device=dev)
-    flushes = {"ms": scrub.zero_, "ms_clean_l2": lambda: scrub.sum()}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    timers = {"ms": Timer(dev), "ms_clean_l2": Timer(dev, clean=True)}
     g = torch.Generator(device=dev).manual_seed(0)
-    flash, int8 = [], []
+
+    def times(call, device_ms: bool = False) -> dict:
+        row = {key: t.ms(call) for key, t in timers.items()}
+        if device_ms:
+            row["device_ms"] = timers["ms"].device_ms(call)
+        return row
+
+    result = {"paged_attention": [], "wkv": [], "flash_attention": [],
+              "int8_matmul": []}
+    for seed, (label, lengths, num_blocks) in enumerate(PAGED_CASES):
+        a = paged_case(dev, lengths, seed, num_blocks)
+        row = {"shape": label,
+               **times(lambda: pa.paged_attention(*a), device_ms=True)}
+        if hasattr(pa, "plan"):
+            row["plan"] = pa.plan(len(lengths), 8, a[3].shape[1], sms)
+        result["paged_attention"].append(row)
+        del a
+    for b, s in WKV_SHAPES:
+        mk = lambda: torch.randn((b, s, 40, 64), generator=g, device=dev)
+        a = (mk(), mk(), mk(), torch.exp(-torch.exp(mk() - 1)),
+             torch.randn((40, 64), generator=g, device=dev))
+        result["wkv"].append({"B": b, "S": s, "H": 40, "N": 64,
+                              **times(lambda: wk.wkv(*a), device_ms=True)})
     for b, s, gp in FLASH_SHAPES:
         q = torch.randn((b, s, 8, gp, 128), generator=g,
                         device=dev).bfloat16()
         k = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
         v = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
-        flash.append({"B": b, "S": s, "gp": gp, **{
-            key: median_ms(lambda: fa.flash_attention(q, k, v), flush)
-            for key, flush in flushes.items()}})
+        result["flash_attention"].append(
+            {"B": b, "S": s, "gp": gp,
+             **times(lambda: fa.flash_attention(q, k, v))})
     for m, k, n in INT8_SHAPES:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                           dtype=torch.int8)
         w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
                           dtype=torch.int8)
-        int8.append({"M": m, "K": k, "N": n, **{
-            key: median_ms(lambda: im.int8_matmul(x, w), flush)
-            for key, flush in flushes.items()}})
+        result["int8_matmul"].append(
+            {"M": m, "K": k, "N": n, **times(lambda: im.int8_matmul(x, w))})
     print(json.dumps({"label": args.label, "src": args.src, "card": card,
-                      "flash_attention": flash, "int8_matmul": int8}),
-          flush=True)
+                      **result}), flush=True)
     return 0
 
 

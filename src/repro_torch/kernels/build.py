@@ -11,6 +11,7 @@ builds everything up front.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -104,3 +105,11 @@ def check(status: int, what: str) -> None:
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
                            f"{status}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the launch plans
+    size their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

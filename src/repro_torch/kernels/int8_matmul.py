@@ -66,12 +66,6 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def sm_count(index) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def plan(m: int, k: int, n: int, sms: int) -> Plan:
     """The tile and the K splits for an [m, k] x [k, n] product on ``sms``
     SMs.
@@ -129,7 +123,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=torch.int32, device=x.device)
     x, w = x.contiguous(), w.contiguous()
-    p = plan(m, k, n, sm_count(x.device.index))
+    p = plan(m, k, n, build.sm_count(x.device.index))
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     scratch = counts = None             # one split: no tile is shared

@@ -7,9 +7,15 @@ diag(u) k_t v_t^T)``, from a zero state.  Both versions here also return
 the final state ``S_T``, which the prefill hands to the decode cache (the
 TPU kernel keeps it in VMEM scratch and drops it).
 
-The kernel (``csrc/wkv.cu``) is bound by the bytes it moves: one thread
-block per (head, batch) row, one thread per state column kept in registers
-for the whole sequence, timesteps staged through shared memory in chunks.
+The kernel (``csrc/wkv.cu``) is bound by the bytes it moves and by the
+serial chain in t; on the H100 its step loop is held by instruction issue
+and latency (see the source). A thread keeps ``npt`` rows by ``COLS``
+columns of the state in registers, so each word it reads serves 4 columns;
+``N / npt`` threads share a column, and their partial outputs meet in
+shared memory once a chunk; the u-bonus, rank one in m, is one dot product
+per timestep (``y_t[m] = r_t . S[:, m] + v_t[m] * ((r_t o u) . k_t)``);
+timesteps are staged through a ``cp.async`` ring. ``plan`` picks ``npt``
+and how many blocks share a (batch, head) from the shape and the SM count.
 It takes any sequence length, so the ``ops.wkv`` padding of the reference
 (identity decay, zero r/k/v: it changes neither y nor the state) is not
 needed.
@@ -17,14 +23,64 @@ needed.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
 
 HEAD_SIZES = (8, 16, 32, 64, 128)     # N values compiled in
-# r, k, v, w, u, y, s_fin, B, S, H, N, stream (csrc/wkv.cu)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+MAX_THREADS = 512                     # csrc MAX_THREADS
+MIN_THREADS = 128                     # a block splits columns down to this
+COLS = 4                              # csrc COLS: state columns a thread
+ROWS_PER_THREAD = (8, 4)              # npt values compiled in (<= N)
+WARPS_PER_SM = 8                      # below this, columns split finer
+# r, k, v, w, u, y, s_fin, B, S, H, N, npt, msplit, stream (csrc/wkv.cu)
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+class Plan(NamedTuple):
+    """One launch: each thread keeps ``npt`` rows of ``COLS`` state columns
+    (``N / npt`` threads a column), and ``msplit`` blocks share a (batch,
+    head), ``N / msplit`` columns each."""
+    npt: int
+    msplit: int
+
+
+@functools.lru_cache(maxsize=None)
+def plan(b: int, h: int, n: int, sms: int) -> Plan:
+    """Rows per thread and blocks per (batch, head) for ``[b, *, h, n]`` on
+    ``sms`` SMs.
+
+    ``npt`` is 8 where its threads fill ``WARPS_PER_SM`` warps on every
+    SM, else 4 (more, shorter chains).  (16 rows a thread lost to 8
+    wherever it was timed, on an H100 80GB HBM3 at 700 W: 0.075-0.083 ms
+    against 0.059-0.064 at B 8, S 128, H 40, N 64.)
+    Columns are split over just enough blocks to keep a block within
+    ``MAX_THREADS`` threads, and then further, down to ``MIN_THREADS`` a
+    block, until the grid covers every SM (each block stages its whole (b,
+    h) and sums its own bonus, so thinner blocks cost more than they add:
+    on an H100 at B 1, S 2048, two blocks a head ran in 0.47 ms, four in
+    0.62)."""
+    def threads(npt: int, msplit: int) -> int:
+        return n // msplit // COLS * (n // npt)
+    npt = next((c for c in ROWS_PER_THREAD if c <= n and
+                b * h * threads(c, 1) >= 32 * WARPS_PER_SM * sms), 4)
+    msplit = 1
+    while threads(npt, msplit) > MAX_THREADS:
+        msplit *= 2
+    while (b * h * msplit < sms and n // (2 * msplit) >= COLS
+           and threads(npt, 2 * msplit) >= MIN_THREADS):
+        msplit *= 2
+    return Plan(npt, msplit)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary (the kernel copies 16 bytes at
+    a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,16 +124,18 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     for t in (k, v, w, u):
         if t.device != r.device:
             raise ValueError("wkv: tensors on different devices")
-    r, k, v, w, u = (t.contiguous() for t in (r, k, v, w, u))
+    r, k, v, w = (_aligned(t) for t in (r, k, v, w))
+    u = u.contiguous()
     y = torch.empty_like(r)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if b == 0 or h == 0:
         return y, s_fin
+    p = plan(b, h, n, build.sm_count(r.device.index))
     fn = build.entry("wkv", "wkv_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                    u.data_ptr(), y.data_ptr(), s_fin.data_ptr(), b, s, h, n,
-                   stream), "wkv")
+                   p.npt, p.msplit, stream), "wkv")
     wkv.launches += 1
     return y, s_fin
 

@@ -10,12 +10,15 @@ imported only by the tests that use it; there, run
     PYTHONPATH=src python -m pytest -q -m cuda --noconftest \
         tests/test_torch_kernels.py
 """
+import collections
+import re
 import types
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import int8_matmul as im
 from repro_torch.kernels import ops as tops
@@ -268,11 +271,15 @@ def test_paged_wrapper_rejects_mismatched_shapes():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lengths,page", CASES + [([0, 1, 16, 17, 40, 77, 127,
-                                                    128], 16)])
+@pytest.mark.parametrize("lengths,page", CASES + [
+    ([0, 1, 16, 17, 40, 77, 127, 128], 16),     # a Qwen3-14B decode step
+    ([4096] * 8, 16), ([4096], 16),             # long contexts, B 8 and 1
+    ([1, 4095, 2048, 4096, 17, 0, 3000, 100], 16)])
 @pytest.mark.parametrize("kv,gp,hd", [(2, 2, 16), (8, 5, 128), (1, 16, 64)])
 def test_paged_kernel_matches_plain_on_card(cuda, lengths, page, kv, gp, hd):
-    case = _paged_case(lengths, page, kv, gp, hd=hd, num_blocks=80)
+    blocks = sum(-(-n // page) for n in lengths)
+    case = _paged_case(lengths, page, kv, gp, hd=hd,
+                       num_blocks=max(80, blocks + 3))
     args = _torch_args(case, cuda, torch.bfloat16, torch.bfloat16)
     before = pa.paged_attention.launches
     got = pa.paged_attention(*args)
@@ -281,6 +288,132 @@ def test_paged_kernel_matches_plain_on_card(cuda, lengths, page, kv, gp, hd):
     want = pa.paged_attention_plain(*args)
     assert torch.isfinite(got).all()         # never reads the NaN trash row
     # f32 sums in two orders, rounded to bf16: a bf16 ulp or two apart
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
+                               atol=2 ** -10)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(got[i], torch.zeros_like(got[i]))
+
+
+def _check_paged_plan(b, kvp, mb, sms):
+    """``paged_attention.plan``: every table column in exactly one split,
+    splits no shorter than ``LEAST_COLS`` (or the whole table), at most
+    ``MAX_SPLITS``, and no more blocks than one wave of ``BLOCKS_PER_SM`` a
+    SM needs, unless one split a pair already exceeds it."""
+    p = pa.plan(b, kvp, mb, sms)
+    owner = [z for z in range(p.splits) for c in range(p.cols)
+             if z * p.cols + c < mb]
+    assert len(owner) == mb                      # each column exactly once
+    assert sorted(set(owner)) == list(range(p.splits))   # no empty split
+    assert 1 <= p.splits <= pa.MAX_SPLITS
+    assert p.cols >= min(pa.LEAST_COLS, mb)
+    assert p.splits <= max(1, pa.BLOCKS_PER_SM * sms // (b * kvp))
+    return p, b * kvp * p.splits
+
+
+@pytest.mark.parametrize("b,kvp,mb", [(8, 8, 8),       # Qwen3-14B decode
+                                      (8, 8, 256),     # 4096 tokens each
+                                      (1, 8, 256), (1, 8, 8), (64, 8, 8),
+                                      (3, 2, 9), (2, 1, 1)])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_paged_plan_covers_the_table_once(b, kvp, mb, sms):
+    _check_paged_plan(b, kvp, mb, sms)
+
+
+@pytest.mark.parametrize("b,kvp,mb", [(8, 8, 8), (8, 8, 256)])
+def test_paged_plan_fills_the_card_at_main_path_shapes(b, kvp, mb):
+    # the Qwen3-14B decode layer and its 4096-token contexts on the H100's
+    # 132 SMs: one wave of blocks or more, unless one more split would cut
+    # the splits below LEAST_COLS columns or past MAX_SPLITS
+    p, blocks = _check_paged_plan(b, kvp, mb, 132)
+    assert (blocks >= 132 or p.splits == pa.MAX_SPLITS
+            or -(-mb // (p.splits + 1)) < min(pa.LEAST_COLS, mb))
+
+
+def _split_combine(q, k_pool, v_pool, table, lengths, splits, cols):
+    """The kernel's arithmetic in f32 on the CPU: each split's online
+    softmax over its own columns in the log2 domain, its partial (m, l,
+    acc), and the combine of the live splits in split order."""
+    b, kvp, gp, hd = q.shape
+    page = k_pool.shape[1]
+    qf = q.float() / torch.sqrt(torch.tensor(float(hd)))
+    out = torch.zeros((b, kvp, gp, hd))
+    log2e = 1.4426950408889634
+    for i in range(b):
+        n = min(int(lengths[i]), table.shape[1] * page)
+        live = -(-n // (cols * page))
+        parts = []
+        for z in range(splits):
+            t0, t1 = z * cols * page, min((z + 1) * cols * page, n)
+            if t1 <= t0:                       # wholly past the length
+                assert z >= live
+                continue
+            t = torch.arange(t0, t1)
+            rows = table[i, t // page].long()
+            assert (rows >= 0).all()           # never a dead entry
+            k = k_pool[rows, t % page].float()     # [T, KVp, hd]
+            v = v_pool[rows, t % page].float()
+            s = torch.einsum("kgd,tkd->kgt", qf[i], k) * log2e
+            m = s.amax(-1)
+            p = torch.exp2(s - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgt,tkd->kgd", p, v)))
+        assert len(parts) == live
+        if not parts:
+            continue                           # lengths == 0: exactly 0
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        l_all = torch.zeros_like(mx)
+        acc = torch.zeros((kvp, gp, hd))
+        for m, l, a in parts:                  # in split order
+            wgt = torch.exp2(m - mx)
+            l_all = l_all + l * wgt
+            acc = acc + a * wgt[..., None]
+        out[i] = acc / l_all.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("lengths,page", CASES)
+@pytest.mark.parametrize("kv,gp", [(2, 2), (1, 4), (4, 1)])
+@pytest.mark.parametrize("cols", [1, 2, 3])
+def test_paged_split_and_combine_equals_plain(lengths, page, kv, gp, cols):
+    q, k, v, t, l = _torch_args(_paged_case(lengths, page, kv, gp))
+    splits = -(-t.shape[1] // cols)
+    got = _split_combine(q, k, v, t, l, splits, cols)
+    want = pa.paged_attention_plain(q, k, v, t, l)
+    torch.testing.assert_close(got, want, **F32_TOL)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert torch.equal(got[i], torch.zeros_like(got[i]))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[0, 1, 77, 128],        # one split
+                                     [0, 3, 700, 4096]])     # 16 splits
+@pytest.mark.parametrize("hd", [8, 32, 100, 256])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_paged_kernel_takes_every_head_dim_and_alignment_on_card(
+        cuda, lengths, hd, aligned):
+    # every padded head dim (16 to 256: q in registers or in shared memory,
+    # a 3- or 2-stage ring), and the 2-byte staging that hd % 8 != 0 and a
+    # q off its 16-byte boundary take
+    blocks = sum(-(-n // 16) for n in lengths)
+    case = _paged_case(lengths, 16, 2, 5, hd=hd, num_blocks=blocks + 3)
+    args = _torch_args(case, cuda, torch.bfloat16, torch.bfloat16)
+    if not aligned:
+        args = (_misaligned(args[0]),) + args[1:]
+        assert args[0].data_ptr() % 16
+    got = pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_plain(*args)
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -6,
                                atol=2 ** -10)
     for i, n in enumerate(lengths):
@@ -490,9 +623,11 @@ def _wkv_case(b, s, h, n, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,n", [(8, 128, 40, 64),   # RWKV-6 3B prefill
+                                     (1, 2048, 40, 64),   # a long prompt
                                      (1, 1, 2, 64),       # S = 1
                                      (2, 37, 3, 16),      # ragged S
-                                     (1, 50, 2, 128), (2, 21, 3, 8)])
+                                     (1, 50, 2, 128), (2, 21, 3, 8)]
+                         + [(2, 70, 3, n) for n in wk.HEAD_SIZES])
 def test_wkv_kernel_matches_plain_output_and_state_on_card(cuda, b, s, h, n):
     args = _wkv_case(b, s, h, n, cuda)
     before = wk.wkv.launches
@@ -501,6 +636,98 @@ def test_wkv_kernel_matches_plain_output_and_state_on_card(cuda, b, s, h, n):
     assert wk.wkv.launches == before + 1
     y_p, s_p = wk.wkv_plain(*args)
     # f32 recurrences, summed in two orders
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s_fin, s_p, rtol=1e-4, atol=1e-4)
+
+
+def _check_wkv_plan(b, h, n, sms):
+    """``wkv.plan``: every (b, h, m) state column, and every row n of it, in
+    exactly one thread; blocks within ``MAX_THREADS``; float4 row groups
+    and whole column groups."""
+    p = wk.plan(b, h, n, sms)
+    parts, cpb = n // p.npt, n // p.msplit
+    assert p.npt in wk.ROWS_PER_THREAD and p.npt <= n
+    assert n % p.msplit == 0 and cpb % wk.COLS == 0
+    groups = cpb // wk.COLS
+    assert groups * parts <= wk.MAX_THREADS
+    cells = collections.Counter()
+    for z in range(p.msplit):                  # one (b, h): all alike
+        for tid in range(groups * parts):
+            cg, part = tid % groups, tid // groups
+            for i in range(p.npt):
+                for j in range(wk.COLS):
+                    cells[(part * p.npt + i, z * cpb + wk.COLS * cg + j)] += 1
+    assert set(cells) == {(i, j) for i in range(n) for j in range(n)}
+    assert set(cells.values()) == {1}
+    return p, b * h * p.msplit
+
+
+@pytest.mark.parametrize("b,h,n", [(8, 40, 64),        # RWKV-6 3B prefill
+                                   (1, 40, 64), (3, 2, 8), (1, 2, 128),
+                                   (2, 3, 16), (4, 5, 32), (8, 40, 128)])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_wkv_plan_covers_every_state_column_once(b, h, n, sms):
+    _check_wkv_plan(b, h, n, sms)
+
+
+def _wkv_compiled():
+    """The (N, npt) pairs ``csrc/wkv.cu`` instantiates."""
+    src = (build.CSRC / "wkv.cu").read_text()
+    return sorted({(int(a), int(b)) for a, b in
+                   re.findall(r"REPRO_N\((\d+), (\d+)\)", src)})
+
+
+def _wkv_heads_for(n, npt, sms):
+    """The fewest heads, a power of two, whose plan at B 1 keeps ``npt``
+    state rows a thread at head size ``n`` on ``sms`` SMs (None if none up
+    to 2**15)."""
+    return next((h for h in (2 ** i for i in range(16))
+                 if wk.plan(1, h, n, sms).npt == npt), None)
+
+
+def test_wkv_compiles_every_plan_and_the_plan_reaches_each():
+    compiled = _wkv_compiled()
+    assert compiled == sorted((n, npt) for n in wk.HEAD_SIZES
+                              for npt in wk.ROWS_PER_THREAD if npt <= n)
+    for n, npt in compiled:
+        assert _wkv_heads_for(n, npt, 132) is not None, (n, npt)
+
+
+def test_wkv_plan_fills_the_card_at_the_rwkv_shape():
+    # the RWKV-6 3B prefill window (B 8, H 40, N 64): one wave of blocks or
+    # more on 132 SMs; at B 1 the columns split, down to 4 warps a block
+    _, blocks = _check_wkv_plan(8, 40, 64, 132)
+    assert blocks >= 132
+    p, blocks = _check_wkv_plan(1, 40, 64, 132)
+    assert p.msplit > 1 and blocks < 132
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["paged_attention", "wkv"])
+def test_kernel_is_bit_identical_across_launches_on_card(cuda, kernel):
+    if kernel == "wkv":
+        args = _wkv_case(8, 128, 40, 64, cuda)
+        run = lambda: torch.cat([t.flatten() for t in wk.wkv(*args)])
+    else:
+        case = _paged_case([0, 1, 16, 17, 40, 77, 127, 4096], 16, 8, 5,
+                           hd=128, num_blocks=300)
+        args = _torch_args(case, cuda, torch.bfloat16, torch.bfloat16)
+        run = lambda: pa.paged_attention(*args)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,npt", _wkv_compiled())
+def test_wkv_kernel_matches_plain_at_every_compiled_tile_on_card(cuda, n,
+                                                                npt):
+    sms = build.sm_count(cuda.index)
+    h = _wkv_heads_for(n, npt, sms)
+    assert wk.plan(1, h, n, sms).npt == npt
+    args = _wkv_case(1, 9, h, n, cuda)
+    y, s_fin = wk.wkv(*args)
+    y_p, s_p = wk.wkv_plain(*args)
     torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(s_fin, s_p, rtol=1e-4, atol=1e-4)
 
