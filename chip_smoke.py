@@ -8,19 +8,23 @@ each against its plain PyTorch version at the shapes the serving paths give
 it (paged attention at the Qwen3 decode layer and at 4096-token contexts;
 the int8 GEMM at decode, admission-bucket and window-prefill M; flash
 attention at the Qwen3 admission round, Jamba's prefill window and a
-2048-token prefill; wkv at the RWKV window and a 2048-token prompt) and
-times each around its wrapper (``ms``) and as a CUDA-graph replay of one
-wrapper call (``device_ms``, the kernel without the host), serves tiny
-models on CUDA and on the CPU and compares the greedy streams (a dense and
-a MoE stack through the engine; ``rwkv6-smoke``, ``jamba-smoke``, a dense
-stack with a biting sliding window and one with int8 KV through the
+2048-token prefill; wkv at the RWKV window and a 2048-token prompt; the
+selective scan at Jamba's prefill window and a 2048-token prompt; the
+row-wise quant at the int8 KV cache's rows, standalone and fused into the
+cache write at decode slots and in the prefill layout) and times each
+around its wrapper (``ms``) and as a CUDA-graph replay of one wrapper call
+(``device_ms``, the kernel without the host), serves tiny models on CUDA
+and on the CPU and compares the greedy streams (a dense and a MoE stack
+through the engine; ``rwkv6-smoke``, ``jamba-smoke``, a dense stack with a
+biting sliding window, one with int8 KV and one with both through the
 windowed fallback), then drives the three full-width main paths with 12
 greedy requests each (random weights from a seed): RWKV-6 3B through
 ``engine_or_windowed``'s windowed fallback (wkv kernel in every prefill
 layer) under ``"mpai"`` and bf16; Jamba-v0.1 at full width, one 8-layer
 super-block deep, through the same fallback (selective scan in every Mamba
-prefill, flash attention in the attention prefill, row-wise quant at every
-int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with int8 KV; then
+prefill, flash attention in the attention prefill, the row-wise quant fused
+into every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with int8
+KV; then
 Qwen3-14B through ``ContinuousBatchingEngine`` (flash attention in every
 admission round, paged attention in every decode step) under ``"mpai"`` and
 bf16. Each full-width run also prints the histogram of the ``(M, K, N)``
@@ -438,26 +442,53 @@ def wkv_phase(timer, wk, dev) -> dict:
             "shapes": f"one RWKV-6 3B prefill layer: B=8 S=128 H={h} N={n}"}
 
 
-def selective_scan_phase(timer, ss, dev) -> dict:
+# (B, S) of the selective scan (d_inner 8192, N 16): the Jamba prefill
+# window, a ragged B and S, one 2048-token prompt
+SCAN_SHAPES = ((JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"]),
+               (3, 37), (1, 2048))
+
+
+def scan_case(dev, b: int, s: int, g, dim: int = 8192, n: int = 16) -> tuple:
+    """Selective-scan inputs (x, dt, B, C, A, D) as the Mamba mixer gives
+    them: dt a softplus, A = -(1..N) per channel (Mamba's initial A)."""
+    x = torch.randn((b, s, dim), generator=g, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, dim), generator=g, device=dev) - 3)
+    bm = torch.randn((b, s, n), generator=g, device=dev)
+    cm = torch.randn((b, s, n), generator=g, device=dev)
+    a = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).expand(dim, n).contiguous()
+    return x, dt, bm, cm, a, torch.ones(dim, device=dev)
+
+
+def quant_rows(dev, m: int, k: int, dtype, g):
+    """Rows for the row-wise quant: magnitudes spread over rows, and an
+    all-zero first row (the 1e-8 floor)."""
+    x = (torch.randn((m, k), generator=g, device=dev)
+         * torch.rand((m, 1), generator=g, device=dev) * 30).to(dtype)
+    x[0] = 0
+    return x
+
+
+def selective_scan_phase(timer, ss, dev, sm_mhz: int) -> dict:
     """The selective-scan kernel against its plain version, output and final
     state, at the Jamba prefill window (B = 8, S = 128, d_inner = 8192,
-    N = 16), at a ragged B and S, and at one 2048-token prompt."""
+    N = 16), at a ragged B and S, and at one 2048-token prompt; two
+    launches must agree bit for bit.  ``sm_mhz`` (the card's top SM clock)
+    prices the exps on the special-function unit."""
     g = torch.Generator(device=dev).manual_seed(8)
     dim, n = 8192, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, errs = {}, []
-    for b, s in ((JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"]),
-                 (3, 37), (1, 2048)):
-        x = torch.randn((b, s, dim), generator=g, device=dev)
-        dt = torch.nn.functional.softplus(
-            torch.randn((b, s, dim), generator=g, device=dev) - 3)
-        bm = torch.randn((b, s, n), generator=g, device=dev)
-        cm = torch.randn((b, s, n), generator=g, device=dev)
-        a = -torch.arange(1, n + 1, dtype=torch.float32,
-                          device=dev).expand(dim, n).contiguous()
-        d = torch.ones(dim, device=dev)
-        args = (x, dt, bm, cm, a, d)
+    for b, s in SCAN_SHAPES:
+        args = scan_case(dev, b, s, g, dim, n)
+        x, bm, a = args[0], args[2], args[4]
         y, h = ss.selective_scan(*args)
+        y2, h2 = ss.selective_scan(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"selective_scan: two launches differ at "
+                                 f"B={b} S={s}")
         y_p, h_p = ss.selective_scan_plain(*args)
         # f32 recurrences: an exp and fma chain against exp and einsum
         err_y, ok_y = within(y, y_p, 1e-4, 1e-4)
@@ -470,11 +501,13 @@ def selective_scan_phase(timer, ss, dev) -> dict:
         # each input read once, y and the final state written once
         nbytes = 4 * (3 * x.numel() + 2 * bm.numel() + a.numel() + dim
                       + h.numel())
-        # per (b, t, d, n): dt*a, exp, the state's multiply and fma, the
-        # output's fma: 6 f32 operations (the exp counted as one)
-        ops_ = 6 * b * s * dim * n
+        # per (b, t, d, n): one exp on the special-function unit (16 a
+        # clock per SM) and dt*a, dt*x*B, the state's fma and the output's
+        # fma on the f32 units (6 flops)
+        cells = b * s * dim * n
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = ops_ / PEAK_F32_FLOPS * 1e3
+        t_ops = max(cells / (16 * sms * sm_mhz * 1e6),
+                    6 * cells / PEAK_F32_FLOPS) * 1e3
         rows[(b, s)] = {
             "ms": timer.ms(lambda: ss.selective_scan(*args)),
             "device_ms": timer.device_ms(lambda: ss.selective_scan(*args)),
@@ -482,7 +515,10 @@ def selective_scan_phase(timer, ss, dev) -> dict:
                                  reps=3 if s > 512 else 15),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "max_abs_err_y": err_y, "max_abs_err_state": err_h}
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "lanes": ss.plan(b, dim, n, sms),
+            "max_abs_err_y": err_y, "max_abs_err_state": err_h,
+            "bit_identical": True}
         emit("kernel_selective_scan", B=b, S=s, D=dim, N=n, **rows[(b, s)],
              library_ms=None, tolerance="1e-4 * |ref| + 1e-4")
     main = rows[(JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"])]
@@ -493,22 +529,78 @@ def selective_scan_phase(timer, ss, dev) -> dict:
                                     "bound_ms", "bound_by")},
             "library_ms": None,
             "shapes": f"one Jamba Mamba prefill layer: B=8 S=128 D={dim} "
-                      f"N={n}"}
+                      f"N={n}; the exps bound on the special-function "
+                      f"unit at {sm_mhz} MHz"}
+
+
+# (M, K) of the row-wise quant at the int8 KV cache's rows of the Jamba
+# attention layer: a decode step's k or v, a prefill window's
+QUANT_SHAPES = ((64, 128), (8192, 128))
+# int8 KV writes of the Jamba attention layer (8 rows, KVp 8, hd 128, bf16
+# k and v) into super-block 1 of a 2-deep stacked cache: (label, S, cache
+# slots T, decode position or None for the prefill layout, sliding window)
+KV_WRITE_CASES = (("jamba decode write", 1, 160, 37, False),
+                  ("decode write, clamped slot", 1, 160, 200, False),
+                  ("decode write, ring slot", 1, 4, 9, True),
+                  ("jamba prefill window", 128, 160, None, False),
+                  ("prefill window, s >= t", 8, 4, None, False))
+
+
+def kv_write_case(dev, s: int, t: int, pos, ring: bool, seed: int,
+                  b: int = 8, h: int = 8, hd: int = 128) -> tuple:
+    """k, v [b, s, h, hd] bf16, and the codes and scales of an int8 cache
+    of t slots holding random contents, as views of super-block 1 of a
+    stack of 2 (as the windowed server keeps them); with the stack, and
+    the decode slot of position ``pos`` as ``attention.decode_slot`` gives
+    it (the ring slot under a sliding window, else clamped), or None for
+    the prefill layout."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k, v = ((torch.randn((b, s, h, hd), generator=g, device=dev)
+             * torch.rand((b, s, h, 1), generator=g, device=dev) * 20
+             ).bfloat16() for _ in range(2))
+    k[0, 0, 0] = 0                                # the 1e-8 floor
+    stack = [torch.randint(-127, 128, (2, b, t, h, hd), generator=g,
+                           device=dev, dtype=torch.int8) for _ in range(2)]
+    stack += [torch.rand((2, b, t, h, 1), generator=g, device=dev)
+              for _ in range(2)]
+    slot = None
+    if pos is not None:
+        p = torch.tensor(pos, dtype=torch.int32, device=dev)
+        slot = p % t if ring else p.clamp(max=t - 1)
+    return k, v, [w[1] for w in stack], stack, slot
+
+
+def kv_write_sequence(rq, k, v, bufs, slot) -> None:
+    """The int8 KV write unfused, the yardstick of the fused one: a row-wise
+    quant launch for k and one for v, then four slot copies
+    (``index_copy_`` at a decode slot, slice copies for a prefill)."""
+    s, t = k.shape[1], bufs[0].shape[1]
+    for src, q_buf, s_buf in ((k, bufs[0], bufs[2]), (v, bufs[1], bufs[3])):
+        q, scale = rq.rowwise_quant(src.reshape(-1, src.shape[-1]))
+        for buf, val in ((q_buf, q.reshape(src.shape)),
+                         (s_buf, scale.reshape(*src.shape[:-1], 1))):
+            if slot is not None:
+                buf.index_copy_(1, slot.reshape(1).long(), val)
+            elif s >= t:
+                buf.copy_(torch.roll(val[:, s - t:], (s - t) % t, dims=1))
+            else:
+                buf[:, :s] = val
 
 
 def rowwise_quant_phase(timer, rq, dev) -> dict:
     """The row-wise quant kernel against its plain version, codes and
-    scales equal, at the int8 KV cache's shapes of the Jamba attention
-    layer (a decode step's k or v: 8 x 1 x 8 heads of 128; a prefill
-    window's: 8 x 128 x 8 heads), at a ragged M and K, in bf16 and f32."""
+    scales equal: standalone at the int8 KV cache's row shapes of the
+    Jamba attention layer (a decode step's k or v: 8 x 1 x 8 heads of 128;
+    a prefill window's: 8 x 128 x 8 heads), at a ragged M and K, in bf16
+    and f32; and fused into the int8 KV write (``KV_WRITE_CASES``: k and v
+    in one launch into a super-block view of a stacked cache, at decode
+    slots and in the prefill layout), beside the unfused sequence of two
+    quant launches and four copies (``sequence_ms``)."""
     g = torch.Generator(device=dev).manual_seed(9)
-    rows, shapes = {}, ((64, 128), (8192, 128), (37, 96))
+    rows, shapes = {}, QUANT_SHAPES + ((37, 96),)
     for dtype in (torch.bfloat16, torch.float32):
         for m, k in shapes:
-            x = (torch.randn((m, k), generator=g, device=dev)
-                 * torch.rand((m, 1), generator=g, device=dev) * 30
-                 ).to(dtype)
-            x[0] = 0                          # the 1e-8 floor
+            x = quant_rows(dev, m, k, dtype, g)
             q, scale = rq.rowwise_quant(x)
             torch.cuda.synchronize()
             q_p, s_p = rq.rowwise_quant_plain(x)
@@ -528,12 +620,44 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
             emit("kernel_rowwise_quant", M=m, K=k,
                  dtype=str(dtype).replace("torch.", ""), exact=True, **row,
                  library_ms=None)
-    main = rows[(64, 128, torch.bfloat16)]
+    writes = {}
+    for seed, (label, s, t, pos, ring) in enumerate(KV_WRITE_CASES):
+        k, v, bufs, stack, slot = kv_write_case(dev, s, t, pos, ring, seed)
+        kept, plain = stack[0][0].clone(), [b_.clone() for b_ in bufs]
+        rq.rowwise_quant_into(k, v, *bufs, slot)
+        torch.cuda.synchronize()
+        rq.rowwise_quant_into_plain(k, v, *plain, slot)
+        if not (all(torch.equal(a_, b_) for a_, b_ in zip(bufs, plain))
+                and torch.equal(stack[0][0], kept)):
+            raise AssertionError(f"int8 KV write != plain: {label}")
+        written = k.shape[0] * min(s, t) * k.shape[2]
+        nbytes = (2 * k.numel() * k.element_size()
+                  + 2 * written * (k.shape[-1] + 4) + 4)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = 5 * 2 * k.numel() / PEAK_F32_FLOPS * 1e3
+        fused = lambda: rq.rowwise_quant_into(k, v, *bufs, slot)
+        seq = lambda: kv_write_sequence(rq, k, v, bufs, slot)
+        row = {"ms": timer.ms(fused), "device_ms": timer.device_ms(fused),
+               "plain_ms": timer.ms(
+                   lambda: rq.rowwise_quant_into_plain(k, v, *plain, slot)),
+               "sequence_ms": timer.ms(seq),
+               "sequence_device_ms": timer.device_ms(seq),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        writes[label] = row
+        emit("kernel_int8_kv_write", case=label, S=s, T=t, decode_pos=pos,
+             ring=ring, exact=True, **row, library_ms=None)
+    main = writes["jamba decode write"]
     return {"name": "rowwise_quant", "route": "cuda",
             "source": ROWWISE_QUANT_SRC, "replaces": ROWWISE_QUANT_TPU,
-            "launches": 0, "max_abs_err": 0.0, **main, "library_ms": None,
-            "shapes": "one int8 KV write of a Jamba decode step: k or v "
-                      "[8, 1, 8, 128] bf16 as M=64 rows of 128"}
+            "launches": 0, "max_abs_err": 0.0,
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "sequence_ms",
+                                    "sequence_device_ms")},
+            "library_ms": None,
+            "shapes": "the int8 KV write of a Jamba decode step, fused: k "
+                      "and v [8, 1, 8, 128] bf16 quantized into their slot "
+                      "of a super-block view, one launch"}
 
 
 def tiny_params(cfg, seed: int) -> dict:
@@ -742,8 +866,8 @@ def tiny_windowed_phase(dev) -> None:
     weights, same trace: equal greedy streams, unless the CPU logits are a
     near-tie where they part.  ``rwkv6-smoke`` (wkv), ``jamba-smoke``
     (selective scan, flash attention, MoE), and the tiny dense stack with a
-    sliding window that bites (ring cache) and with int8 KV (row-wise
-    quant)."""
+    sliding window that bites (ring cache), with int8 KV (the fused int8 KV
+    write) and with both (its ring slots)."""
     from repro_torch import bridge
     from repro_torch.configs.jamba_v0_1_52b import SMOKE as JAMBA
     from repro_torch.configs.rwkv6_3b import SMOKE as RWKV
@@ -760,7 +884,9 @@ def tiny_windowed_phase(dev) -> None:
              (JAMBA, ("selective_scan", "flash_attention")),
              (TINY.with_(name="tiny-window", sliding_window=4), ()),
              (TINY.with_(name="tiny-int8kv", kv_cache_dtype="int8"),
-              ("rowwise_quant", "flash_attention")))
+              ("rowwise_quant", "flash_attention")),
+             (TINY.with_(name="tiny-int8kv-window", kv_cache_dtype="int8",
+                         sliding_window=4), ("rowwise_quant",)))
     kw = dict(max_slots=3, prompt_len=8, max_len=20)
     real_prefill, real_decode = T.prefill, T.decode_step
     for cfg, kernels in cases:
@@ -984,7 +1110,8 @@ def jamba_full_width_phase(dev, card: str) -> dict:
         steps = st["decode_steps"]
         want = {"selective_scan": n_mamba * windows,
                 "flash_attention": n_attn * windows,
-                "rowwise_quant": (2 * n_attn * (windows + steps)
+                # one fused k-and-v write per prefill and decode step
+                "rowwise_quant": (n_attn * (windows + steps)
                                   if run_cfg.kv_cache_dtype == "int8" else 0),
                 "paged_attention": 0, "wkv": 0}
         bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
@@ -1119,8 +1246,12 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    sm_mhz = int(float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]))
     emit("device", name=torch.cuda.get_device_name(0), nvidia_smi=card,
-         torch=torch.__version__, cuda=torch.version.cuda,
+         max_sm_mhz=sm_mhz, torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
@@ -1135,7 +1266,7 @@ def main() -> int:
             int8_matmul_phase(timer, im, dev),
             flash_attention_phase(timer, fa, dev),
             wkv_phase(timer, wk, dev),
-            selective_scan_phase(timer, ss, dev),
+            selective_scan_phase(timer, ss, dev, sm_mhz),
             rowwise_quant_phase(timer, rq, dev)]
     del timer
     tiny_phase(dev)

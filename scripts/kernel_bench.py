@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged decode attention, wkv, causal flash-attention and int8
-GEMM kernels at the shapes the serving paths give them, for one checkout of
-the port.
+"""Time the paged decode attention, wkv, causal flash-attention, int8
+GEMM, selective-scan and row-wise quant kernels, and the int8 KV cache
+write, at the shapes the serving paths give them, for one checkout of the
+port.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
 
@@ -14,10 +15,14 @@ device time of the wrapper over CUDA events, twice, with ``chip_smoke.py``'s
 timer: ``ms`` with the L2 scrubbed by writing 128 MB before each launch
 (the launch then also pays for writing back up to the 50 MB of dirty lines
 it evicts), and ``ms_clean_l2`` with the L2 scrubbed by reading 128 MB
-(cold and clean); paged attention and wkv also get ``device_ms``, one
-wrapper call captured in a CUDA graph and replayed after the write scrub
-(the kernel without the wrapper's host time).  The paged-attention inputs
-are ``chip_smoke.py``'s.  Needs a CUDA card.
+(cold and clean); paged attention, wkv, the selective scan, the row-wise
+quant and the KV write also get ``device_ms``, one wrapper call captured in
+a CUDA graph and replayed after the write scrub (the kernel without the
+wrapper's host time).  The int8 KV write is the fused
+``rowwise_quant_into`` where the checkout has it, else the checkout's own
+sequence of two row-wise quant launches and four slot copies
+(``"fused": false``), so that two checkouts compare like with like.  The
+inputs are ``chip_smoke.py``'s.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -31,7 +36,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import PAGED_CASES, Timer, paged_case  # noqa: E402
+from chip_smoke import (KV_WRITE_CASES, PAGED_CASES,  # noqa: E402
+                        QUANT_SHAPES, SCAN_SHAPES, Timer, kv_write_case,
+                        kv_write_sequence, paged_case, quant_rows,
+                        scan_case)
 
 # (B, S, gp) with KVp 8, hd 128: the Qwen3-14B admission round, Jamba's
 # attention prefill window, a 2048-token Qwen3 prefill
@@ -60,6 +68,8 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import quant as rq
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.kernels import wkv as wk
 
     card = subprocess.run(
@@ -78,7 +88,8 @@ def main() -> int:
         return row
 
     result = {"paged_attention": [], "wkv": [], "flash_attention": [],
-              "int8_matmul": []}
+              "int8_matmul": [], "selective_scan": [], "rowwise_quant": [],
+              "int8_kv_write": []}
     for seed, (label, lengths, num_blocks) in enumerate(PAGED_CASES):
         a = paged_case(dev, lengths, seed, num_blocks)
         row = {"shape": label,
@@ -108,6 +119,27 @@ def main() -> int:
                           dtype=torch.int8)
         result["int8_matmul"].append(
             {"M": m, "K": k, "N": n, **times(lambda: im.int8_matmul(x, w))})
+    for b, s in SCAN_SHAPES:
+        a = scan_case(dev, b, s, g)
+        row = {"B": b, "S": s, "D": 8192, "N": 16,
+               **times(lambda: ss.selective_scan(*a), device_ms=True)}
+        if hasattr(ss, "plan"):
+            row["lanes"] = ss.plan(b, 8192, 16, sms)
+        result["selective_scan"].append(row)
+        del a
+    for m, k in QUANT_SHAPES:
+        x = quant_rows(dev, m, k, torch.bfloat16, g)
+        result["rowwise_quant"].append(
+            {"M": m, "K": k, "dtype": "bfloat16",
+             **times(lambda: rq.rowwise_quant(x), device_ms=True)})
+    fused = hasattr(rq, "rowwise_quant_into")
+    for seed, (label, s, t, pos, ring) in enumerate(KV_WRITE_CASES):
+        k, v, bufs, _, slot = kv_write_case(dev, s, t, pos, ring, seed)
+        call = ((lambda: rq.rowwise_quant_into(k, v, *bufs, slot)) if fused
+                else (lambda: kv_write_sequence(rq, k, v, bufs, slot)))
+        result["int8_kv_write"].append(
+            {"case": label, "S": s, "T": t, "fused": fused,
+             **times(call, device_ms=True)})
     print(json.dumps({"label": args.label, "src": args.src, "card": card,
                       **result}), flush=True)
     return 0

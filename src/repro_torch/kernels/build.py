@@ -107,6 +107,13 @@ def check(status: int, what: str) -> None:
                            f"{status}")
 
 
+def aligned(t):
+    """``t`` contiguous on a 16-byte boundary (kernels that copy 16 bytes
+    at a time take their inputs so)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index) -> int:
     """Streaming multiprocessors of CUDA device ``index`` (the launch plans

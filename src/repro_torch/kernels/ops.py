@@ -1,8 +1,9 @@
 """Front door of the port's kernels, as ``repro.kernels.ops`` is of the
 reference's: the model code calls ``int8_matmul``, ``paged_attention``,
-``flash_attention``, ``wkv``, ``selective_scan`` and ``rowwise_quant`` from
-here, and ``paged_chunk_attention``, which is plain PyTorch as it is XLA
-code in the reference."""
+``flash_attention``, ``wkv``, ``selective_scan``, ``rowwise_quant`` and
+the int8 KV write ``rowwise_quant_into`` from here (``write_slots`` is the
+cache write of a bf16 KV cache), and ``paged_chunk_attention``, which is
+plain PyTorch as it is XLA code in the reference."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +11,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
 from repro_torch.kernels.int8_matmul import int8_matmul  # noqa: F401
 from repro_torch.kernels.paged_attention import paged_attention  # noqa: F401
-from repro_torch.kernels.quant import rowwise_quant  # noqa: F401
+from repro_torch.kernels.quant import (rowwise_quant,  # noqa: F401
+                                      rowwise_quant_into, write_slots)
 from repro_torch.kernels.selective_scan import selective_scan  # noqa: F401
 from repro_torch.kernels.wkv import wkv  # noqa: F401
 

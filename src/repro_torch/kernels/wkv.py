@@ -76,13 +76,6 @@ def plan(b: int, h: int, n: int, sms: int) -> Plan:
     return Plan(npt, msplit)
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous on a 16-byte boundary (the kernel copies 16 bytes at
-    a time)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor):
     """The sequential recurrence in f32 (the reference's ``ref.wkv_ref``).
@@ -124,7 +117,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     for t in (k, v, w, u):
         if t.device != r.device:
             raise ValueError("wkv: tensors on different devices")
-    r, k, v, w = (_aligned(t) for t in (r, k, v, w))
+    r, k, v, w = (build.aligned(t) for t in (r, k, v, w))
     u = u.contiguous()
     y = torch.empty_like(r)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)

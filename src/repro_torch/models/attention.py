@@ -19,8 +19,8 @@ Paths:
   * paged decode / paged chunk prefill — against the block pools of
     ``runtime/paging.py``, through the kernels of ``kernels/ops.py``
   * dense decode — against a :class:`KVCache` (the windowed loop; ring
-    buffer under a sliding window, int8 KV through the row-wise quant
-    kernel)
+    buffer under a sliding window, int8 KV written by the row-wise quant
+    kernel's fused KV write)
 """
 from __future__ import annotations
 
@@ -240,13 +240,6 @@ class KVCache(NamedTuple):
         return self.k_scale is not None
 
 
-def _cache_quant(x: torch.Tensor):
-    """Per-token-per-head absmax int8 through the row-wise quant kernel.
-    x: [..., hd] -> (int8 [..., hd], f32 scale [..., 1])."""
-    q, scale = kops.rowwise_quant(x.reshape(-1, x.shape[-1]))
-    return q.reshape(x.shape), scale.reshape(*x.shape[:-1], 1)
-
-
 def _cache_deq(q: torch.Tensor,
                scale: Optional[torch.Tensor]) -> torch.Tensor:
     if scale is None:
@@ -289,21 +282,22 @@ def decode_attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                            ) -> torch.Tensor:
     """One-token decode step against a dense cache.  x: [B, 1, D].
 
-    The new token's k/v (quantized in int8 mode) are written at
-    :func:`decode_slot` and ``pos`` advances, in place; attention then reads
+    The new token's k/v (quantized in int8 mode, by the fused int8 KV
+    write) are written at :func:`decode_slot` and ``pos`` advances, in
+    place; attention then reads
     every slot written so far (the whole ring under a sliding window) in
     f32, as the reference does in XLA."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim()
     t = cache.k.shape[1]
     q, k, v = _project_qkv(params, cfg, x, cache.pos.expand(b, 1), policy)
-    slot = decode_slot(cfg, cache.pos, t).reshape(1).long()
-    if cache.quantized:
-        (k, ks), (v, vs) = _cache_quant(k), _cache_quant(v)
-        cache.k_scale.index_copy_(1, slot, ks)
-        cache.v_scale.index_copy_(1, slot, vs)
-    cache.k.index_copy_(1, slot, k.to(cache.k.dtype))
-    cache.v.index_copy_(1, slot, v.to(cache.v.dtype))
+    slot = decode_slot(cfg, cache.pos, t)
+    if cache.quantized:          # one launch: quantize k, v and write
+        kops.rowwise_quant_into(k, v, cache.k, cache.v, cache.k_scale,
+                                cache.v_scale, slot)
+    else:
+        kops.write_slots(cache.k, k, slot)
+        kops.write_slots(cache.v, v, slot)
     valid = (torch.arange(t, device=x.device)
              < torch.clamp(cache.pos + 1, max=t))
     cache.pos.add_(1)

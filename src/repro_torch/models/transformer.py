@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_map
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
@@ -189,19 +190,14 @@ def _prefill_kv(cache: attn.KVCache, k: torch.Tensor, v: torch.Tensor):
     """Write the prefill window's k/v (quantized in int8 mode) into one
     layer's dense cache and advance ``pos``, in place (the reference
     returns a new cache)."""
-    s, t = k.shape[1], cache.k.shape[1]
-    vals = [(cache.k, k), (cache.v, v)]
-    if cache.quantized:
-        (k, ks), (v, vs) = attn._cache_quant(k), attn._cache_quant(v)
-        vals = [(cache.k, k), (cache.v, v), (cache.k_scale, ks),
-                (cache.v_scale, vs)]
-    for buf, val in vals:
-        if s >= t:        # keep only the trailing window, ring-aligned so
-            # that position p lands in slot p % t
-            buf.copy_(torch.roll(val[:, s - t:], (s - t) % t, dims=1))
-        else:
-            buf[:, :s] = val
-    cache.pos.add_(s)
+    if cache.quantized:          # one launch: quantize k, v and write
+        kops.rowwise_quant_into(k, v, cache.k, cache.v, cache.k_scale,
+                                cache.v_scale)
+    else:        # s >= t keeps the trailing window, ring-aligned so that
+        # position p lands in slot p % t
+        kops.write_slots(cache.k, k)
+        kops.write_slots(cache.v, v)
+    cache.pos.add_(k.shape[1])
 
 
 def _rwkv_sublayer_apply(sub: Dict, cfg: ModelConfig, x: torch.Tensor,

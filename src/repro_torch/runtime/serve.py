@@ -125,8 +125,6 @@ class ContinuousBatchingEngine:
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  harden: bool = False, device="cuda"):
-        if harden:
-            raise NotImplementedError("hardened serving is not ported yet")
         self.params, self.cfg, self.plan, self.tp = params, cfg, plan, tp
         self.device = torch.device(device)
         self.max_slots, self.prompt_len = max_slots, prompt_len
@@ -153,6 +151,10 @@ class ContinuousBatchingEngine:
         self.caches = T.init_paged_decode_cache(
             cfg, max_slots, num_blocks, block_size, tp,
             max_blocks=self.table_width, device=self.device)
+        # read after the paged cache, as the reference does: a stack paged
+        # decode cannot serve raises ValueError above and falls back
+        if harden:
+            raise NotImplementedError("hardened serving is not ported yet")
         self.slots: List[Optional[_Slot]] = [None] * max_slots
         self.last = np.zeros((max_slots, 1), np.int32)
         self.queue: List[Request] = []
@@ -647,9 +649,12 @@ def engine_or_windowed(params, cfg: ModelConfig,
     Constructs a :class:`ContinuousBatchingEngine`; stacks paged decode
     cannot serve (recurrent and hybrid mixers, sliding windows, int8 KV —
     the engine raises ``ValueError``) fall back to the windowed loop, after
-    calling ``on_fallback(exc)`` if given.  ``watchdog_steps`` and
-    ``scrub_blocks`` tune hardened serving, which the port's engine does
-    not run yet (``harden=True`` raises ``NotImplementedError``).
+    calling ``on_fallback(exc)`` if given.  ``harden``, ``watchdog_steps``
+    and ``scrub_blocks`` tune hardened serving, which the port's engine
+    does not run yet: a stack the engine can serve raises
+    ``NotImplementedError`` under ``harden=True``; one it cannot falls
+    back as without it (the windowed loop takes no ``harden``, as in the
+    reference).
     """
     del watchdog_steps, scrub_blocks
     if max_len > prompt_len:

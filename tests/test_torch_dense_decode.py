@@ -9,7 +9,8 @@
   logits of every step and the cache after the last, under the bf16 and
   "mpai" plans, with ring writes past the cache length under a sliding
   window.
-* ``_cache_quant`` equals the jitted reference's bit for bit, and
+* the row-wise quant, per token and head, equals the jitted reference's
+  ``_cache_quant`` bit for bit, and
   ``rowwise_quant_plain`` (the CPU side of the row-wise quant kernel)
   equals the jitted ``ref.rowwise_quant_ref`` and the Pallas kernel run in
   interpret mode.
@@ -292,7 +293,8 @@ def test_cache_quant_is_bit_exact_with_the_jitted_reference(shape):
     x = (rng.normal(size=shape) * rng.uniform(0.1, 8, size=shape[:-1] + (1,))
          ).astype(np.float32)
     tx = torch.from_numpy(x).bfloat16()
-    q, s = TA._cache_quant(tx)
+    q, s = tquant.rowwise_quant(tx.reshape(-1, shape[-1]))   # CPU: plain
+    q, s = q.reshape(shape), s.reshape(*shape[:-1], 1)
     wq, ws = jax.jit(JA._cache_quant)(jnp.asarray(x).astype(jnp.bfloat16))
     assert q.shape == shape and s.shape == shape[:-1] + (1,)
     np.testing.assert_array_equal(q.numpy(), np.asarray(wq))
@@ -318,6 +320,102 @@ def test_rowwise_quant_wrapper_rejects_what_it_does_not_take():
         tquant.rowwise_quant(torch.zeros(2, 3, 4))
     with pytest.raises(TypeError):
         tquant.rowwise_quant(torch.zeros(2, 3, dtype=torch.int8))
+
+
+# ---------------------------------------------------------------------------
+# the fused int8 KV write (the CPU side of ``rowwise_quant_into``)
+# ---------------------------------------------------------------------------
+# (mode, sliding window, cache length t, decode position or prefill length):
+# decode at a plain slot, at the clamped last slot (pos >= t, no window)
+# and at ring slots (pos % t); prefill with s < t, s == t and s > t
+KV_WRITES = [("decode", 0, 14, 3), ("decode", 0, 14, 20),
+             ("decode", 4, 4, 5), ("decode", 4, 4, 11),
+             ("prefill", 0, 14, 8), ("prefill", 4, 4, 4),
+             ("prefill", 4, 4, 10), ("prefill", 0, 6, 15)]
+
+
+def _kv_write_case(mode, t, pos_or_s, seed):
+    """bf16 k/v of one step, and an int8 cache already holding random codes
+    and scales (a write must touch its slots and no other)."""
+    rng = np.random.default_rng(seed)
+    s = 1 if mode == "decode" else pos_or_s
+    kv = [(rng.normal(size=(B, s, TINY.num_kv_heads, 16))
+           * rng.uniform(0.1, 8, size=(B, s, TINY.num_kv_heads, 1))
+           ).astype(np.float32) for _ in range(2)]
+    codes = [rng.integers(-127, 128, (B, t, TINY.num_kv_heads, 16)
+                          ).astype(np.int8) for _ in range(2)]
+    scales = [rng.uniform(0.01, 1, (B, t, TINY.num_kv_heads, 1)
+                          ).astype(np.float32) for _ in range(2)]
+    pos = pos_or_s if mode == "decode" else 0
+    return kv, codes, scales, np.array(pos, np.int32)
+
+
+@pytest.mark.parametrize("mode,window,t,pos_or_s", KV_WRITES)
+def test_int8_kv_write_equals_the_reference(monkeypatch, mode, window, t,
+                                            pos_or_s):
+    """The port's decode step and prefill write their int8 KV through
+    ``rowwise_quant_into`` (its plain version on the CPU); given the same
+    bf16 k and v, the cache they leave (codes, scales, ``pos``) equals the
+    jitted reference's bit for bit."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import attention as JA
+    from repro.models import transformer as JT
+    sys.path.insert(0, str(ROOT / "tests"))
+    from conftest import tiny_dense
+    (k, v), codes, scales, pos = _kv_write_case(mode, t, pos_or_s, seed=t)
+    kw = dict(kv_cache_dtype="int8", sliding_window=window)
+    jcfg, tcfg = tiny_dense(**kw), TINY.with_(**kw)
+    s, hd = k.shape[1], 16
+    d, h = TINY.d_model, TINY.num_heads
+
+    # the reference: its own write, k and v handed in for its projection
+    def jrun(jk, jv, cache):
+        q = jnp.zeros((B, s, h, hd), jk.dtype)
+        monkeypatch.setattr(JA, "_project_qkv", lambda *a: (q, jk, jv))
+        if mode == "prefill":
+            return JT._prefill_kv(None, jcfg, None, None, cache, None)
+        params = {"wo": jnp.zeros((h * hd, d), jnp.float32)}
+        return JA.decode_attention_apply(params, jcfg,
+                                         jnp.zeros((B, 1, d), jk.dtype),
+                                         cache)[1]
+    jcache = JA.KVCache(jnp.asarray(codes[0]), jnp.asarray(codes[1]),
+                        jnp.asarray(pos), jnp.asarray(scales[0]),
+                        jnp.asarray(scales[1]))
+    want = jax.jit(jrun)(jnp.asarray(k, jnp.bfloat16),
+                         jnp.asarray(v, jnp.bfloat16), jcache)
+
+    tk, tv = (torch.from_numpy(a).bfloat16() for a in (k, v))
+    cache = TA.KVCache(*(torch.from_numpy(a.copy()) for a in (
+        codes[0], codes[1], pos, scales[0], scales[1])))
+    before = tquant.rowwise_quant.launches
+    if mode == "prefill":
+        TT._prefill_kv(cache, tk, tv)
+    else:
+        q = torch.zeros((B, 1, h, hd), dtype=torch.bfloat16)
+        monkeypatch.setattr(TA, "_project_qkv", lambda *a: (q, tk, tv))
+        TA.decode_attention_apply({"wo": torch.zeros((h * hd, d))}, tcfg,
+                                  torch.zeros((B, 1, d)).bfloat16(), cache)
+    assert tquant.rowwise_quant.launches == before        # CPU: plain
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(cache, f).numpy(),
+                                      np.asarray(getattr(want, f)), f)
+
+
+def test_int8_kv_write_wrapper_rejects_what_it_does_not_take():
+    k = torch.zeros(2, 1, 2, 16)
+    buf = lambda *s_, dt=torch.int8: torch.zeros(*s_, dtype=dt)
+    good = (buf(2, 4, 2, 16), buf(2, 4, 2, 16), buf(2, 4, 2, 1,
+                                                    dt=torch.float32),
+            buf(2, 4, 2, 1, dt=torch.float32))
+    with pytest.raises(ValueError):            # k and v differ
+        tquant.rowwise_quant_into(k, k[:, :, :1], *good)
+    with pytest.raises(ValueError):            # cache of another width
+        tquant.rowwise_quant_into(k, k, buf(2, 4, 2, 8), *good[1:])
+    with pytest.raises(ValueError):            # decode writes one token
+        tquant.rowwise_quant_into(torch.zeros(2, 2, 2, 16),
+                                  torch.zeros(2, 2, 2, 16), *good,
+                                  slot=torch.tensor(0, dtype=torch.int32))
 
 
 if __name__ == "__main__":

@@ -703,11 +703,16 @@ def test_wkv_plan_fills_the_card_at_the_rwkv_shape():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["paged_attention", "wkv"])
+@pytest.mark.parametrize("kernel", ["paged_attention", "wkv",
+                                    "selective_scan"])
 def test_kernel_is_bit_identical_across_launches_on_card(cuda, kernel):
     if kernel == "wkv":
         args = _wkv_case(8, 128, 40, 64, cuda)
         run = lambda: torch.cat([t.flatten() for t in wk.wkv(*args)])
+    elif kernel == "selective_scan":
+        args = _scan_case(1, 300, 8192, 16, cuda)
+        run = lambda: torch.cat([t.flatten()
+                                 for t in ss.selective_scan(*args)])
     else:
         case = _paged_case([0, 1, 16, 17, 40, 77, 127, 4096], 16, 8, 5,
                            hd=128, num_blocks=300)
@@ -774,6 +779,57 @@ def test_selective_scan_kernel_matches_plain_output_and_state_on_card(
     torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-4)
 
 
+def _scan_compiled():
+    """The (N, lanes) pairs ``csrc/selective_scan.cu`` instantiates."""
+    src = (build.CSRC / "selective_scan.cu").read_text()
+    return sorted({(int(a), int(b)) for a, b in
+                   re.findall(r"REPRO_N\((\d+), (\d+)\)", src)})
+
+
+def _scan_dim_for(n, lanes, sms):
+    """Channels at B 1 whose plan gives ``lanes`` threads a channel of
+    ``n`` states on ``sms`` SMs: just enough threads for the card."""
+    return -(-32 * ss.WARPS_PER_SM * sms // lanes)
+
+
+def test_scan_compiles_every_plan_and_the_plan_reaches_each():
+    compiled = _scan_compiled()
+    assert compiled == sorted(
+        (n, lanes) for n in ss.STATE_SIZES for lanes in ss.LANES
+        if lanes <= n and n // lanes <= ss.MAX_STATES)
+    for n, lanes in compiled:
+        assert ss.plan(1, _scan_dim_for(n, lanes, 132), n, 132) == lanes
+
+
+@pytest.mark.parametrize("b,dim,n", [(8, 8192, 16),    # Jamba prefill
+                                     (1, 8192, 16), (3, 8192, 16),
+                                     (1, 1, 4), (2, 96, 64), (8, 200, 32),
+                                     (64, 8192, 64)])
+@pytest.mark.parametrize("sms", [1, 7, 132])
+def test_scan_plan_fills_the_card_within_the_compiled_tiles(b, dim, n, sms):
+    lanes = ss.plan(b, dim, n, sms)
+    assert (n, lanes) in _scan_compiled()
+    # the fewest lanes that fill the card, or as many as the tiles allow
+    full = b * dim * lanes >= 32 * ss.WARPS_PER_SM * sms
+    assert full or lanes == min(n, ss.LANES[-1])
+    assert lanes == max(1, n // ss.MAX_STATES) or \
+        b * dim * lanes // 2 < 32 * ss.WARPS_PER_SM * sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lanes", _scan_compiled())
+def test_selective_scan_kernel_matches_plain_at_every_compiled_plan_on_card(
+        cuda, n, lanes):
+    sms = build.sm_count(cuda.index)
+    dim = _scan_dim_for(n, lanes, sms) + 3          # ragged D
+    assert ss.plan(1, dim, n, sms) == lanes
+    args = _scan_case(1, 41, dim, n, cuda)          # ragged S
+    y, h = ss.selective_scan(*args)
+    y_p, h_p = ss.selective_scan_plain(*args)
+    torch.testing.assert_close(y, y_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(h, h_p, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.cuda
 def test_selective_scan_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, bm, cm, a, dd = _scan_case(1, 4, 64, 16, cuda)
@@ -804,6 +860,115 @@ def test_rowwise_quant_kernel_equals_plain_on_card(cuda, m, k, dtype):
     assert rq.rowwise_quant.launches == before + 1
     q_p, s_p = rq.rowwise_quant_plain(x)
     assert torch.equal(q, q_p) and torch.equal(scale, s_p)
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 96, 128, 1000, 2048, 4096, 8200])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_quant_plan_reads_every_vector_of_a_row_once(k, itemsize):
+    nbytes = k * itemsize
+    for rows in (64, 8192, 16384):
+        p = rq.plan(k, itemsize, rows, 132)
+        if p.r == 0:    # the scalar path: no whole vectors, or too many
+            assert p == rq.SCALAR and (
+                nbytes % 8 or nbytes > 16 * 32 * rq.MAX_VECTORS)
+            continue
+        assert p.vb in (8, 16) and nbytes % p.vb == 0
+        assert p.g in (1, 2, 4, 8, 16, 32) and p.r in (1, 2, 4, 8)
+        nv = nbytes // p.vb
+        seen = collections.Counter(gl + j * p.g for gl in range(p.g)
+                                   for j in range(p.r) if gl + j * p.g < nv)
+        assert set(seen) == set(range(nv)) and set(seen.values()) == {1}
+    # bf16 rows of 128: 8-byte vectors while the rows' lanes fit one wave
+    assert rq.plan(128, 2, 8192, 132) == rq.Plan(8, 32, 1)
+    assert rq.plan(128, 2, 16384, 132) == rq.Plan(16, 16, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [128, 96])
+def test_rowwise_quant_kernel_takes_an_unaligned_row_on_card(cuda, dtype, k):
+    # a view 2 bytes (bf16) or 4 bytes (f32) off the 16-byte boundary
+    m = 37
+    base = torch.from_numpy(RNG.normal(size=m * k + 1).astype(np.float32))
+    x = (base * 9).to(cuda, dtype)[1:].view(m, k)
+    assert x.data_ptr() % 16
+    q, scale = rq.rowwise_quant(x)
+    q_p, s_p = rq.rowwise_quant_plain(x)
+    assert torch.equal(q, q_p) and torch.equal(scale, s_p)
+
+
+def _kv_case(b, s, h, hd, t, lead, dtype, device, seed):
+    """k, v [b, s, h, hd] and an int8 cache of t slots holding random codes
+    and scales; with ``lead``, the cache is super-block 1 of a stack of
+    ``lead`` (a view, as the windowed server keeps it)."""
+    g = torch.Generator().manual_seed(seed)
+    k, v = ((torch.randn((b, s, h, hd), generator=g)
+             * torch.rand((b, s, h, 1), generator=g) * 20).to(device, dtype)
+            for _ in range(2))
+    k[0, 0, 0] = 0                                 # the 1e-8 floor
+    stack = (lead or 1,)
+    codes = [torch.randint(-127, 128, (*stack, b, t, h, hd), generator=g,
+                           dtype=torch.int8).to(device) for _ in range(2)]
+    scales = [torch.rand((*stack, b, t, h, 1), generator=g).to(device)
+              for _ in range(2)]
+    bufs = [c[min(1, stack[0] - 1)] for c in codes + scales]
+    return k, v, bufs, codes + scales
+
+
+# (decode position or None for prefill, s, t, stacked super-blocks)
+KV_CARD_CASES = [(5, 1, 160, 0), (200, 1, 160, 0),       # plain, clamped
+                 (9, 1, 4, 2), (4, 1, 4, 0),             # ring slots
+                 (None, 128, 160, 2),                    # Jamba prefill
+                 (None, 8, 4, 0), (None, 4, 4, 2), (None, 3, 7, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [128, 96, 12])
+@pytest.mark.parametrize("pos,s,t,lead", KV_CARD_CASES)
+def test_int8_kv_write_kernel_equals_plain_on_card(cuda, pos, s, t, lead,
+                                                   hd, dtype):
+    k, v, bufs, whole = _kv_case(8 if hd == 128 else 3, s, 8 if hd == 128
+                                 else 2, hd, t, lead, dtype, cuda, seed=s + t)
+    plain = [b_.clone() for b_ in bufs]
+    slot = None
+    if pos is not None:       # decode_slot: ring under a window, else clamp
+        p = torch.tensor(pos, dtype=torch.int32, device=cuda)
+        slot = p % t if t == 4 else p.clamp(max=t - 1)
+    kept = [w.clone() for w in whole]
+    before = rq.rowwise_quant.launches
+    rq.rowwise_quant_into(k, v, *bufs, slot)
+    torch.cuda.synchronize()
+    assert rq.rowwise_quant.launches == before + 1
+    rq.rowwise_quant_into_plain(k, v, *plain, slot)
+    for got, want in zip(bufs, plain):
+        assert torch.equal(got, want)
+    if lead:                  # the other super-block is untouched
+        for w, kw in zip(whole, kept):
+            assert torch.equal(w[0], kw[0])
+
+
+@pytest.mark.cuda
+def test_int8_kv_write_kernel_refuses_what_it_does_not_take(cuda):
+    k, v, bufs, _ = _kv_case(2, 1, 2, 16, 4, 0, torch.bfloat16, cuda, 0)
+    slot = torch.tensor(1, dtype=torch.int32, device=cuda)
+    kq, vq, ks, vs = bufs
+    strided = torch.zeros((2, 4, 16, 2), dtype=torch.int8,
+                          device=cuda).transpose(2, 3)   # K not unit stride
+    with pytest.raises(ValueError):
+        rq.rowwise_quant_into(k, v, strided, strided, ks, vs, slot)
+    other = torch.zeros((2, 2, 4, 16), dtype=torch.int8,
+                        device=cuda).transpose(1, 2)     # v's layout differs
+    with pytest.raises(ValueError):
+        rq.rowwise_quant_into(k, v, kq, other, ks, vs, slot)
+    with pytest.raises(TypeError):
+        rq.rowwise_quant_into(k, v, kq, vq, ks, vs, slot.long())
+    with pytest.raises(TypeError):
+        rq.rowwise_quant_into(k.half(), v.half(), kq, vq, ks, vs, slot)
+    with pytest.raises(TypeError):
+        rq.rowwise_quant_into(k, v, kq.float(), vq, ks, vs, slot)
+    with pytest.raises(ValueError):
+        rq.rowwise_quant_into(k, v, kq, vq, ks, vs, slot.cpu())
 
 
 @pytest.mark.cuda

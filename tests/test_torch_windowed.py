@@ -51,6 +51,8 @@ TIMING = ("decode_s", "admit_s")
 # the stacks the port once refused, and ``jamba-smoke``
 ONCE_REFUSED = ("sliding_window", "int8_kv", "mamba_hybrid", "moe",
                 "jamba_smoke")
+# stacks paged decode cannot serve, asked for hardened serving
+HARDEN_FALLBACK = ("rwkv6", "jamba_smoke", "sliding_window", "int8_kv")
 
 
 def _trace(vocab=512):
@@ -104,10 +106,10 @@ def _reference(json_path, npz_path):
     sys.path.insert(0, str(ROOT / "tests"))
     from conftest import tiny_dense
 
-    flat = {}
+    flat, kept = {}, {}
 
     def init(name, cfg):
-        params = T.model_init(jax.random.PRNGKey(0), cfg)
+        params = kept[name] = T.model_init(jax.random.PRNGKey(0), cfg)
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
             flat["/".join([name] + [p.key for p in path])] = np.asarray(leaf)
         return params
@@ -133,6 +135,17 @@ def _reference(json_path, npz_path):
                        max_len=SERVER["max_len"])
             res[name][pname] = {"server": type(srv).__name__,
                                 **_drive(srv, JR, cfg.vocab_size)}
+    res["harden"] = {}
+    for name in HARDEN_FALLBACK:
+        cfg = (jr.SMOKE if name == "rwkv6" else
+               _once_refused_cfg(name, tiny_dense(), JMoE, jj.SMOKE))
+        seen = []
+        srv = jeow(kept[name], cfg, max_slots=SERVER["max_batch"],
+                   prompt_len=SERVER["prompt_len"],
+                   max_len=SERVER["max_len"], harden=True,
+                   on_fallback=seen.append)
+        res["harden"][name] = {"server": type(srv).__name__,
+                               "fallbacks": len(seen)}
     np.savez(npz_path, **flat)
     Path(json_path).write_text(json.dumps(res))
 
@@ -158,8 +171,8 @@ def ref(tmp_path_factory):
             node = node.setdefault(p, {})
         node[leaf] = a
     res = json.loads((d / "ref.json").read_text())
-    return ({"rwkv6": res.pop("rwkv6"), **{f"once/{k}": v
-                                          for k, v in res.items()}},
+    return ({"rwkv6": res.pop("rwkv6"), "harden": res.pop("harden"),
+             **{f"once/{k}": v for k, v in res.items()}},
             bridge.to_torch(tree, "cpu"))
 
 
@@ -232,6 +245,27 @@ def test_engine_or_windowed_falls_back_to_windowed_for_rwkv(ref):
     srv = engine_or_windowed(ref[1]["rwkv6"], tr.SMOKE, prompt_len=8,
                              max_len=8, on_fallback=seen.append, device="cpu")
     assert isinstance(srv, WindowedBaselineServer) and not seen
+
+
+@pytest.mark.parametrize("name", HARDEN_FALLBACK)
+def test_harden_falls_back_to_the_reference_server(ref, name):
+    """Hardened serving is asked of a stack paged decode cannot serve: the
+    engine's ``ValueError`` comes first, so ``engine_or_windowed`` falls
+    back once to the reference's server (the windowed loop takes no
+    ``harden``), where a pageable stack would refuse ``harden``."""
+    want = ref[0]["harden"][name]
+    cfg = (tr.SMOKE if name == "rwkv6" else
+           _once_refused_cfg(name, TINY, MoEConfig, tj.SMOKE))
+    seen = []
+    srv = engine_or_windowed(ref[1][name], cfg,
+                             max_slots=SERVER["max_batch"],
+                             prompt_len=SERVER["prompt_len"],
+                             max_len=SERVER["max_len"], harden=True,
+                             on_fallback=seen.append, device="cpu")
+    assert want == {"server": "WindowedBaselineServer", "fallbacks": 1}
+    assert type(srv).__name__ == want["server"]
+    assert len(seen) == want["fallbacks"]
+    assert isinstance(seen[0], ValueError)
 
 
 def test_batching_server_is_a_deprecated_shim(ref):
