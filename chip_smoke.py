@@ -27,9 +27,17 @@ into every int8 KV write) under ``"mpai"``, bf16 and ``"mpai"`` with int8
 KV; then
 Qwen3-14B through ``ContinuousBatchingEngine`` (flash attention in every
 admission round, paged attention in every decode step) under ``"mpai"`` and
-bf16. Each full-width run also prints the histogram of the ``(M, K, N)``
-shapes its int8 GEMMs took. Prints one JSON line per phase, the card's name
-and power limit, a ``{"kernels": [...]}`` line, and as its last line
+bf16, and then, on the same weights, through the serving facade: the
+fleet JSON ``FLEET_SPEC`` (an "mpai" and a bf16 engine pool at once, and
+a cost-model pool) built with ``repro_torch.serving.FleetSpec`` and
+driven by a seeded open loop of 24 greedy requests with the flight
+recorder on, each kernel's launches held to the recorder's decode-step
+and admission spans. The tiny fleet of ``tests/test_torch_facade_engine.py``
+runs on CUDA and on the CPU before it (same admissions, equal greedy
+streams). Each full-width engine run also prints the histogram of the
+``(M, K, N)`` shapes its int8 GEMMs took. Prints one JSON line per phase,
+the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
+last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
 exits non-zero; it also exits non-zero where there is no CUDA device.
 Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB, Jamba's
@@ -1138,6 +1146,197 @@ def jamba_full_width_phase(dev, card: str) -> dict:
     return launches
 
 
+def tiny_fleet_phase(dev) -> None:
+    """The fleet of ``tests/test_torch_facade_engine.py`` (a cost-model
+    pool, engine pools under "mpai" and bf16, a windowed pool), built from
+    its JSON with the same tiny dense weights on CUDA and on the CPU, and
+    driven by the same seeded open loop with the executors' clock pinned
+    by the test's stub: the same admissions and serving pools, and equal
+    greedy streams unless the CPU logits are a near-tie where they part."""
+    from repro_torch import bridge
+    from repro_torch.configs.tiny import TINY
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import FleetSpec, LMWork, PoolSpec, executor
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_facade_engine as case   # its fleet, payloads, clock
+
+    text = json.dumps(case.fleet(FleetSpec, PoolSpec).to_dict())
+    weights = tiny_params(TINY, seed=0)
+    wrappers = kernel_wrappers()
+    runs, real = {}, executor.time
+    for where in (dev, torch.device("cpu")):
+        params = bridge.to_torch(weights, where)
+        executor.time = case.StubClock()
+        try:
+            client = FleetSpec.from_dict(json.loads(text)).build(
+                model=(TINY, params), device=where)
+            zero_counts()
+            runs[where.type] = case.serve(client, LMWork)
+        finally:
+            executor.time = real
+        if where.type == "cuda":
+            idle = [k for k in ("paged_attention", "flash_attention",
+                                "int8_matmul") if not wrappers[k].launches]
+            if idle:
+                raise AssertionError(f"tiny fleet: no launch of {idle}")
+        else:
+            cpu_params, cpu_client = params, client
+    got, want = runs["cuda"]["handles"], runs["cpu"]["handles"]
+    placed = [(h["rid"], h["admitted"], h["pool"]) for h in got]
+    if placed != [(h["rid"], h["admitted"], h["pool"]) for h in want]:
+        raise AssertionError("tiny fleet: admissions or pools differ between "
+                             "CUDA and the CPU")
+    prompts = {h["rid"]: np.asarray(p, np.int32) for h, p in
+               zip(want[case.N_COST:], runs["cpu"]["prompts"])}
+    trace = [(rid, None, None) for rid in prompts]
+    streams = {"cuda": {h["rid"]: h["tokens"] for h in got},
+               "cpu": {h["rid"]: h["tokens"] for h in want}}
+    pool_of = {h["rid"]: h["pool"] for h in want}
+
+    def top2_of(rid, t):
+        srv, prompt = cpu_client.engines[pool_of[rid]], prompts[rid]
+        pad = getattr(srv, "padded_prompt_len", None)
+        ctx = np.zeros(pad(len(prompt)) if pad else srv.prompt_len, np.int32)
+        ctx[-len(prompt):] = prompt
+        ctx = np.concatenate([ctx, np.asarray(streams["cpu"][rid][:t],
+                                              np.int32)])
+        logits = T.forward(cpu_params, TINY, torch.as_tensor(ctx[None]),
+                           srv.plan).logits[0, -1].float()
+        return torch.topk(logits, 2).values
+    ties = near_tie_divergences("tiny fleet", streams, trace, top2_of)
+    pools = runs["cuda"]["snapshot"]["pools"]
+    emit("tiny_fleet", config=TINY.name, requests=len(got),
+         lm_requests=len(trace),
+         tokens=sum(len(s) for s in streams["cuda"].values()),
+         streams_equal=len(trace) - ties, near_tie_divergences=ties,
+         batches={name: p["batches"] for name, p in sorted(pools.items())})
+
+
+# The full-width fleet: two engine pools sized as QWEN_SERVE with chunked
+# admission up to 64-token prompts, and a cost-model pool.  "lm-any"
+# requests take the cheapest plan (int8: the "mpai" pool), "lm-accurate"
+# ones bf16 plans (the bf16 pool), "exact" ones fp32 plans, which only the
+# cost-model pool hosts.
+FLEET_SPEC = {
+    "pools": [
+        {"name": name, "profiles": [profile], "backend": "engine",
+         "plan": plan, "capacity": 1, "max_window": 8, "max_wait_s": 0.5,
+         "max_slots": QWEN_SERVE["max_slots"],
+         "prompt_len": QWEN_SERVE["prompt_len"],
+         "block_size": QWEN_SERVE["block_size"], "max_prompt_len": 64,
+         "max_new": 32}
+        for name, profile, plan in (("qwen-mpai", "tpu_v5e_int8", "mpai"),
+                                    ("qwen-bf16", "tpu_v5e_bf16", "bf16"))
+    ] + [{"name": "vision", "profiles": ["tpu_v5e_fp32"], "capacity": 1,
+          "max_window": 4}],
+    "workload": "transformer", "dt": 0.01, "trace": True,
+    "slos": [{"name": "lm-any", "max_latency_s": 600.0},
+             {"name": "lm-accurate", "max_latency_s": 600.0,
+              "max_accuracy_penalty": 0.02},
+             {"name": "exact", "max_latency_s": 600.0,
+              "max_accuracy_penalty": 0.0}],
+}
+FLEET_LM, FLEET_COST = 24, 4
+
+
+def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
+    """Qwen3-14B at full width served through the facade: the fleet JSON
+    above, built with ``FleetSpec.build(model=(cfg, params))`` on the card,
+    a seeded open loop of 24 greedy requests (2-32 token prompts, two of
+    40-64, ``max_new`` 1-32) over both engine pools at once, and cost-model
+    requests to the third pool, with the flight recorder on.  Returns each
+    kernel's launches in the run, counted from 0."""
+    from repro_torch.serving import FleetSpec, LMWork, open_loop
+
+    t0 = time.perf_counter()
+    client = FleetSpec.from_dict(json.loads(json.dumps(FLEET_SPEC))).build(
+        model=(cfg, params), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    budgets = []
+
+    def payload(rng):
+        i = len(budgets)
+        n = (int(rng.integers(40, 65)) if i in (4, 9)
+             else int(rng.integers(2, 33)))
+        budgets.append(int(rng.integers(1, 33)))
+        return LMWork(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+                      max_new=budgets[-1])
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                     # the main path's counts start here
+    t0 = time.perf_counter()
+    cost = [client.submit(None, slo="exact") for _ in range(FLEET_COST)]
+    handles = open_loop(client, [client.resolve_slo("lm-any"),
+                                 client.resolve_slo("lm-accurate")],
+                        [0.5, 0.5], rate_hz=8.0, n_requests=FLEET_LM,
+                        seed=3, payload_fn=payload)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pa_n, im_n = pa.paged_attention.launches, im.int8_matmul.launches
+    fa_n = fa.flash_attention.launches
+    snap = client.telemetry
+    if handles.truncated:
+        raise AssertionError("fleet: the open loop was cut at its time limit")
+    if snap["completed"] + snap["dropped"] != snap["admitted"]:
+        raise AssertionError(f"fleet: {snap['completed']} completed + "
+                             f"{snap['dropped']} dropped != "
+                             f"{snap['admitted']} admitted")
+    for h, max_new in zip(handles, budgets):
+        r = h.result()
+        if not r.admitted or r.dropped:
+            continue
+        toks = r.tokens.tolist()
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            raise AssertionError(f"fleet: request {r.rid} on {r.pool} "
+                                 f"returned {toks} for max_new={max_new}")
+    if any(h.result().pool != "vision" for h in cost):
+        raise AssertionError("fleet: a cost-model request left its pool")
+    tracer = client.tracer
+    if tracer.open_spans() or tracer.dropped:
+        raise AssertionError(f"fleet: {len(tracer.open_spans())} orphan "
+                             f"spans, {tracer.dropped} dropped")
+    lanes = collections.Counter((sp.pool, sp.stage) for sp in tracer.spans
+                                if sp.stage in ("decode_step", "admit"))
+    steps = lanes[("qwen-mpai", "decode_step")] + lanes[("qwen-bf16",
+                                                         "decode_step")]
+    admits = lanes[("qwen-mpai", "admit")] + lanes[("qwen-bf16", "admit")]
+    if pa_n != cfg.num_layers * steps or not steps:
+        raise AssertionError(f"fleet: {pa_n} paged_attention launches for "
+                             f"{steps} decode_step spans")
+    if fa_n != cfg.num_layers * admits or not admits:
+        raise AssertionError(f"fleet: {fa_n} flash_attention launches for "
+                             f"{admits} admit spans")
+    if not im_n:
+        raise AssertionError("fleet: no int8_matmul launch")
+    counters = client.router.telemetry.pools
+    for name in ("qwen-mpai", "qwen-bf16", "vision"):
+        pc = counters[name]
+        if not pc.batches:
+            raise AssertionError(f"fleet: pool {name} served no batch")
+        emit("fleet_full_width_pool", pool=name, card=card,
+             decode_tok_s=(pc.decode_tokens / pc.decode_s
+                           if pc.decode_s else None),
+             tokens=pc.tokens_generated, decode_tokens=pc.decode_tokens,
+             requests=pc.completed, batches=pc.batches,
+             decode_steps=lanes[(name, "decode_step")],
+             admission_rounds=lanes[(name, "admit")],
+             prefill_tokens=pc.prefill_tokens, deferrals=pc.deferrals,
+             busy_s=pc.busy_s, decode_s=pc.decode_s)
+    emit("fleet_full_width", config=cfg.name, card=card,
+         requests=len(handles) + len(cost), admitted=snap["admitted"],
+         completed=snap["completed"], dropped=snap["dropped"],
+         violations=snap["violations"], virtual_s=client.now,
+         build_s=build_s, wall_s=wall,
+         peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+         spans=len(tracer.spans), paged_attention_launches=pa_n,
+         int8_matmul_launches=im_n, flash_attention_launches=fa_n)
+    del client, handles, cost
+    return {"paged_attention": pa_n, "int8_matmul": im_n,
+            "flash_attention": fa_n}
+
+
 def full_width_phase(dev, card: str, pa, im, fa) -> dict:
     """Qwen3-14B at full width through the engine, under "mpai" and bf16.
     Returns each kernel's launches in each plan's run, counted from 0."""
@@ -1219,6 +1418,9 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
              admission_rounds=admit_rounds, paged_attention_launches=pa_n,
              int8_matmul_launches=im_n, flash_attention_launches=fa_n)
         del eng
+    for name, n in fleet_full_width_phase(dev, card, cfg, params, pa, im,
+                                          fa).items():
+        launches[name][f"{cfg.name}/fleet"] = n
     return launches
 
 
@@ -1271,6 +1473,7 @@ def main() -> int:
     del timer
     tiny_phase(dev)
     tiny_windowed_phase(dev)
+    tiny_fleet_phase(dev)
     launches = {row["name"]: {} for row in rows}
     for phase in (lambda: rwkv_full_width_phase(dev, card, wk, im, fa),
                   lambda: jamba_full_width_phase(dev, card),

@@ -30,6 +30,12 @@ class Precision(enum.Enum):
         return torch.bfloat16  # int8 path dequantizes into bf16
 
     @property
+    def bytes_per_weight(self) -> float:
+        if self is Precision.INT8:
+            return 1.0
+        return 4.0 if self is Precision.FP32 else 2.0
+
+    @property
     def is_quantized(self) -> bool:
         return self is Precision.INT8
 

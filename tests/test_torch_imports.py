@@ -72,6 +72,11 @@ ENTRY_POINTS = [
     ("repro_torch.runtime.serve", "WindowedBaselineServer"),
     ("repro_torch.runtime.serve", "engine_or_windowed"),
     ("repro_torch.runtime.serve", "BatchingServer"),
+    ("repro_torch.serving.spec", "FleetSpec.build"),
+    ("repro_torch.serving.spec", "build_pool"),
+    ("repro_torch.serving.spec", "make_server"),
+    # ServingClient.add_pool builds on the device the client holds
+    ("repro_torch.serving.client", "ServingClient"),
 ]
 
 
@@ -79,5 +84,7 @@ ENTRY_POINTS = [
                          ids=[f"{m}.{n}" for m, n in ENTRY_POINTS])
 def test_entry_point_defaults_to_the_card(module, name):
     import importlib
-    fn = getattr(importlib.import_module(module), name)
+    fn = importlib.import_module(module)
+    for part in name.split("."):
+        fn = getattr(fn, part)
     assert inspect.signature(fn).parameters["device"].default == "cuda"
