@@ -35,7 +35,20 @@ recorder on, each kernel's launches held to the recorder's decode-step
 and admission spans. The tiny fleet of ``tests/test_torch_facade_engine.py``
 runs on CUDA and on the CPU before it (same admissions, equal greedy
 streams). Each full-width engine run also prints the histogram of the
-``(M, K, N)`` shapes its int8 GEMMs took. Prints one JSON line per phase,
+``(M, K, N)`` shapes its int8 GEMMs took.
+
+Sampling and hardening: the threefry key stream and ``sample_logits`` on
+the card against the CPU at Qwen3's vocabulary (``sampling``); the tiny
+dense stack with half its requests sampled, plain and hardened with a
+stalled slot and an armed bit flip, on CUDA and on the CPU; the Qwen3-14B
+trace with half its requests sampled and, under bf16, hardened with no
+fault, with a bit flip and with a stalled slot, each held to the
+unfaulted streams (``qwen_sampled_hardened``: under "mpai" only the
+counters, books and budgets, as int8 activations are quantized across the
+batch); and the fleet again with a ``kv_bitflip`` on its bf16 pool, a
+``slot_stall`` on its "mpai" pool and half its requests sampled
+(``fleet_sampled_hardened``).  Launch counts include replayed decode calls
+and bucket re-prefills. Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -668,6 +681,74 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
                       "of a super-block view, one launch"}
 
 
+SAMPLING_SEEDS = (0, 1, 42, -1, -7, 2**31 - 1, -2**31, 9)
+QWEN_VOCAB = 151936
+
+
+def sampling_phase(timer, dev) -> None:
+    """The key stream and the sampler on the card against the CPU: keys
+    and threefry bits equal exactly on a grid of seeds (negative ones
+    included) and step indices (past ``2**31`` too); ``sample_logits`` on
+    ``[8, 151936]`` f32 logits equal for temperature {0, 0.7, 1.0} x top_k
+    {0, 1, 50}, unless the CPU's top two of ``gumbel + scaled`` are a
+    near-tie; then the device ms of ``sample_logits`` and of the plain
+    argmax the greedy path runs, on the bf16 logits a Qwen3 decode step
+    gives its 8 rows."""
+    from repro_torch.core import prng
+    from repro_torch.runtime.sampling import SamplingParams, sample_logits
+
+    cpu = torch.device("cpu")
+    steps = torch.tensor([0, 1, 5, 31, 2**31 - 1, 2**31, 2**32 - 1])
+    for seed in SAMPLING_SEEDS:
+        seeds = torch.full(steps.shape, seed, dtype=torch.int32)
+        keys = {d.type: prng.fold_in(prng.threefry_seed(seeds.to(d)),
+                                     steps.to(d)) for d in (dev, cpu)}
+        if not torch.equal(keys["cuda"].cpu(), keys["cpu"]):
+            raise AssertionError(f"sampling: seed {seed}: keys differ")
+        for shape in ((1,), (7,), (QWEN_VOCAB,)):
+            bits = [prng.random_bits(keys[k], shape).cpu()
+                    for k in ("cuda", "cpu")]
+            if not torch.equal(*bits):
+                raise AssertionError(f"sampling: seed {seed}, shape "
+                                     f"{shape}: threefry bits differ")
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn((8, QWEN_VOCAB), generator=gen) * 4
+    seeds = torch.tensor(SAMPLING_SEEDS, dtype=torch.int32)
+    steps = torch.arange(8, dtype=torch.int32) * 977
+    ties = compared = 0
+    for temp in (0.0, 0.7, 1.0):
+        for top_k in (0, 1, 50):
+            args = (logits, torch.full((8,), temp), torch.full(
+                (8,), top_k, dtype=torch.int32), seeds, steps)
+            want = sample_logits(*args)
+            got = sample_logits(*(a.to(dev) for a in args)).cpu()
+            compared += 8
+            for row in torch.nonzero(got != want).flatten().tolist():
+                top2 = (torch.topk(logits[row], 2).values if temp == 0
+                        else perturbed_top2(
+                            logits[row], SamplingParams(temp, top_k,
+                                                        int(seeds[row])),
+                            int(steps[row])))
+                margin = float(top2[0] - top2[1])
+                if margin > 2 ** -20 * max(1.0, abs(float(top2[0]))):
+                    raise AssertionError(
+                        f"sampling: temperature {temp}, top_k {top_k}, row "
+                        f"{row}: token {int(got[row])} on the card, "
+                        f"{int(want[row])} on the CPU, margin {margin}")
+                ties += 1
+    x = (torch.randn((8, QWEN_VOCAB), device=dev) * 4).bfloat16()
+    knobs = (torch.ones(8, device=dev),
+             torch.tensor([0, 50] * 4, dtype=torch.int32, device=dev),
+             seeds.to(dev), steps.to(dev))
+    emit("sampling", rows=8, vocab=QWEN_VOCAB, seeds=len(SAMPLING_SEEDS),
+         samples_compared=compared, near_tie_divergences=ties,
+         sample_logits_ms=timer.ms(lambda: sample_logits(x, *knobs)),
+         sample_logits_device_ms=timer.device_ms(
+             lambda: sample_logits(x, *knobs)),
+         argmax_ms=timer.ms(lambda: torch.argmax(x, dim=-1)),
+         argmax_device_ms=timer.device_ms(lambda: torch.argmax(x, dim=-1)))
+
+
 def tiny_params(cfg, seed: int) -> dict:
     """Reference-layout weights from a seeded numpy RNG (numpy tree, as the
     bridge takes it)."""
@@ -693,16 +774,92 @@ def tiny_params(cfg, seed: int) -> dict:
                         ).astype(np.float32)}
 
 
-def serve(engine, trace, request_cls) -> dict:
+def serve(engine, trace, request_cls, sampling=None, faults=()) -> dict:
+    """Serve ``trace`` ((rid, prompt, max_new) triples) to the end through
+    an engine; ``sampling`` maps rids to their ``SamplingParams`` (greedy
+    where absent), ``faults`` are (step, method, argument) calls on the
+    engine made before that step (``arm_bitflip``, ``stall_slot``, ...).
+    Returns ``{rid: tokens}``."""
+    sampling = sampling or {}
     for rid, prompt, max_new in trace:
-        engine.submit(request_cls(rid, prompt, max_new=max_new))
+        engine.submit(request_cls(rid, prompt, max_new=max_new,
+                                  sampling=sampling.get(rid)))
     steps = 0
     while engine.pending:
+        for at, method, arg in faults:
+            if at == steps:
+                getattr(engine, method)(arg)
         engine.step()
         steps += 1
         if steps > 10_000:
             raise AssertionError("engine made no progress")
     return {rid: engine.done[rid].output.tolist() for rid, _, _ in trace}
+
+
+class StageLog:
+    """The engine's device calls, from its ``on_stage`` spans: what its
+    kernels' launch counts must be.  Paged attention runs once a layer in
+    every decode step and every replayed decode call (a replay of ``g``
+    tokens makes ``g - 1``, which ``decode_steps`` does not count); flash
+    attention once a layer in every bucket prefill: each admission round,
+    and each replay whose prompt fits the bucket (a longer one re-prefills
+    in chunks, which attend through the pool)."""
+
+    def __init__(self, engine, trace):
+        self.engine, self.stages = engine, []
+        self.prompt = {rid: len(p) for rid, p, _ in trace}
+        engine.on_stage = lambda stage, t0, t1, rids, attrs: \
+            self.stages.append((stage, list(rids), attrs))
+
+    def count(self, stage: str) -> int:
+        return sum(1 for st, _, _ in self.stages if st == stage)
+
+    def expected(self) -> tuple:
+        """(paged attention calls, flash attention calls) a layer."""
+        replays = [(rids[0], attrs["tokens"])
+                   for st, rids, attrs in self.stages if st == "replay"]
+        decode = self.count("decode_step") + sum(max(g - 1, 0)
+                                                 for _, g in replays)
+        prefill = self.count("admit") + sum(
+            1 for rid, _ in replays
+            if self.prompt[rid] <= self.engine.prompt_len)
+        return decode, prefill
+
+    def check(self, what: str, layers: int, launches: dict) -> None:
+        decode, prefill = self.expected()
+        pa_n, fa_n = launches["paged_attention"], launches["flash_attention"]
+        if pa_n != layers * decode or not decode:
+            raise AssertionError(f"{what}: {pa_n} paged_attention launches "
+                                 f"for {decode} decode calls")
+        if fa_n != layers * prefill or not prefill:
+            raise AssertionError(f"{what}: {fa_n} flash_attention launches "
+                                 f"for {prefill} bucket prefills")
+
+
+def launches_now(pa, im, fa) -> dict:
+    return {"paged_attention": pa.paged_attention.launches,
+            "int8_matmul": im.int8_matmul.launches,
+            "flash_attention": fa.flash_attention.launches}
+
+
+HARDENING = ("bitflips_detected", "blocks_quarantined", "watchdog_trips",
+             "replays", "scrubbed_blocks")
+
+
+def perturbed_top2(logits_row, sp, t: int):
+    """The top two of ``gumbel + scaled`` behind token ``t`` of a request
+    sampled with ``sp``: ``sample_logits``'s values for one row."""
+    from repro_torch.core import prng
+    l = logits_row.float()
+    if sp.top_k > 0:
+        kth = torch.sort(l, descending=True).values[min(sp.top_k,
+                                                        l.numel()) - 1]
+        l = torch.where(l < kth, float("-inf"), l)
+    key = prng.fold_in(prng.threefry_seed(torch.tensor(sp.seed,
+                                                       dtype=torch.int32)),
+                       torch.tensor(t))
+    temp = torch.tensor(max(float(np.float32(sp.temperature)), 1e-6))
+    return torch.topk(prng.gumbel(key, l.shape) + l / temp, 2).values
 
 
 def port_weights(cfg, seed: int) -> dict:
@@ -795,6 +952,88 @@ def tiny_phase(dev) -> None:
                  requests=len(trace),
                  tokens=sum(len(s) for s in streams["cuda"].values()),
                  streams_equal=len(trace) - ties, near_tie_divergences=ties)
+    tiny_sampled_hardened(dev, dense, tiny_params(dense, seed=0), trace, kw)
+
+
+# the sampled requests of the tiny trace, (temperature, top_k, seed) by
+# rid: rids 2 and 5 admit by chunked prefill
+TINY_SAMPLED = {2: (1.0, 0, 42), 3: (0.7, 8, -1), 5: (1.0, 50, 2**31 - 1),
+                6: (2.0, 1, 7), 8: (0.5, 0, -2**31)}
+# the tiny hardened run's faults: (engine step, method, argument)
+TINY_FAULTS = ((2, "stall_slot", 1), (3, "arm_bitflip", 3),
+               (15, "unstall_slot", 1))
+
+
+def tiny_sampled_hardened(dev, cfg, weights, trace, kw) -> None:
+    """The tiny dense stack with half its requests sampled, plain and
+    hardened (``watchdog_steps=3``) with a stalled slot and an armed bit
+    flip, on CUDA and on the CPU under "mpai" and bf16: equal streams
+    (sampled ones part only where the CPU's top two of ``gumbel + scaled``
+    are a near-tie), and in the hardened run equal hardening counters and
+    allocator books; every kernel launch count as ``StageLog`` says."""
+    from repro_torch import bridge
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.serve import ContinuousBatchingEngine, Request
+
+    sampling = {rid: SamplingParams(t, k, seed)
+                for rid, (t, k, seed) in TINY_SAMPLED.items()}
+    for name, plan in (("mpai", qat.serve_plan(PartitionPlan.mpai(2))),
+                       ("bf16", None)):
+        for run, extra, faults in (("sampled", {}, ()),
+                                   ("hardened", dict(harden=True,
+                                                     watchdog_steps=3),
+                                    TINY_FAULTS)):
+            streams, books = {}, {}
+            for where in (dev, torch.device("cpu")):
+                params = bridge.to_torch(weights, where)
+                eng = ContinuousBatchingEngine(params, cfg, plan=plan,
+                                               device=where, **kw, **extra)
+                log = StageLog(eng, trace)
+                zero_counts()
+                streams[where.type] = serve(eng, trace, Request, sampling,
+                                            faults)
+                st = eng.stats()
+                books[where.type] = {
+                    "counters": {k: st[k] for k in HARDENING},
+                    "free": list(eng.alloc.free),
+                    "quarantined": sorted(eng.alloc.quarantined)}
+                if where.type == "cuda":
+                    log.check(f"tiny {run} {name}", cfg.num_layers,
+                              launches_now(pa, im, fa))
+                else:
+                    cpu_params, padded_len = params, eng.padded_prompt_len
+            if books["cuda"] != books["cpu"]:
+                raise AssertionError(f"tiny {run} {name}: hardening books "
+                                     f"differ: {books}")
+            c = books["cuda"]["counters"]
+            if run == "hardened" and not (c["bitflips_detected"]
+                                          and c["watchdog_trips"]):
+                raise AssertionError(f"tiny hardened {name}: {c}")
+
+            def top2_of(rid, t):
+                prompt, out = trace[rid][1], streams["cpu"][rid]
+                ctx = np.zeros(padded_len(len(prompt)), np.int32)
+                ctx[-len(prompt):] = prompt
+                ctx = np.concatenate([ctx, np.asarray(out[:t], np.int32)])
+                logits = T.forward(cpu_params, cfg,
+                                   torch.as_tensor(ctx[None]),
+                                   plan).logits[0, -1].float()
+                if rid in sampling:
+                    return perturbed_top2(logits, sampling[rid], t)
+                return torch.topk(logits, 2).values
+            ties = near_tie_divergences(f"tiny {run} {name}", streams, trace,
+                                        top2_of)
+            emit("tiny_engine", plan=name, config=cfg.name, run=run,
+                 requests=len(trace), sampled=len(sampling),
+                 tokens=sum(len(s) for s in streams["cuda"].values()),
+                 streams_equal=len(trace) - ties, near_tie_divergences=ties,
+                 **books["cuda"]["counters"])
 
 
 def kernel_wrappers() -> dict:
@@ -1247,22 +1486,63 @@ def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
     40-64, ``max_new`` 1-32) over both engine pools at once, and cost-model
     requests to the third pool, with the flight recorder on.  Returns each
     kernel's launches in the run, counted from 0."""
+    return fleet_run(dev, card, cfg, params, (pa, im, fa), FLEET_SPEC,
+                     "fleet_full_width", sampled=False)
+
+
+# the same fleet with a data-plane fault on each engine pool (each then
+# runs hardened): an upset in a live KV block of the bf16 pool, and a
+# stalled slot of the "mpai" pool that its watchdog evicts
+FLEET_FAULTS = [{"pool": "qwen-bf16", "at_s": 0.05, "kind": "kv_bitflip",
+                 "seed": 3},
+                {"pool": "qwen-mpai", "at_s": 0.05, "duration_s": 2.0,
+                 "kind": "slot_stall", "slot": 0}]
+
+
+def fleet_sampled_hardened_phase(dev, card: str, cfg, params, pa, im,
+                                 fa) -> dict:
+    """The fleet of ``fleet_full_width_phase`` with ``FLEET_FAULTS`` and
+    half its LM requests sampled (temperature 1, top_k 50, a seed each):
+    completed + dropped == admitted, no orphan span, the bit flip and the
+    watchdog trip reach the pools' counters in the snapshot, and each
+    kernel's launches equal the recorder's decode-step, replay and
+    admission spans say."""
+    spec = {**FLEET_SPEC, "faults": FLEET_FAULTS}
+    return fleet_run(dev, card, cfg, params, (pa, im, fa), spec,
+                     "fleet_sampled_hardened", sampled=True)
+
+
+def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
+              sampled: bool) -> dict:
+    """Build ``spec`` on the card over ``(cfg, params)``, drive the seeded
+    open loop (``FLEET_LM`` LM requests, ``FLEET_COST`` cost-model ones)
+    with the flight recorder on, check the run and emit its lines; with
+    ``sampled``, half the LM requests sample.  Returns each kernel's
+    launches in the run, counted from 0."""
+    from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.serving import FleetSpec, LMWork, open_loop
 
+    pa, im, fa = kernels
     t0 = time.perf_counter()
-    client = FleetSpec.from_dict(json.loads(json.dumps(FLEET_SPEC))).build(
+    client = FleetSpec.from_dict(json.loads(json.dumps(spec))).build(
         model=(cfg, params), device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    budgets = []
+    budgets, prompt_lens, samples = [], [], []
 
     def payload(rng):
         i = len(budgets)
         n = (int(rng.integers(40, 65)) if i in (4, 9)
              else int(rng.integers(2, 33)))
         budgets.append(int(rng.integers(1, 33)))
+        prompt_lens.append(n)
+        sp = None
+        if sampled and rng.random() < 0.5:
+            sp = SamplingParams(temperature=1.0, top_k=50,
+                                seed=int(rng.integers(-2**31, 2**31)))
+        samples.append(sp is not None)
         return LMWork(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                      max_new=budgets[-1])
+                      max_new=budgets[-1], sampling=sp)
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()                     # the main path's counts start here
     t0 = time.perf_counter()
@@ -1273,68 +1553,90 @@ def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
                         seed=3, payload_fn=payload)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    pa_n, im_n = pa.paged_attention.launches, im.int8_matmul.launches
-    fa_n = fa.flash_attention.launches
+    n = launches_now(pa, im, fa)
     snap = client.telemetry
     if handles.truncated:
-        raise AssertionError("fleet: the open loop was cut at its time limit")
+        raise AssertionError(f"{phase}: the open loop was cut at its time "
+                             f"limit")
     if snap["completed"] + snap["dropped"] != snap["admitted"]:
-        raise AssertionError(f"fleet: {snap['completed']} completed + "
+        raise AssertionError(f"{phase}: {snap['completed']} completed + "
                              f"{snap['dropped']} dropped != "
                              f"{snap['admitted']} admitted")
-    for h, max_new in zip(handles, budgets):
+    prompt_of = {}
+    for h, max_new, plen in zip(handles, budgets, prompt_lens):
         r = h.result()
+        prompt_of[r.rid] = plen
         if not r.admitted or r.dropped:
             continue
         toks = r.tokens.tolist()
         if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
                                            for t in toks):
-            raise AssertionError(f"fleet: request {r.rid} on {r.pool} "
+            raise AssertionError(f"{phase}: request {r.rid} on {r.pool} "
                                  f"returned {toks} for max_new={max_new}")
     if any(h.result().pool != "vision" for h in cost):
-        raise AssertionError("fleet: a cost-model request left its pool")
+        raise AssertionError(f"{phase}: a cost-model request left its pool")
     tracer = client.tracer
     if tracer.open_spans() or tracer.dropped:
-        raise AssertionError(f"fleet: {len(tracer.open_spans())} orphan "
+        raise AssertionError(f"{phase}: {len(tracer.open_spans())} orphan "
                              f"spans, {tracer.dropped} dropped")
-    lanes = collections.Counter((sp.pool, sp.stage) for sp in tracer.spans
-                                if sp.stage in ("decode_step", "admit"))
-    steps = lanes[("qwen-mpai", "decode_step")] + lanes[("qwen-bf16",
-                                                         "decode_step")]
-    admits = lanes[("qwen-mpai", "admit")] + lanes[("qwen-bf16", "admit")]
-    if pa_n != cfg.num_layers * steps or not steps:
-        raise AssertionError(f"fleet: {pa_n} paged_attention launches for "
-                             f"{steps} decode_step spans")
-    if fa_n != cfg.num_layers * admits or not admits:
-        raise AssertionError(f"fleet: {fa_n} flash_attention launches for "
-                             f"{admits} admit spans")
-    if not im_n:
-        raise AssertionError("fleet: no int8_matmul launch")
+    lm_pools = [p["name"] for p in spec["pools"]
+                if p.get("backend") == "engine"]
+    lanes = collections.Counter((sp.pool, sp.stage) for sp in tracer.spans)
+    steps = sum(lanes[(p, "decode_step")] for p in lm_pools)
+    admits = sum(lanes[(p, "admit")] for p in lm_pools)
+    replays = [sp for sp in tracer.spans if sp.stage == "replay"]
+    replay_calls = sum(max(sp.attrs["tokens"] - 1, 0) for sp in replays)
+    reprefills = sum(1 for sp in replays
+                     if prompt_of[sp.rid] <= QWEN_SERVE["prompt_len"])
+    if n["paged_attention"] != cfg.num_layers * (steps + replay_calls) \
+            or not steps:
+        raise AssertionError(f"{phase}: {n['paged_attention']} "
+                             f"paged_attention launches for {steps} "
+                             f"decode_step spans and {replay_calls} "
+                             f"replayed decode calls")
+    if n["flash_attention"] != cfg.num_layers * (admits + reprefills) \
+            or not admits:
+        raise AssertionError(f"{phase}: {n['flash_attention']} "
+                             f"flash_attention launches for {admits} admit "
+                             f"spans and {reprefills} bucket re-prefills")
+    if not n["int8_matmul"]:
+        raise AssertionError(f"{phase}: no int8_matmul launch")
     counters = client.router.telemetry.pools
-    for name in ("qwen-mpai", "qwen-bf16", "vision"):
+    for f in spec.get("faults", ()):
+        pool = snap["pools"][f["pool"]]
+        key = ("bitflips_detected" if f["kind"] == "kv_bitflip"
+               else "watchdog_trips")
+        if not pool[key] or pool[key] != getattr(counters[f["pool"]], key):
+            raise AssertionError(f"{phase}: pool {f['pool']} reports "
+                                 f"{key}={pool[key]}")
+    for name in lm_pools + ["vision"]:
         pc = counters[name]
         if not pc.batches:
-            raise AssertionError(f"fleet: pool {name} served no batch")
-        emit("fleet_full_width_pool", pool=name, card=card,
+            raise AssertionError(f"{phase}: pool {name} served no batch")
+        emit(f"{phase}_pool", pool=name, card=card,
              decode_tok_s=(pc.decode_tokens / pc.decode_s
                            if pc.decode_s else None),
              tokens=pc.tokens_generated, decode_tokens=pc.decode_tokens,
              requests=pc.completed, batches=pc.batches,
              decode_steps=lanes[(name, "decode_step")],
              admission_rounds=lanes[(name, "admit")],
+             replays=lanes[(name, "replay")],
              prefill_tokens=pc.prefill_tokens, deferrals=pc.deferrals,
-             busy_s=pc.busy_s, decode_s=pc.decode_s)
-    emit("fleet_full_width", config=cfg.name, card=card,
-         requests=len(handles) + len(cost), admitted=snap["admitted"],
-         completed=snap["completed"], dropped=snap["dropped"],
-         violations=snap["violations"], virtual_s=client.now,
-         build_s=build_s, wall_s=wall,
+             busy_s=pc.busy_s, decode_s=pc.decode_s,
+             bitflips_detected=pc.bitflips_detected,
+             blocks_quarantined=pc.blocks_quarantined,
+             watchdog_trips=pc.watchdog_trips)
+    emit(phase, config=cfg.name, card=card,
+         requests=len(handles) + len(cost), sampled=sum(samples),
+         admitted=snap["admitted"], completed=snap["completed"],
+         dropped=snap["dropped"], violations=snap["violations"],
+         virtual_s=client.now, build_s=build_s, wall_s=wall,
          peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
-         spans=len(tracer.spans), paged_attention_launches=pa_n,
-         int8_matmul_launches=im_n, flash_attention_launches=fa_n)
+         spans=len(tracer.spans), replayed_decode_calls=replay_calls,
+         bucket_reprefills=reprefills,
+         **{f"{k}_launches": v for k, v in n.items()})
     del client, handles, cost
-    return {"paged_attention": pa_n, "int8_matmul": im_n,
-            "flash_attention": fa_n}
+    return n
 
 
 def full_width_phase(dev, card: str, pa, im, fa) -> dict:
@@ -1366,6 +1668,7 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
 
     launches = {"paged_attention": {}, "int8_matmul": {},
                 "flash_attention": {}}
+    greedy, greedy_ms = {}, {}
     mpai = qat.serve_plan(PartitionPlan.mpai(cfg.num_layers))
     for name, plan in (("mpai", mpai), ("bf16", None)):
         eng = ContinuousBatchingEngine(params, cfg, plan=plan, device=dev,
@@ -1381,7 +1684,7 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
         zero_counts()                 # the main path's counts start here
         t0 = time.perf_counter()
         with Int8Shapes() as shapes:
-            out = serve(eng, trace, Request)
+            out = greedy[name] = serve(eng, trace, Request)
         wall = time.perf_counter() - t0
         shapes.emit(cfg.name, name)
         pa_n, im_n = pa.paged_attention.launches, im.int8_matmul.launches
@@ -1398,6 +1701,7 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
                 raise AssertionError(f"{name}: request {rid} returned "
                                      f"{toks} for max_new={max_new}")
         steps = st["decode_steps"]
+        greedy_ms[name] = st["decode_s"] / steps * 1e3
         if pa_n != cfg.num_layers * steps:
             raise AssertionError(f"{name}: {pa_n} paged_attention launches "
                                  f"for {steps} decode steps")
@@ -1418,9 +1722,169 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
              admission_rounds=admit_rounds, paged_attention_launches=pa_n,
              int8_matmul_launches=im_n, flash_attention_launches=fa_n)
         del eng
+    plans = {"mpai": mpai, "bf16": None}
+    for run, by_kernel in qwen_sampled_hardened_phase(
+            dev, card, cfg, params, plans, trace, greedy, greedy_ms,
+            (pa, im, fa)).items():
+        for name, n in by_kernel.items():
+            launches[name][f"{cfg.name}/{run}"] = n
     for name, n in fleet_full_width_phase(dev, card, cfg, params, pa, im,
                                           fa).items():
         launches[name][f"{cfg.name}/fleet"] = n
+    for name, n in fleet_sampled_hardened_phase(dev, card, cfg, params, pa,
+                                                im, fa).items():
+        launches[name][f"{cfg.name}/fleet_sampled_hardened"] = n
+    return launches
+
+
+# the sampled half of the Qwen3 trace, (temperature, top_k, seed) by rid:
+# rid 5 draws top_k=1, rid 9 admits by chunked prefill
+QWEN_SAMPLED = {1: (1.0, 0, 42), 3: (0.7, 50, -1), 5: (1.0, 1, 7),
+                7: (2.0, 0, 2**31 - 1), 9: (0.7, 8, -2**31), 11: (1.0, 50, 3)}
+QWEN_SOLO, QWEN_TOP1 = 1, 5        # the solo-vs-packed and top_k=1 rids
+QWEN_BITFLIP = ((3, "arm_bitflip", 3),)
+QWEN_STALL = ((2, "stall_slot", 0), (40, "unstall_slot", 0))
+
+
+def qwen_sampled_hardened_phase(dev, card: str, cfg, params, plans: dict,
+                                trace, greedy: dict, greedy_ms: dict,
+                                kernels) -> dict:
+    """Qwen3-14B at full width through the engine (``QWEN_SERVE``, the
+    trace of ``full_width_phase``) with half its requests sampled, under
+    "mpai" and bf16: every request returns exactly ``max_new`` in-vocab
+    tokens, and the ``top_k=1`` request equals its greedy run (both solo,
+    so the batch is the same; they may part only where the greedy logits'
+    top two are an exact tie, which ``top_k=1`` keeps both of).  Under
+    bf16, where a row's logits and KV depend on that row alone: the greedy
+    requests equal the greedy-only run, a sampled request equals its solo
+    run, ``harden=True`` with no fault equals the unhardened run with every
+    hardening counter 0, an armed bit flip is detected, quarantined and
+    recovered to the unfaulted streams with the books exact, and a stalled
+    slot trips the watchdog and replays to the unfaulted streams.  Under
+    "mpai" a bit flip's counters, books and budgets are checked, and the
+    streams that part from the unfaulted run are counted (int8 activations
+    are quantized per tensor across the batch: a replay's masked rows move
+    the scale).  Returns each run's launches by kernel; every run's counts
+    are held to its ``StageLog``."""
+    from repro_torch.runtime.sampling import SamplingParams
+    from repro_torch.runtime.serve import ContinuousBatchingEngine, Request
+
+    pa, im, fa = kernels
+    sampling = {rid: SamplingParams(t, k, seed)
+                for rid, (t, k, seed) in QWEN_SAMPLED.items()}
+    by_rid = {rid: (rid, p, n) for rid, p, n in trace}
+    launches, step_ms = {}, {}
+
+    def run(key, plan_name, reqs, samp, faults=(), top2=None, **extra):
+        eng = ContinuousBatchingEngine(params, cfg, plan=plans[plan_name],
+                                       device=dev, **QWEN_SERVE, **extra)
+        log = StageLog(eng, reqs)
+        if top2 is not None:          # solo: row 0 of each pick is its row
+            real = eng._pick
+
+            def pick(logits, *a, **k):
+                top2.append(torch.topk(logits[0].float(), 2).values.cpu())
+                return real(logits, *a, **k)
+            eng._pick = pick
+        torch.cuda.synchronize()
+        zero_counts()
+        out = serve(eng, reqs, Request, samp, faults)
+        torch.cuda.synchronize()
+        n = launches[key] = launches_now(pa, im, fa)
+        log.check(f"qwen {key}", cfg.num_layers, n)
+        if (n["int8_matmul"] > 0) != (plan_name == "mpai"):
+            raise AssertionError(f"qwen {key}: {n['int8_matmul']} int8 "
+                                 f"launches")
+        for rid, _, max_new in reqs:
+            toks = out[rid]
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+                raise AssertionError(f"qwen {key}: request {rid} returned "
+                                     f"{toks} for max_new={max_new}")
+        st = eng.stats()
+        if st["decode_steps"]:
+            step_ms[key] = st["decode_s"] / st["decode_steps"] * 1e3
+        alloc = eng.alloc
+        if alloc.available + len(alloc.quarantined) != alloc.num_blocks:
+            raise AssertionError(f"qwen {key}: {alloc.available} free + "
+                                 f"{len(alloc.quarantined)} quarantined != "
+                                 f"{alloc.num_blocks} blocks")
+        emit("qwen_sampled_hardened", run=key, card=card,
+             requests=len(reqs), sampled=sum(r in samp for r, _, _ in reqs),
+             tokens=st["total_tokens"], decode_steps=st["decode_steps"],
+             replayed_decode_calls=log.expected()[0] - st["decode_steps"],
+             admission_rounds=log.count("admit"),
+             mean_step_ms=step_ms.get(key), admit_s=st["admit_s"],
+             quarantined=len(alloc.quarantined),
+             **{k: st[k] for k in HARDENING},
+             **{f"{k}_launches": v for k, v in n.items()})
+        del eng
+        return out, st
+
+    def parted(a: dict, b: dict) -> list:
+        return sorted(rid for rid in a if a[rid] != b[rid])
+
+    def top1_equals_greedy(plan_name) -> int:
+        """Solo greedy and solo ``top_k=1`` runs of ``QWEN_TOP1``; returns
+        1 where they part at an exact tie of the greedy top two."""
+        req = [by_rid[QWEN_TOP1]]
+        top2 = []
+        want, _ = run(f"top1-greedy-solo-{plan_name}", plan_name, req, {},
+                      top2=top2)
+        got, _ = run(f"top1-solo-{plan_name}", plan_name, req,
+                     {QWEN_TOP1: sampling[QWEN_TOP1]})
+        a, b = got[QWEN_TOP1], want[QWEN_TOP1]
+        if a == b:
+            return 0
+        t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        if float(top2[t][0]) != float(top2[t][1]):
+            raise AssertionError(f"qwen {plan_name}: top_k=1 token {t} is "
+                                 f"{a[t]}, greedy {b[t]}, top two "
+                                 f"{top2[t].tolist()}")
+        return 1
+
+    summary = {}
+    for plan_name in ("bf16", "mpai"):
+        sampled, st = run(f"sampled-{plan_name}", plan_name, trace, sampling)
+        summary[f"top1_ties_{plan_name}"] = top1_equals_greedy(plan_name)
+        if plan_name == "bf16":
+            bad = parted({r: sampled[r] for r in greedy["bf16"]
+                          if r not in sampling}, greedy["bf16"])
+            if bad:
+                raise AssertionError(f"qwen bf16: greedy requests {bad} "
+                                     f"part from the greedy-only run")
+            solo, _ = run("solo-bf16", "bf16", [by_rid[QWEN_SOLO]],
+                          {QWEN_SOLO: sampling[QWEN_SOLO]})
+            if solo[QWEN_SOLO] != sampled[QWEN_SOLO]:
+                raise AssertionError("qwen bf16: a sampled request parts "
+                                     "from its solo run")
+            for key, faults, extra in (
+                    ("harden-bf16", (), {}),
+                    ("harden-bitflip-bf16", QWEN_BITFLIP, {}),
+                    ("harden-stall-bf16", QWEN_STALL, {})):
+                out, hst = run(key, "bf16", trace, sampling, faults,
+                               harden=True, **extra)
+                if out != sampled:
+                    raise AssertionError(f"qwen {key}: requests "
+                                         f"{parted(out, sampled)} part from "
+                                         f"the unfaulted run")
+                c = {k: hst[k] for k in HARDENING}
+                if key == "harden-bf16" and any(c.values()):
+                    raise AssertionError(f"qwen {key}: counters {c}")
+                if key == "harden-bitflip-bf16" and not (
+                        c["bitflips_detected"] and c["blocks_quarantined"]):
+                    raise AssertionError(f"qwen {key}: counters {c}")
+                if key == "harden-stall-bf16" and not c["watchdog_trips"]:
+                    raise AssertionError(f"qwen {key}: counters {c}")
+        else:
+            out, hst = run("harden-bitflip-mpai", "mpai", trace, sampling,
+                           QWEN_BITFLIP, harden=True)
+            if not (hst["bitflips_detected"] and hst["blocks_quarantined"]):
+                raise AssertionError(f"qwen harden-bitflip-mpai: {hst}")
+            summary["mpai_bitflip_parted"] = parted(out, sampled)
+    emit("qwen_step_ms", card=card, mean_step_ms={
+        **{f"greedy-{k}": v for k, v in greedy_ms.items()}, **step_ms},
+        **summary)
     return launches
 
 
@@ -1470,6 +1934,7 @@ def main() -> int:
             wkv_phase(timer, wk, dev),
             selective_scan_phase(timer, ss, dev, sm_mhz),
             rowwise_quant_phase(timer, rq, dev)]
+    sampling_phase(timer, dev)
     del timer
     tiny_phase(dev)
     tiny_windowed_phase(dev)

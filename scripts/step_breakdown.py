@@ -30,7 +30,13 @@ bf16 plan, and prints one JSON line per (config, plan):
   ``other_device_ms`` is the rest of ``device_step_ms``: norms, rope,
   epilogues, KV appends (Qwen3); token-shift mixes, decay and mixing
   loras, group norm, gates (RWKV); the Mamba convs, ``dt`` projections and
-  gates, routers and dispatch (Jamba).
+  gates, routers and dispatch (Jamba);
+- ``beside_step_ms`` (Qwen3): device time, timed the same way, of what a
+  sampled or a hardened engine step runs beside the greedy step above:
+  the greedy ``argmax`` over the step's 8 rows of bf16 logits, the
+  ``sample_logits`` that replaces it when a live row samples (half the
+  rows with top_k 50), and the whole KV pool's per-block checksums
+  (``pool_checksums`` over every sublayer) a hardened step adds.
 
 Needs one card with 80 GB; builds the port's kernels on first use.
 """
@@ -42,6 +48,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -138,7 +145,8 @@ def host_split(fn) -> tuple:
 
 
 def report(cfg, name: str, card: str, m: int, step_ms: float,
-           device_step_ms: float, host: tuple, parts: dict) -> None:
+           device_step_ms: float, host: tuple, parts: dict,
+           beside: Optional[dict] = None) -> None:
     print(json.dumps({
         "phase": "step_breakdown", "config": cfg.name, "plan": name,
         "card": card, "slots": m, "step_ms": step_ms,
@@ -146,7 +154,8 @@ def report(cfg, name: str, card: str, m: int, step_ms: float,
         "idle_share": 1 - device_step_ms / step_ms,
         "enqueue_ms": host[0], "enqueue_and_run_ms": host[1],
         "parts_ms": parts,
-        "other_device_ms": device_step_ms - sum(parts.values())}),
+        "other_device_ms": device_step_ms - sum(parts.values()),
+        **({} if beside is None else {"beside_step_ms": beside})}),
         flush=True)
 
 
@@ -157,6 +166,7 @@ def breakdown(params, cfg, plan, name: str, card: str, timer, dev) -> None:
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as T
     from repro_torch.models.layers import lm_logits
+    from repro_torch.runtime.sampling import sample_logits
     from repro_torch.runtime.serve import ContinuousBatchingEngine, Request
 
     eng = ContinuousBatchingEngine(params, cfg, plan=plan, device=dev,
@@ -204,7 +214,19 @@ def breakdown(params, cfg, plan, name: str, card: str, timer, dev) -> None:
                                                   head))
     device_step_ms = timer.ms(
         lambda: T.decode_step(params, cfg, tok, caches, plan), scrub=False)
-    report(cfg, name, card, m, step_ms, device_step_ms, host, parts)
+    # what a sampled or a hardened step adds beside the greedy step above:
+    # the token pick on the step's bf16 logits, and the whole pool's
+    # per-block checksums
+    logits = lm_logits(params["lm_head"], xh, head)[:, -1]
+    knobs = (torch.ones(m, device=dev),
+             torch.tensor([0, 50] * (m // 2), dtype=torch.int32, device=dev),
+             torch.arange(m, dtype=torch.int32, device=dev) - 3,
+             torch.full((m,), 7, dtype=torch.int32, device=dev))
+    beside = {"argmax": timer.ms(lambda: torch.argmax(logits, dim=-1)),
+              "sample_logits": timer.ms(lambda: sample_logits(logits,
+                                                              *knobs)),
+              "pool_checksums": timer.ms(eng._checksum)}
+    report(cfg, name, card, m, step_ms, device_step_ms, host, parts, beside)
 
 
 def rwkv_breakdown(params, cfg, plan, name: str, card: str, timer,

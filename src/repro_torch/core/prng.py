@@ -1,0 +1,110 @@
+"""Counter-based random numbers, bit for bit as ``jax.random`` draws them
+with its default threefry2x32 keys (the port's twin of the parts of
+``jax.random`` the serving path reaches: ``PRNGKey``, ``fold_in``, ``bits``,
+``uniform``, ``gumbel`` and ``categorical``).
+
+A key is an int64 tensor ``[..., 2]`` holding two uint32 words, as
+``jax.random.key_data`` shows them.  Every 32-bit word lives in an int64
+tensor and every add and shift is masked back to 32 bits: torch's
+``uint32`` has no add or shift kernels on CUDA that can be relied on.  All
+work stays on the device of its inputs.
+
+Random bits follow jax's *partitionable* layout (``jax_threefry_
+partitionable``, on by default since jax 0.5): element ``n`` of a draw of
+shape ``shape`` hashes the counter pair ``(n >> 32, n & 0xFFFFFFFF)`` of
+its flat index under the key, and its 32 bits are the XOR of the two hash
+words.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+_F32_TINY = torch.finfo(torch.float32).tiny
+_ONE_BITS = 0x3F800000           # the bits of float32 1.0
+_F32_MANTISSA = 23
+
+
+def threefry_2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                  x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The threefry2x32 block function (jax's ``threefry2x32_p``), 20
+    rounds: the counter words ``(x0, x1)`` hashed under the key words
+    ``(k0, k1)``; all four broadcast against each other."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    x0, x1 = torch.broadcast_tensors(x0, x1)
+    x0, x1 = x0.contiguous(), x1.contiguous()
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(MASK)
+            x1 = ((x1 << r) | (x1 >> (32 - r))).bitwise_and_(MASK)
+            x1.bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(MASK)
+        x1.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(MASK)
+    return x0, x1
+
+
+def threefry_seed(seed: torch.Tensor) -> torch.Tensor:
+    """``jax.random.PRNGKey`` of int32 seeds: ``[..., 2]`` keys whose
+    first word is ``seed >> 32`` (0 for a 32-bit seed) and whose second is
+    the seed's 32-bit pattern (a negative seed wraps)."""
+    seed = seed.to(torch.int64)
+    return torch.stack([torch.zeros_like(seed), seed & MASK], dim=-1)
+
+
+def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of the counter ``(0, uint32(data))``
+    under ``key``, per key of a batch ``[..., 2]`` (``data`` broadcasts
+    against the batch)."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK
+    x0, x1 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
+                           data)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` per key of a batch
+    ``[..., 2]``: returns ``[..., *shape]`` int64 holding uint32 values."""
+    shape = tuple(int(s) for s in shape)
+    n = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=key.device).reshape(shape)
+    lead = key.shape[:-1]
+    k0 = key[..., 0].reshape(*lead, *([1] * len(shape)))
+    k1 = key[..., 1].reshape(*lead, *([1] * len(shape)))
+    bits1, bits2 = threefry_2x32(k0, k1, n >> 32, n & MASK)
+    return bits1 ^ bits2
+
+
+def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform`` in float32: 23 random mantissa bits under
+    the exponent of 1.0, minus 1, scaled to ``[minval, maxval)`` and
+    floored at ``minval``."""
+    bits = random_bits(key, shape)
+    floats = (((bits >> (32 - _F32_MANTISSA)) | _ONE_BITS)
+              .to(torch.int32).view(torch.float32) - 1.0)
+    # the bounds and their span as float32 values (Python floats keep the
+    # draw free of host-to-device copies, so a CUDA graph can hold it)
+    lo = float(np.float32(minval))
+    span = float(np.float32(maxval) - np.float32(minval))
+    return torch.clamp_min(floats * span + lo, lo)
+
+
+def gumbel(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32, mode ``"low"``:
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical`` over the last axis, one key per row of
+    a batch: the gumbel-max draw, ties to the lowest index."""
+    noise = gumbel(key, logits.shape[-1:])
+    return torch.argmax(noise + logits, dim=-1)

@@ -225,6 +225,73 @@ def write_prefill_chunk(state: PagedKVState, k: torch.Tensor,
     state.lengths[seq] = start + c
 
 
+def _words(pool: torch.Tensor) -> torch.Tensor:
+    """A pool's elements as signed integers of their own width (a view:
+    a 16-bit pool as int16, a 32-bit one as int32)."""
+    return pool.view(torch.int16 if pool.element_size() == 2
+                     else torch.int32)
+
+
+def _row_sums(words: torch.Tensor, row_axis: int) -> torch.Tensor:
+    """Sum every axis but ``row_axis`` (0 or 1) in int64, exactly: the
+    trailing axes first, as one contiguous reduction a row (the dtype is
+    the reduction's: nothing widened is materialized), then the stack."""
+    s = words.flatten(row_axis + 1).sum(-1, dtype=torch.int64)
+    return s.sum(0) if row_axis else s
+
+
+def block_checksums(state: PagedKVState, rows: torch.Tensor) -> torch.Tensor:
+    """Integrity checksums for pool rows ``rows``: int64 ``[len(rows)]``
+    holding uint32 values.
+
+    Each block's K and V content, read as unsigned integers of its element
+    width, summed mod 2**32, so any single-event upset (one flipped bit
+    anywhere in the block) changes the checksum.  Works on plain ``[NB+1,
+    P, KVp, hd]`` pools and on the engine's sublayer-stacked ``[S, NB+1,
+    ...]`` pools; rows index the block axis either way.
+    """
+    rows = torch.as_tensor(rows, device=state.k_pool.device).long()
+    total = None
+    for pool in (state.k_pool, state.v_pool):
+        x = _words(pool[:, rows] if pool.ndim == 5 else pool[rows])
+        if x.dtype == torch.int16:       # widen as unsigned, then sum
+            x = x.to(torch.int64) & 0xFFFF
+        # 32-bit words: the signed sum equals the unsigned one mod 2**32
+        s = _row_sums(x, 1 if pool.ndim == 5 else 0)
+        total = s if total is None else total + s
+    return total & 0xFFFFFFFF
+
+
+def pool_checksums(state: PagedKVState) -> torch.Tensor:
+    """Integrity checksums for *every* block row of the pool at once
+    (trash row included): int64 ``[NB+1]`` holding uint32 values.
+
+    One straight reduction over each pool with no row-index operand — the
+    decode hot path's fused verify; the host indexes the result by the
+    blocks it holds digests for.  A 16-bit pool sums mod 2**16 before it
+    widens (a single-event upset still moves the sum by a nonzero power of
+    two), a 32-bit one mod 2**32; K and V add mod 2**32.
+    """
+    total = None
+    for pool in (state.k_pool, state.v_pool):
+        s = _row_sums(_words(pool), 1 if pool.ndim == 5 else 0)
+        s = s & (0xFFFF if pool.element_size() == 2 else 0xFFFFFFFF)
+        total = s if total is None else total + s
+    return total & 0xFFFFFFFF
+
+
+def wire_checksum(payload: bytes) -> int:
+    """Integrity checksum for a serialized handoff payload — the host
+    sibling of :func:`pool_checksums`: the buffer zero-padded to a word
+    boundary, viewed as native-width uint32 words and summed mod 2**32.
+    Pure numpy, so a host with no accelerator can verify it."""
+    pad = (-len(payload)) % 4
+    if pad:
+        payload = payload + b"\x00" * pad
+    words = np.frombuffer(payload, dtype=np.uint32)
+    return int(np.sum(words, dtype=np.uint32))
+
+
 class BlockDigestStore:
     """Host-side registry of *sealed* block checksums.
 

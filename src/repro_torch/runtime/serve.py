@@ -17,9 +17,15 @@ segments of an ``"mpai"`` plan run the int8 GEMM kernel.  It serves every
 attention-only stack without a sliding window or int8 KV, MoE MLPs
 included.
 
-Decoding is greedy (``argmax``, ties to the lowest index, as in the
-reference).  Sampled requests, hardening (``harden=True``) and the
-prefill handoff are later slices of the port and raise
+Decoding is per-request (``runtime/sampling.py``): greedy (``argmax``, ties
+to the lowest index) or temperature/top-k sampling keyed by
+``fold_in(PRNGKey(seed), token_index)``, the reference's threefry stream
+bit for bit (``core/prng.py``).  ``harden=True`` adds the reference's
+radiation hardening: per-block KV checksums verified on every decode step,
+sealing of full blocks, a budgeted ``scrub``, injected upsets
+(``arm_bitflip``) and slot stalls (``stall_slot``), quarantine of a
+corrupted block and exactly-once replay of the requests it held.  The
+prefill handoff is a later slice of the port and raises
 ``NotImplementedError``.
 
 ``WindowedBaselineServer`` — the windowed loop (greedy-only): a bounded
@@ -35,9 +41,10 @@ kernel at every cache write).
 loop for stacks paged decode cannot serve; ``BatchingServer`` is its
 deprecated shim.
 
-Progress: ``step()`` advances by one unit of work (the engine: admissions
-and one decode step; the windowed loop: a window's prefill or one decode
-step); ``flush()`` runs until at least one request completes.
+Progress: ``step()`` advances by one unit of work (the engine: hardening
+upkeep, admissions and one decode step; the windowed loop: a window's
+prefill or one decode step); ``flush()`` runs until at least one request
+completes.
 """
 from __future__ import annotations
 
@@ -55,7 +62,7 @@ from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as T
 from repro_torch.runtime import paging
 from repro_torch.runtime.paging import BlockAllocator, OutOfBlocksError
-from repro_torch.runtime.sampling import SamplingParams
+from repro_torch.runtime.sampling import GREEDY, SamplingParams, sample_logits
 
 
 @dataclass
@@ -73,6 +80,7 @@ class _Slot:
     req: Request
     gen: List[int]                     # sampled tokens so far
     remaining: int                     # decode steps left (exact)
+    sampled: bool = False              # non-greedy sampling requested
 
 
 @dataclass
@@ -107,6 +115,12 @@ class ContinuousBatchingEngine:
     prefill for each long one) + one batched decode step for every
     occupied slot.
 
+    Sampling is per-request (``Request.sampling``): greedy when unset,
+    otherwise temperature/top-k with a counter-based key
+    (``fold_in(seed, token_index)``), so outputs do not depend on the
+    batch's other rows' keys.  A round or step where no live row samples
+    takes the plain argmax.
+
     ``on_token`` (``(rid, token)``) fires the step each token is picked,
     admission first-tokens included; ``on_stage`` (``(stage, t0, t1,
     rids, attrs)``) receives wall-clock spans of the device calls.
@@ -124,7 +138,8 @@ class ContinuousBatchingEngine:
                  max_len: int = 64, block_size: int = 8,
                  num_blocks: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 harden: bool = False, device="cuda"):
+                 harden: bool = False, watchdog_steps: int = 8,
+                 scrub_blocks: int = 2, device="cuda"):
         self.params, self.cfg, self.plan, self.tp = params, cfg, plan, tp
         self.device = torch.device(device)
         self.max_slots, self.prompt_len = max_slots, prompt_len
@@ -148,20 +163,46 @@ class ContinuousBatchingEngine:
         self.shared = paging.SharedBlockIndex(self.alloc)
         self.table = -np.ones((max_slots, self.table_width), np.int32)
         self.lengths = np.zeros(max_slots, np.int32)
+        # a stack paged decode cannot serve raises ValueError here (before
+        # anything else is built) and engine_or_windowed falls back
         self.caches = T.init_paged_decode_cache(
             cfg, max_slots, num_blocks, block_size, tp,
             max_blocks=self.table_width, device=self.device)
-        # read after the paged cache, as the reference does: a stack paged
-        # decode cannot serve raises ValueError above and falls back
-        if harden:
-            raise NotImplementedError("hardened serving is not ported yet")
         self.slots: List[Optional[_Slot]] = [None] * max_slots
         self.last = np.zeros((max_slots, 1), np.int32)
         self.queue: List[Request] = []
         self.done: Dict[int, Request] = {}
         self._dirty = True                    # host table/lengths changed
+        # --- radiation hardening (SEU detection + recovery) -----------
+        # harden=True turns on per-block integrity digests: sealed (full)
+        # blocks are checksummed, every hardened decode step checksums the
+        # whole pool after its KV append (detection lands the same step a
+        # corrupted block is read, before any token escapes), and scrub()
+        # gives idle pools a budgeted background pass.  The token path is
+        # untouched: hardened outputs with no faults equal hardening-off.
+        self.harden = bool(harden)
+        self.watchdog_steps = int(watchdog_steps)
+        self.scrub_blocks = int(scrub_blocks)
+        self.digests = paging.BlockDigestStore()
+        # whoever frees a block (finalize, shared-index refcount drop,
+        # eviction) retires its seal with it
+        self.alloc.on_release = self.digests.forget
+        self.stalled: set = set()       # slots latched by a stall fault
+        self._tripped: set = set()      # stalled slots already evicted
+        self._stall_age = np.zeros(max_slots, np.int64)
+        self._restore_queue: List[tuple] = []   # (req, gen) to replay
+        self._armed_flips: List[int] = []       # kv_bitflip seeds pending
+        self._idle_steps = 0            # livelock guard
         self.on_token: Optional[Callable[[int, int], None]] = None
         self.on_stage = None
+        # per-slot sampling knobs; their device copies are refreshed where
+        # they change (admission, restore), the per-token step counters
+        # only on steps where a live row samples
+        self._temps = np.zeros(max_slots, np.float32)
+        self._topks = np.zeros(max_slots, np.int32)
+        self._seeds = np.zeros(max_slots, np.int32)
+        self._gen_counts = np.zeros(max_slots, np.int32)  # tokens so far
+        self._push_knobs()
         self.reset_stats()
         # admissions prefill together at the max_slots bucket (rows for
         # non-admitted slots are dead weight but keep shapes fixed)
@@ -180,6 +221,11 @@ class ContinuousBatchingEngine:
         self.deferrals = 0                    # OutOfBlocks admission deferrals
         self.shared.hits = 0                  # prefix blocks served by index
         self.shared.lookups = 0               # share attempts (hits + misses)
+        self.bitflips_detected = 0            # checksum mismatches caught
+        self.blocks_quarantined = 0           # blocks pulled from service
+        self.watchdog_trips = 0               # stalled slots evicted
+        self.replays = 0                      # evicted requests rebuilt
+        self.scrubbed_blocks = 0              # blocks verified by scrub()
 
     # ------------------------------------------------------------------
     # public API
@@ -195,10 +241,6 @@ class ContinuousBatchingEngine:
 
     def submit(self, req: Request) -> None:
         _require_prompt(req, "engine")
-        if req.sampling is not None and not req.sampling.greedy:
-            raise NotImplementedError(
-                f"request {req.rid}: sampled decoding (temperature > 0) is "
-                f"not ported yet; the port decodes greedily")
         padded = self.padded_prompt_len(int(req.prompt.shape[0]))
         assert padded + req.max_new <= self.max_len, \
             (req.rid, req.prompt.shape[0], req.max_new, self.max_len)
@@ -213,8 +255,10 @@ class ContinuousBatchingEngine:
 
     @property
     def pending(self) -> int:
-        """Requests admitted but not yet completed (queued + in-slot)."""
-        return len(self.queue) + sum(s is not None for s in self.slots)
+        """Requests admitted but not yet completed (queued + in-slot +
+        evicted-awaiting-replay)."""
+        return (len(self.queue) + sum(s is not None for s in self.slots)
+                + len(self._restore_queue))
 
     @property
     def occupancy(self) -> float:
@@ -234,9 +278,33 @@ class ContinuousBatchingEngine:
     def step(self) -> List[Request]:
         """Admit into free slots, then run one decode step; returns the
         requests completed by either (admission completes ``max_new<=1``
-        requests outright — their single token comes from prefill)."""
+        requests outright — their single token comes from prefill).
+
+        Hardening rides the same cadence: armed bit flips land first (so
+        detection sees them the very step their block is next read), the
+        watchdog ages stalled slots, and evicted requests replay into free
+        slots before new admissions."""
+        if self._armed_flips:
+            self._apply_armed_flips()
+        if self.stalled:
+            self._watchdog()
+        if self._restore_queue:
+            self._restore_pending()
         completed = self._admit()
         completed += self._decode_once()
+        # livelock guard: a permanently-stalled single slot (or a restore
+        # that can never fit) must fail loudly, not spin the drive loop
+        if (completed or any(s is not None for s in self.slots)
+                or not (self.queue or self._restore_queue)):
+            self._idle_steps = 0
+        else:
+            self._idle_steps += 1
+            if self._idle_steps > max(1000, 10 * self.watchdog_steps):
+                raise RuntimeError(
+                    f"engine livelock: {len(self.queue)} queued + "
+                    f"{len(self._restore_queue)} awaiting replay, but no "
+                    f"slot can make progress (stalled={sorted(self.stalled)},"
+                    f" quarantined={len(self.alloc.quarantined)} blocks)")
         return completed
 
     def flush(self) -> List[Request]:
@@ -250,8 +318,6 @@ class ContinuousBatchingEngine:
 
     def stats(self) -> Dict[str, float]:
         steps = max(self.decode_steps, 1)
-        # the hardening counters keep the reference's telemetry keys; they
-        # stay 0 until hardened serving is ported
         return {"total_tokens": self.total_tokens,
                 "decode_steps": self.decode_steps,
                 "mean_occupancy": self.occupancy_sum / steps,
@@ -262,11 +328,11 @@ class ContinuousBatchingEngine:
                 "shared_block_hits": self.shared.hits,
                 "shared_block_lookups": self.shared.lookups,
                 "deferrals": self.deferrals,
-                "bitflips_detected": 0,
-                "blocks_quarantined": 0,
-                "watchdog_trips": 0,
-                "replays": 0,
-                "scrubbed_blocks": 0}
+                "bitflips_detected": self.bitflips_detected,
+                "blocks_quarantined": self.blocks_quarantined,
+                "watchdog_trips": self.watchdog_trips,
+                "replays": self.replays,
+                "scrubbed_blocks": self.scrubbed_blocks}
 
     def prefill_handoff(self, req: Request):
         raise NotImplementedError("the prefill handoff is not ported yet")
@@ -280,10 +346,34 @@ class ContinuousBatchingEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _admit_step(self, toks: np.ndarray, admit: np.ndarray) -> np.ndarray:
-        """One admission round: bucket-shaped prefill, paste of every
-        admitted row's KV into its paged blocks (non-admitted rows scatter
-        to the trash row), and the first greedy token per row."""
+    def _push_knobs(self) -> None:
+        """Copy the per-slot sampling knobs to the device (a copy even on
+        the CPU, where ``as_tensor`` would share the host arrays)."""
+        self._knobs_dev = tuple(torch.tensor(a, device=self.device)
+                                for a in (self._temps, self._topks,
+                                          self._seeds))
+
+    def _set_knobs(self, i: int, sp: SamplingParams) -> None:
+        self._temps[i], self._topks[i] = sp.temperature, sp.top_k
+        self._seeds[i] = sp.seed
+
+    def _pick(self, logits: torch.Tensor, sampled: bool, knobs=None,
+              steps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One token per row of ``logits`` [B, V], on the device: argmax,
+        or ``sample_logits`` with ``knobs`` (temps, top_ks, seeds) and
+        per-row token indices ``steps`` (0 when None)."""
+        if not sampled:
+            return torch.argmax(logits, dim=-1)
+        temps, topks, seeds = knobs
+        if steps is None:
+            steps = torch.zeros_like(seeds)
+        return sample_logits(logits, temps, topks, seeds, steps)
+
+    def _prefill_paste(self, toks: np.ndarray,
+                       admit: np.ndarray) -> torch.Tensor:
+        """Bucket-shaped prefill and the paste of every admitted row's KV
+        into its paged blocks (non-admitted rows scatter to the trash
+        row); returns the last position's logits [B, V]."""
         out = T.prefill(self.params, self.cfg, self._tensor(toks),
                         self._prefill_cache, self.plan, self.tp)
         admit_t = self._tensor(admit)
@@ -292,11 +382,16 @@ class ContinuousBatchingEngine:
             for layer in range(st.k_pool.shape[0]):
                 paging.write_prefill_batch(tree_map(lambda a: a[layer], st),
                                            dc.k[layer], dc.v[layer], admit_t)
-        return torch.argmax(out.logits[:, -1], dim=-1).cpu().numpy()
+        return out.logits[:, -1]
 
-    def _push_tables(self) -> None:
-        """Copy the host table/length mirrors into every layer's cache."""
-        tbl, lens = self._tensor(self.table), self._tensor(self.lengths)
+    def _push_tables(self, table: Optional[np.ndarray] = None,
+                     lengths: Optional[np.ndarray] = None) -> None:
+        """Copy the host table/length mirrors into every layer's cache.
+        ``table``/``lengths`` override the mirrors for one push — the
+        replay path masks every row but the one being rebuilt; the next
+        dirty push restores the true mirrors."""
+        tbl = self._tensor(self.table if table is None else table)
+        lens = self._tensor(self.lengths if lengths is None else lengths)
         for st in self.caches.values():
             st.block_table.copy_(tbl.expand_as(st.block_table))
             st.lengths.copy_(lens.expand_as(st.lengths))
@@ -309,14 +404,251 @@ class ContinuousBatchingEngine:
         if self.on_stage is not None:
             self.on_stage(stage, t0, t1, list(rids), attrs)
 
+    # ------------------------------------------------------------------
+    # radiation hardening: injection, detection, recovery
+    # ------------------------------------------------------------------
+    def arm_bitflip(self, seed: int = 0) -> None:
+        """Arm one SEU: at the next step with sealed live KV, flip one
+        ``seed``-chosen bit in a live paged block."""
+        self._armed_flips.append(int(seed))
+
+    def stall_slot(self, slot: int) -> None:
+        """Latch a slot-stall fault: the next request decoding in this
+        slot stops making progress (admission still uses the slot) until
+        the watchdog evicts it; after the trip the slot is kept from
+        admission until :meth:`unstall_slot`."""
+        self.stalled.add(int(slot) % self.max_slots)
+
+    def unstall_slot(self, slot: int) -> None:
+        i = int(slot) % self.max_slots
+        self.stalled.discard(i)
+        self._tripped.discard(i)
+        self._stall_age[i] = 0
+
+    def scrub(self, budget: Optional[int] = None) -> int:
+        """Budgeted background integrity pass: verify up to ``budget``
+        sealed blocks (round-robin) against their digests; corrupted
+        blocks quarantine and their requests replay.  Returns blocks
+        verified."""
+        if not self.harden or len(self.digests) == 0:
+            return 0
+        blocks = self.digests.scrub_batch(
+            self.scrub_blocks if budget is None else budget)
+        if not blocks:
+            return 0
+        sums = self._row_checksums(blocks)
+        self.scrubbed_blocks += len(blocks)
+        bad_slots: set = set()
+        for b, s in zip(blocks, sums):
+            if self.digests.get(b) != int(s):
+                bad_slots |= self._on_corrupt_block(b)
+        for i in sorted(bad_slots):
+            self._evict_slot(i)
+        if bad_slots:
+            self._restore_pending()
+        return len(blocks)
+
+    def _checksum(self) -> torch.Tensor:
+        """Per-block checksums of every pool, summed over ``sorted(
+        caches)`` mod 2**32: int64 [NB+1] on the device."""
+        total = None
+        for key in sorted(self.caches):
+            s = paging.pool_checksums(self.caches[key])
+            total = s if total is None else total + s
+        return total & 0xFFFFFFFF
+
+    def _row_checksums(self, blocks) -> np.ndarray:
+        """Checksums for ``blocks``, indexed out of the full-pool one."""
+        sums = self._checksum().cpu().numpy()
+        return sums[np.asarray(blocks, np.int32)]
+
+    def _seal_rows(self, blocks) -> None:
+        """Digest freshly-finalized (full, no-longer-written) blocks."""
+        if not self.harden:
+            return
+        bl = [int(b) for b in blocks if int(b) >= 0]
+        if not bl:
+            return
+        for b, s in zip(bl, self._row_checksums(bl)):
+            self.digests.seal(b, int(s))
+
+    def _apply_armed_flips(self) -> None:
+        """Land armed SEUs on sealed live blocks, each site drawn from
+        ``np.random.default_rng(seed)`` in the reference's order (block,
+        sublayer, pool, coordinate, bit).  Flips that cannot land yet (no
+        sealed KV live) stay armed."""
+        held = {int(b) for row in self.table for b in row if b >= 0}
+        targets = sorted(b for b in held if b in self.digests)
+        still_armed: List[int] = []
+        for seed in self._armed_flips:
+            if not targets:
+                still_armed.append(seed)
+                continue
+            rng = np.random.default_rng(seed)
+            b = int(targets[int(rng.integers(len(targets)))])
+            key = sorted(self.caches)[int(rng.integers(len(self.caches)))]
+            st = self.caches[key]
+            pool = st.k_pool if int(rng.integers(2)) == 0 else st.v_pool
+            sh = pool.shape                  # [S, NB+1, P, KVp, hd]
+            coord = (int(rng.integers(sh[0])), b,
+                     int(rng.integers(sh[2])), int(rng.integers(sh[3])),
+                     int(rng.integers(sh[4])))
+            nbits = pool.element_size() * 8
+            bit = int(rng.integers(nbits))
+            words = pool.view(torch.int16 if nbits == 16 else torch.int32)
+            # the top bit is the sign bit of the signed word
+            words[coord] ^= -(1 << bit) if bit == nbits - 1 else 1 << bit
+            t = time.perf_counter()
+            self._stage("seu_bitflip", t, t, [], block=b, bit=bit,
+                        seed=seed)
+        self._armed_flips = still_armed
+
+    def _watchdog(self) -> None:
+        """Age occupied stalled slots; past the threshold, evict the
+        request for replay and keep the slot from admission."""
+        for i in sorted(self.stalled):
+            s = self.slots[i]
+            if s is None or i in self._tripped:
+                continue
+            self._stall_age[i] += 1
+            if self._stall_age[i] < self.watchdog_steps:
+                continue
+            self.watchdog_trips += 1
+            self._tripped.add(i)
+            self._stall_age[i] = 0
+            t = time.perf_counter()
+            self._stage("watchdog_trip", t, t, [s.req.rid], slot=i,
+                        tokens=len(s.gen))
+            self._evict_slot(i)
+
+    def _evict_slot(self, i: int) -> None:
+        """Tear a slot down for replay: free its row exactly (shared
+        refcounts honored, quarantined blocks skipped by the allocator)
+        and queue (request, tokens-so-far) for restoration."""
+        s = self.slots[i]
+        self.alloc.release(
+            self.shared.release(self.table[i][self.table[i] >= 0]))
+        self.table[i] = -1
+        self.lengths[i] = 0
+        self._gen_counts[i] = 0
+        self.slots[i] = None
+        self._dirty = True
+        self._restore_queue.append((s.req, list(s.gen)))
+
+    def _on_corrupt_block(self, b: int) -> set:
+        """Account one detected upset: quarantine the block, purge it
+        from the shared index, drop its seal; returns the occupied slots
+        whose rows hold it."""
+        self.bitflips_detected += 1
+        if self.alloc.quarantine(b):
+            self.blocks_quarantined += 1
+        self.shared.purge(b)
+        self.digests.forget(b)
+        t = time.perf_counter()
+        self._stage("bitflip_detected", t, t, [], block=b)
+        return {i for i in range(self.max_slots)
+                if self.slots[i] is not None and b in self.table[i]}
+
+    def _restore_pending(self) -> None:
+        """Replay evicted requests into free, healthy slots (recovery
+        runs before new admissions; deferred under block pressure)."""
+        while self._restore_queue:
+            req, gen = self._restore_queue[0]
+            # only watchdog-proven slots are avoided
+            free = [i for i in range(self.max_slots)
+                    if self.slots[i] is None and i not in self._tripped]
+            if not free:
+                break
+            try:
+                self._restore_slot(free[0], req, gen)
+            except OutOfBlocksError:
+                self.deferrals += 1
+                break
+            self._restore_queue.pop(0)
+            self.replays += 1
+
+    def _restore_slot(self, i: int, req: Request, gen: List[int]) -> None:
+        """Rebuild an evicted in-flight request in slot ``i``: re-prefill
+        its prompt (sharing live prefix blocks through the content-hash
+        index), then replay the recorded generated tokens through the
+        decode step.  Nothing is re-emitted, so the stream continues
+        exactly once from where it stopped."""
+        s = int(req.prompt.shape[0])
+        sp = req.sampling or GREEDY
+        bs = self.block_size
+        if s <= self.prompt_len:
+            padded_len = self.prompt_len
+            need = self._held_blocks()
+            need[i] = -(-(self.prompt_len + req.max_new) // bs)
+            self.table = paging.plan_blocks(self.table, self.alloc, need)
+            self._push_tables()
+            self._dirty = False
+            toks = np.zeros((self.max_slots, self.prompt_len), np.int32)
+            toks[i, -s:] = req.prompt
+            admit = np.zeros(self.max_slots, bool)
+            admit[i] = True
+            self._set_knobs(i, sp)
+            self._push_knobs()
+            t0 = time.perf_counter()
+            self._prefill_paste(toks, admit)   # its token is known: unused
+            self.admit_s += time.perf_counter() - t0
+            self.prefill_tokens += self.prompt_len
+            self.lengths[i] = self.prompt_len
+        else:
+            padded, digests, shared_blocks = self._plan_chunked(i, req)
+            self._push_tables()
+            self._dirty = False
+            self._set_knobs(i, sp)
+            self._push_knobs()
+            self._run_chunks(i, padded, shared_blocks * bs
+                             // self.prefill_chunk, rid=req.rid)
+            for b in range(shared_blocks, len(digests)):
+                self.shared.register(digests[b], int(self.table[i, b]))
+            padded_len = padded.shape[0]
+            self.lengths[i] = padded_len
+        self._replay_generation(i, req, gen, padded_len, sp)
+
+    def _replay_generation(self, i: int, req: Request, gen: List[int],
+                           padded_len: int, sp: SamplingParams) -> None:
+        """Replay recorded tokens ``gen[:-1]`` as decode inputs so the KV
+        the lost steps had written is regrown; every other row is masked
+        off the device tables for the duration.  Outputs are recomputed
+        and discarded — nothing re-emits."""
+        g = len(gen)
+        t0 = time.perf_counter()
+        if g > 1:
+            mask_tbl = -np.ones_like(self.table)
+            mask_tbl[i] = self.table[i]
+            mask_len = np.zeros_like(self.lengths)
+            mask_len[i] = padded_len
+            self._push_tables(mask_tbl, mask_len)
+            last = np.zeros((self.max_slots, 1), np.int32)
+            for j in range(g - 1):
+                last[i, 0] = gen[j]
+                T.decode_step(self.params, self.cfg, self._tensor(last),
+                              self.caches, self.plan, self.tp)
+        self.admit_s += time.perf_counter() - t0
+        self.lengths[i] = padded_len + g - 1
+        self._gen_counts[i] = g
+        self.slots[i] = _Slot(req, list(gen), req.max_new - g,
+                              sampled=not sp.greedy)
+        self.last[i, 0] = gen[-1]
+        self._dirty = True
+        self._seal_rows(self.table[i][:self.lengths[i] // self.block_size])
+        t1 = time.perf_counter()
+        self._stage("replay", t0, t1, [req.rid], tokens=g, slot=i)
+
+    # ------------------------------------------------------------------
+    # admission and decode
+    # ------------------------------------------------------------------
     def _admit(self) -> List[Request]:
         admits: List[tuple] = []
         completed: List[Request] = []
         for i in range(self.max_slots):
             if not self.queue:
                 break
-            if self.slots[i] is not None:
-                continue
+            if self.slots[i] is not None or i in self._tripped:
+                continue               # occupied, or watchdog-proven bad
             req = self.queue[0]
             if req.prompt.shape[0] > self.prompt_len:
                 # over-bucket prompt: chunked paged prefill (shares prefix
@@ -345,18 +677,32 @@ class ContinuousBatchingEngine:
         # request occupies its slot's batch row, dead rows keep the shape
         toks = np.zeros((self.max_slots, self.prompt_len), np.int32)
         admit = np.zeros(self.max_slots, bool)
+        any_sampled = False
         for i, req in admits:
             toks[i, -req.prompt.shape[0]:] = req.prompt      # left-pad
             admit[i] = True
+            sp = req.sampling or GREEDY
+            self._set_knobs(i, sp)
+            any_sampled |= not sp.greedy
+        self._push_knobs()
         t0 = time.perf_counter()
-        firsts = self._admit_step(toks, admit)
+        logits = self._prefill_paste(toks, admit)
+        # token index 0 keys every admission's first draw
+        firsts = self._pick(logits, any_sampled,
+                            self._knobs_dev).cpu().numpy()
         t1 = time.perf_counter()
         self.admit_s += t1 - t0
         self._stage("admit", t0, t1, [req.rid for _, req in admits],
                     tokens=self.prompt_len * len(admits))
+        seal: List[int] = []
         for i, req in admits:
             self.lengths[i] = self.prompt_len
+            self._gen_counts[i] = 1
             self.prefill_tokens += self.prompt_len
+            if self.harden and req.max_new > 1:   # staying: seal the full
+                seal.extend(                      # prompt blocks now
+                    int(b) for b in
+                    self.table[i][:self.prompt_len // self.block_size])
             tok = int(firsts[i])
             if req.max_new >= 1:
                 # a max_new=0 request emits nothing and counts no token
@@ -366,47 +712,41 @@ class ContinuousBatchingEngine:
                 completed.append(
                     self._finalize(i, req, [tok][:req.max_new]))
             else:
-                self.slots[i] = _Slot(req, [tok], req.max_new - 1)
+                sp = req.sampling or GREEDY
+                self.slots[i] = _Slot(req, [tok], req.max_new - 1,
+                                      sampled=not sp.greedy)
                 self.last[i, 0] = tok
+        self._seal_rows(seal)
         return completed
 
     def _run_chunks(self, i: int, padded: np.ndarray, first_chunk: int,
-                    rid: Optional[int] = None) -> int:
+                    rid: Optional[int] = None) -> torch.Tensor:
         """Run ``padded``'s chunks from ``first_chunk`` on through chunked
-        paged prefill; returns the final chunk's greedy token."""
+        paged prefill; returns the final chunk's last logits [1, V]."""
         c = self.prefill_chunk
         t0 = ct0 = time.perf_counter()
-        first = None
+        logits = None
         for ci in range(first_chunk, padded.shape[0] // c):
             out = T.prefill_paged_chunk(
                 self.params, self.cfg,
                 self._tensor(padded[ci * c:(ci + 1) * c][None]),
                 self.caches, i, ci * c, self.plan, self.tp)
-            first = torch.argmax(out.logits[0, -1])
+            logits = out.logits[:, -1]
             if self.on_stage is not None:
                 ct1 = time.perf_counter()
                 self._stage("prefill_chunk", ct0, ct1, [rid],
                             chunk=ci, tokens=c)
                 ct0 = ct1
-        tok = int(first)
         self.admit_s += time.perf_counter() - t0
         self.prefill_tokens += padded.shape[0] - first_chunk * c
-        return tok
+        return logits
 
-    def _admit_chunked(self, i: int, req: Request):
-        """Admit one over-bucket prompt into slot ``i`` via chunked paged
-        prefill.
-
-        The prompt is left-padded to a whole number of prefill chunks, its
-        full block budget (padded prompt + max_new) reserved atomically,
-        and each chunk runs one prefill+paste call.  Before allocating,
-        the content-hashed :class:`~repro_torch.runtime.paging.
-        SharedBlockIndex` is consulted: a live identical prompt prefix
-        (whole chunks only — the final chunk always recomputes, its
-        last-token logits pick the first token) is reference-shared
-        instead of re-prefilled.  Returns the completed Request for
-        ``max_new<=1``, None when the request now occupies the slot, or
-        ``_DEFER`` when the pool cannot cover it yet (nothing leaks)."""
+    def _plan_chunked(self, i: int, req: Request):
+        """Left-pad ``req``'s prompt to whole prefill chunks, take live
+        shared prefix blocks (whole chunks only — the final chunk always
+        recomputes) and plan the row's full budget into slot ``i``.
+        Returns ``(padded, digests, shared_blocks)``; raises
+        ``OutOfBlocksError`` with nothing leaked."""
         bs, c = self.block_size, self.prefill_chunk
         s = int(req.prompt.shape[0])
         length = -(-s // c) * c
@@ -436,57 +776,123 @@ class ContinuousBatchingEngine:
             self.shared.release(acquired)   # refs only; owners keep blocks
             self.shared.hits -= len(acquired)   # retry will re-count them
             self.table[i, :shared_blocks] = -1
+            raise
+        return padded, digests, shared_blocks
+
+    def _admit_chunked(self, i: int, req: Request):
+        """Admit one over-bucket prompt into slot ``i`` via chunked paged
+        prefill: the prompt's full block budget (padded prompt + max_new)
+        reserved atomically, live identical prefix chunks shared through
+        the content-hash index, each other chunk one prefill+paste call;
+        the final chunk's last logits pick the first token (token index
+        0).  Returns the completed Request for ``max_new<=1``, None when
+        the request now occupies the slot, or ``_DEFER`` when the pool
+        cannot cover it yet (nothing leaks)."""
+        try:
+            padded, digests, shared_blocks = self._plan_chunked(i, req)
+        except OutOfBlocksError:
             return _DEFER
         self._push_tables()
         self._dirty = False
-        tok = self._run_chunks(i, padded, shared_blocks * bs // c,
-                               rid=req.rid)
+        sp = req.sampling or GREEDY
+        self._set_knobs(i, sp)
+        self._push_knobs()
+        logits = self._run_chunks(i, padded, shared_blocks * self.block_size
+                                  // self.prefill_chunk, rid=req.rid)
+        knobs = (self._tensor(np.float32([sp.temperature])),
+                 self._tensor(np.int32([sp.top_k])),
+                 self._tensor(np.int32([sp.seed])))
+        tok = int(self._pick(logits, not sp.greedy, knobs)[0])
         # publish the freshly prefilled prompt blocks for future sharers
         # (all are full, read-only blocks: decode appends start a new
         # block because the padded length is block-aligned)
-        for b in range(shared_blocks, n_prompt_blocks):
+        for b in range(shared_blocks, len(digests)):
             self.shared.register(digests[b], int(self.table[i, b]))
-        self.lengths[i] = length
+        self.lengths[i] = padded.shape[0]
+        self._gen_counts[i] = 1
+        if self.harden and req.max_new > 1:
+            # freshly prefilled prompt blocks are full and read-only from
+            # here on (shared-index hits were sealed by their writer)
+            self._seal_rows(self.table[i][shared_blocks:len(digests)])
         if req.max_new >= 1:
             self.total_tokens += 1
             self._emit(req.rid, tok)
         if req.max_new <= 1:
             return self._finalize(i, req, [tok][:req.max_new])
-        self.slots[i] = _Slot(req, [tok], req.max_new - 1)
+        self.slots[i] = _Slot(req, [tok], req.max_new - 1,
+                              sampled=not sp.greedy)
         self.last[i, 0] = tok
         return None
 
     def _decode_once(self) -> List[Request]:
-        active = [i for i, s in enumerate(self.slots) if s is not None]
+        # stalled slots occupy their row but make no progress — the
+        # latched fault is latent until the watchdog trips it
+        active = [i for i, s in enumerate(self.slots)
+                  if s is not None and i not in self.stalled]
         if not active:
             return []
         if self._dirty:
             self._push_tables()
             self._dirty = False
+        any_sampled = any(s is not None and s.sampled for s in self.slots)
         t0 = time.perf_counter()
         out = T.decode_step(self.params, self.cfg, self._tensor(self.last),
                             self.caches, self.plan, self.tp)
-        nxt = torch.argmax(out.logits[:, -1], dim=-1).cpu().numpy()
+        nxt = self._pick(out.logits[:, -1], any_sampled, self._knobs_dev,
+                         self._tensor(self._gen_counts) if any_sampled
+                         else None)
+        sums_np: Optional[np.ndarray] = None
+        if self.harden:
+            # the whole pool's per-block checksums after this step's KV
+            # append, fetched with the tokens in one copy: detection lands
+            # the same step a corrupted block is read, before any token of
+            # this step escapes to a stream
+            host = torch.cat([nxt, self._checksum()]).cpu().numpy()
+            nxt, sums_np = host[:self.max_slots], host[self.max_slots:]
+        else:
+            nxt = nxt.cpu().numpy()
         t1 = time.perf_counter()
         self.decode_s += t1 - t0
         self._stage("decode_step", t0, t1,
                     [self.slots[i].req.rid for i in active],
                     step=self.decode_steps, tokens=len(active))
+        bad_slots: set = set()
+        if sums_np is not None and len(self.digests):
+            # every sealed block is verified every step
+            items = self.digests.items()
+            blks = np.fromiter((b for b, _ in items), np.int64, len(items))
+            seals = np.fromiter((d for _, d in items), np.int64, len(items))
+            for b in blks[sums_np[blks] != seals]:
+                bad_slots |= self._on_corrupt_block(int(b))
         completed: List[Request] = []
+        emitted = 0
         for i in active:
+            if i in bad_slots:
+                continue       # computed from corrupted KV: never emits
             self.lengths[i] += 1           # mirror device append_tokens
+            self._gen_counts[i] += 1
             s = self.slots[i]
             tok = int(nxt[i])
             s.gen.append(tok)
             s.remaining -= 1
             self.last[i, 0] = tok
             self._emit(s.req.rid, tok)
+            emitted += 1
+            if self.harden and self.lengths[i] % self.block_size == 0:
+                # this step's append just filled a block: its sum from
+                # this step is the seal
+                b = int(self.table[i,
+                                   self.lengths[i] // self.block_size - 1])
+                if 0 <= b < self.alloc.num_blocks and sums_np is not None:
+                    self.digests.seal(b, int(sums_np[b]))
             if s.remaining <= 0:
                 completed.append(self._finalize(i, s.req, s.gen))
                 self.slots[i] = None
+        for i in sorted(bad_slots):
+            self._evict_slot(i)
         self.decode_steps += 1
-        self.total_tokens += len(active)
-        self.decode_tokens += len(active)
+        self.total_tokens += emitted
+        self.decode_tokens += emitted
         self.occupancy_sum += len(active) / self.max_slots
         return completed
 
@@ -650,20 +1056,18 @@ def engine_or_windowed(params, cfg: ModelConfig,
     cannot serve (recurrent and hybrid mixers, sliding windows, int8 KV —
     the engine raises ``ValueError``) fall back to the windowed loop, after
     calling ``on_fallback(exc)`` if given.  ``harden``, ``watchdog_steps``
-    and ``scrub_blocks`` tune hardened serving, which the port's engine
-    does not run yet: a stack the engine can serve raises
-    ``NotImplementedError`` under ``harden=True``; one it cannot falls
-    back as without it (the windowed loop takes no ``harden``, as in the
-    reference).
+    and ``scrub_blocks`` tune the engine's hardened serving; the windowed
+    loop takes none of them, as in the reference.
     """
-    del watchdog_steps, scrub_blocks
     if max_len > prompt_len:
         try:
             return ContinuousBatchingEngine(
                 params, cfg, plan=plan, tp=tp, max_slots=max_slots,
                 prompt_len=prompt_len, max_len=max_len,
                 block_size=block_size, num_blocks=num_blocks,
-                prefill_chunk=prefill_chunk, harden=harden, device=device)
+                prefill_chunk=prefill_chunk, harden=harden,
+                watchdog_steps=watchdog_steps, scrub_blocks=scrub_blocks,
+                device=device)
         except ValueError as e:    # non-pageable: keep the windowed loop
             if on_fallback is not None:
                 on_fallback(e)

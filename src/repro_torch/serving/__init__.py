@@ -36,9 +36,13 @@ Layers (one module per concern)::
                 deferrals as backpressure telemetry
     traffic.py  Poisson open-loop traffic generator
 
-Not ported yet, and refused with ``NotImplementedError``: sampled
-decoding, the co-processing split (``prefill_backend="engine"``),
-stage-axis pools (``pipeline_stages``) and hardened engine pools.
+Requests may sample (``SamplingParams``: temperature, top-k, seed; the
+reference's threefry key stream bit for bit), and engine pools may be
+hardened (``PoolSpec(harden=True)``, or the target of a ``kv_bitflip`` /
+``slot_stall`` ``FaultSpec``).  Not ported yet, and refused with
+``NotImplementedError``: the co-processing split (``prefill_backend=
+"engine"``), stage-axis pools (``pipeline_stages``) and ``handoff_loss``
+faults.
 """
 from repro_torch.router.slo import SLO_CLASSES, SLOClass
 from repro_torch.runtime.sampling import GREEDY, SamplingParams

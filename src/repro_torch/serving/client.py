@@ -18,9 +18,10 @@ windowed baseline, cost-model pools) backfill the buffer at completion,
 so ``stream()``/``result()`` behave identically everywhere — just
 without mid-batch granularity.
 
-The port decodes greedily: a sampled :class:`SamplingParams` raises
-``NotImplementedError`` at :meth:`ServingClient.submit`, before the
-request is admitted, rather than inside a routed batch.
+Radiation hardening: data-plane faults (``kv_bitflip``, ``slot_stall``)
+are delivered into the target pool's hardened engine, each tick gives
+every hardened engine its budgeted scrub pass, and ``watchdog_s`` adds a
+fleet-level no-progress backstop over live handles.
 """
 from __future__ import annotations
 
@@ -279,13 +280,6 @@ class ServingClient:
         elif prompt is not None:
             work = LMWork(np.asarray(prompt, np.int32), max_new=max_new,
                           sampling=sampling)
-        if (work is not None and work.sampling is not None
-                and not work.sampling.greedy):
-            # refuse before admission: the engine would refuse it inside
-            # a routed batch, taking the batch's neighbours down with it
-            raise NotImplementedError(
-                "sampled decoding (temperature > 0) is not ported yet "
-                "(ROADMAP.md, port queue item 2); submit greedy requests")
         if work is not None and work.prompt.shape[0] == 0:
             # fail fast with an actionable error, mirroring the
             # oversized-max_new check below: a zero-length prompt used

@@ -17,12 +17,12 @@ slot serves each request is the router's business.
 
 The port reads the reference's fleet JSON unchanged and serves it through
 its own engines, on the device ``build(device=...)`` names (the card by
-default).  What the port does not serve yet refuses loudly, before any
-weights are touched: the co-processing split (``prefill_backend=
-"engine"``), stage-axis pools (``pipeline_stages``) and hardened engine
-pools (``harden=True``, which a data-plane :class:`FaultSpec` turns on);
-a hardened pool whose stack paged decode cannot serve still falls back to
-the windowed loop, as in the reference.
+default), sampled requests and hardened engine pools (``harden=True``,
+which a data-plane :class:`FaultSpec` turns on) included.  What the port
+does not serve yet refuses loudly, before any weights are touched: the
+co-processing split (``prefill_backend="engine"``), stage-axis pools
+(``pipeline_stages``) and ``handoff_loss`` faults, which cut the
+co-processing handoff.
 """
 from __future__ import annotations
 
@@ -449,11 +449,17 @@ class FleetSpec:
         specs = [replace(ps, harden=True)
                  if ps.name in hardened_targets and not ps.harden else ps
                  for ps in self.pools]
+        lost = [f.pool for f in self.faults if f.kind == "handoff_loss"]
+        if lost:
+            raise NotImplementedError(
+                f"handoff_loss faults on {lost}: the prefill->decode "
+                f"handoff they cut (CoProcServer) is not ported yet "
+                f"(ROADMAP.md, port queue item 4)")
+        for ps in specs:
+            _refuse_unported(ps)
         cfg = params = None
         if any(p.backend != "costmodel" for p in specs):
             cfg = model[0] if model is not None else self._config()
-            for ps in specs:
-                _refuse_unported(ps, cfg)
             if model is not None:
                 params = model[1]
             else:
@@ -565,16 +571,18 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
     ``spec.build()`` comes through here, so no call site outside
     ``repro_torch.serving`` touches the engine classes directly.
     ``backend="engine"`` falls back to the windowed loop (with a warning)
-    for stacks paged decode cannot serve.  The co-processing split,
-    stage-axis pools and hardened engine pools are not ported yet and
-    raise ``NotImplementedError`` before any server is built.
+    for stacks paged decode cannot serve (a hardened one too: the
+    windowed loop takes no hardening, as in the reference).  The
+    co-processing split and stage-axis pools are not ported yet and raise
+    ``NotImplementedError`` before any server is built.
     """
     import numpy as np
 
+    from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.runtime.serve import (ContinuousBatchingEngine, Request,
                                            WindowedBaselineServer,
                                            engine_or_windowed)
-    _refuse_unported(spec, cfg)
+    _refuse_unported(spec)
     plan = _resolve_plan(spec, cfg, spec.plan)
     hkw = dict(harden=spec.harden, watchdog_steps=spec.watchdog_steps,
                scrub_blocks=spec.scrub_blocks)
@@ -594,16 +602,16 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
                                      max_len=spec.max_len, device=device)
     if warm:
         # throwaway requests take every serving path's first-use costs
-        # before traffic (bucket prefill and decode, and on over-bucket
-        # engine pools chunked prefill), so no routed batch pays them
-        # into the latency telemetry.  The reference's second warm-up
-        # request is sampled; the port decodes greedily, so it runs the
-        # same prompt and budget greedily and the allocator's books after
-        # warm-up match the reference's.
+        # before traffic: greedy prefill and decode, and (engine only)
+        # the sampled admission and decode, and on over-bucket engine
+        # pools chunked prefill, so no routed batch pays them into the
+        # latency telemetry
         srv.submit(Request(-1, np.array([1, 2], np.int32), max_new=2))
         srv.flush()
         if isinstance(srv, ContinuousBatchingEngine):
-            srv.submit(Request(-2, np.array([1, 2], np.int32), max_new=2))
+            srv.submit(Request(-2, np.array([1, 2], np.int32), max_new=2,
+                               sampling=SamplingParams(temperature=1.0,
+                                                       seed=0)))
             srv.flush()
         if (isinstance(srv, ContinuousBatchingEngine)
                 and spec.max_prompt_len is not None
@@ -618,12 +626,10 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
     return srv
 
 
-def _refuse_unported(spec: PoolSpec, cfg) -> None:
+def _refuse_unported(spec: PoolSpec) -> None:
     """Raise ``NotImplementedError`` for a pool the port cannot serve yet
     (each names its item in ROADMAP.md's port queue), before any weights
-    or servers are touched.  A hardened engine pool whose stack paged
-    decode cannot serve is not refused: it falls back to the windowed
-    loop, which takes no hardening, as in the reference."""
+    or servers are touched."""
     if spec.backend == "costmodel":
         return
     if spec.prefill_backend == "engine":
@@ -636,22 +642,6 @@ def _refuse_unported(spec: PoolSpec, cfg) -> None:
             f"pool {spec.name!r}: stage-axis pools (pipeline_stages, "
             f"StageAxisEngine) are not ported yet (ROADMAP.md, port queue "
             f"item 12)")
-    if spec.harden and spec.backend == "engine" and _pageable(cfg):
-        raise NotImplementedError(
-            f"pool {spec.name!r}: hardened engine pools (harden=True, or "
-            f"the target of a data-plane FaultSpec) are not ported yet "
-            f"(ROADMAP.md, port queue item 3)")
-
-
-def _pageable(cfg) -> bool:
-    """Can paged decode serve ``cfg``?  Asks the paged-cache constructor
-    on the meta device, which allocates nothing."""
-    from repro_torch.models import transformer as T
-    try:
-        T.init_paged_decode_cache(cfg, 1, 1, 1, device="meta")
-    except ValueError:
-        return False
-    return True
 
 
 def _resolve_plan(spec: PoolSpec, cfg, name: Optional[str]):

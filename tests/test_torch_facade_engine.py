@@ -18,17 +18,18 @@ machine-independent.  The reference runs in a subprocess with XLA's
 excess precision off, as in ``test_torch_engine.py``.
 
 Also held to the reference: the engine's books after ``make_server``'s
-warm-up (its second warm-up request is sampled in the reference and
-greedy here), the windowed fallback of an ``rwkv6-smoke`` engine pool
-(same warning, same tokens), and the fallback of a hardened pool whose
-stack paged decode cannot serve.  What the port does not serve yet
-raises ``NotImplementedError`` before any weights are touched."""
+warm-up (its second warm-up request is sampled), the windowed fallback of
+an ``rwkv6-smoke`` engine pool (same warning, same tokens), the fallback
+of a hardened pool whose stack paged decode cannot serve, the hardening
+fleets of ``tests/test_serving.py`` (a hardened pool with no fault, a
+``kv_bitflip`` and a ``slot_stall`` fault: tokens, pool counters and the
+allocator's books) and sampled submits.  What the port does not serve
+yet raises ``NotImplementedError`` before any weights are touched."""
 import json
 import os
 import subprocess
 import sys
 import warnings
-from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -163,11 +164,74 @@ def rwkv_serve(client, vocab):
     return [h.result().tokens.tolist() for h in handles]
 
 
+def hardening_specs(Fleet, Pool, Fault):
+    """The hardening fleets of ``tests/test_serving.py`` (``lm_spec``): a
+    bf16 engine pool, plain, hardened, and the target of a ``kv_bitflip``
+    (seed 3) or a ``slot_stall`` (slot 0, watchdog after 3 steps)."""
+    def lm(**kw):
+        return Fleet(pools=[Pool("lm", ("tpu_v5e_bf16",), backend="engine",
+                                 capacity=1, max_window=4, max_wait_s=0.0,
+                                 max_slots=3, prompt_len=8, max_new=6,
+                                 **kw)],
+                     workload="transformer", seq_len=8)
+    bitflip, stall = lm(), lm(watchdog_steps=3)
+    bitflip.faults = [Fault("lm", at_s=0.001, kind="kv_bitflip", seed=3)]
+    stall.faults = [Fault("lm", at_s=0.001, duration_s=0.5,
+                          kind="slot_stall", slot=0)]
+    return {"base": lm(), "harden": lm(harden=True), "kv_bitflip": bitflip,
+            "slot_stall": stall}
+
+
+def hardening_serve(client):
+    """``_run_hardening``'s traffic: four prompts of 2-7 tokens, six new
+    tokens each; what the comparison reads."""
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 256, int(rng.integers(2, 8))).astype(np.int32)
+               for _ in range(4)]
+    handles = [client.submit(p, slo="offline", max_new=6) for p in prompts]
+    client.drain()
+    eng = client.engines["lm"]
+    snap = client.telemetry
+    return {"tokens": [list(h.tokens) for h in handles],
+            "pool": snap["pools"]["lm"],
+            "admitted": snap["admitted"], "completed": snap["completed"],
+            "harden": bool(eng.harden),
+            "books": {**books(eng),
+                      "quarantined": sorted(int(b) for b in
+                                            eng.alloc.quarantined),
+                      "digests": sorted([int(b), int(d)] for b, d in
+                                        eng.digests.items())}}
+
+
+def sampled_serve(client, lmwork_cls, sampling_cls):
+    """``test_sampling_params_thread_through_facade``'s request, and one
+    sampled ``LMWork`` beside a greedy one."""
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, 256, int(rng.integers(2, 8))).astype(np.int32)
+    hs = [client.submit(prompt, slo="offline", max_new=6,
+                        sampling=sampling_cls(temperature=1.0, top_k=8,
+                                              seed=7)),
+          client.submit(lmwork_cls(np.array([3, 4, 5], np.int32),
+                                   sampling=sampling_cls(temperature=0.7,
+                                                         seed=3))),
+          client.submit(np.array([3, 4, 5], np.int32),
+                        sampling=sampling_cls(), max_new=3)]
+    return [h.result().tokens.tolist() for h in hs]
+
+
+SAMPLED_POOL = dict(backend="engine", max_slots=2, prompt_len=8, max_new=6)
+
+
 # ---------------------------------------------------------------------------
 # the reference, run as ``python tests/test_torch_facade_engine.py OUT_DIR``
 # ---------------------------------------------------------------------------
 def _reference(out):
     import jax
+    # synchronous dispatch: the reference's replay loop writes the next
+    # token into the host array the previous, still-queued decode call may
+    # read without a copy (``_replay_generation``), which makes recovery
+    # nondeterministic under asynchronous dispatch (ROADMAP §3)
+    jax.config.update("jax_cpu_enable_async_dispatch", False)
     from repro.configs import rwkv6_3b as jr
     from repro.models import transformer as JT
     from repro.serving import FaultSpec as JFault
@@ -209,6 +273,19 @@ def _reference(out):
             "server": type(client.engines["rwkv"]).__name__,
             "warnings": [str(w.message) for w in seen],
             "tokens": rwkv_serve(client, jr.SMOKE.vocab_size)}
+    res["hardening"] = {}
+    for case, spec in hardening_specs(JFleet, JPool, JFault).items():
+        jexecutor.time = StubClock()
+        client = JFleet.from_dict(spec.to_dict()).build(
+            model=(tiny_dense(), params["tiny"]))
+        res["hardening"][case] = {"spec": spec.to_dict(),
+                                  **hardening_serve(client)}
+    from repro.serving import SamplingParams as JS
+    jexecutor.time = StubClock()
+    spec = JFleet(pools=[JPool("lm", ("tpu_v5e_bf16",), **SAMPLED_POOL)],
+                  workload="transformer")
+    res["sampled"] = {"spec": spec.to_dict(), "tokens": sampled_serve(
+        spec.build(model=(tiny_dense(), params["tiny"])), JWork, JS)}
     (out / "ref.json").write_text(json.dumps(res))
 
 
@@ -316,6 +393,8 @@ def test_warm_up_books_equal_the_reference(ref):
     assert books(srv) == ref[0]["warm_books"]
     assert srv.alloc.available == srv.alloc.num_blocks
     assert srv.stats()["total_tokens"] == 0          # reset after warm-up
+    warm = srv.done[-2].sampling                     # the sampled warm-up
+    assert warm is not None and warm.temperature == 1.0
 
 
 @pytest.mark.parametrize("harden", [False, True])
@@ -333,18 +412,21 @@ def test_rwkv_engine_pool_falls_back_as_the_reference(ref, harden):
 
 
 def _refused_specs():
+    """Fleets the port refuses, and whether ``make_server`` refuses their
+    pool on its own (a ``handoff_loss`` fault is the fleet's, not the
+    pool's)."""
     engine = dict(profiles=("tpu_v5e_bf16",), backend="engine", max_slots=2,
                   prompt_len=8, max_new=4)
     return {
-        "prefill_backend": FleetSpec(pools=[PoolSpec(
-            "p", prefill_backend="engine", **engine)], workload="transformer"),
-        "pipeline_stages": FleetSpec(pools=[PoolSpec(
+        "prefill_backend": (FleetSpec(pools=[PoolSpec(
+            "p", prefill_backend="engine", **engine)],
+            workload="transformer"), True),
+        "pipeline_stages": (FleetSpec(pools=[PoolSpec(
             "p", pipeline_stages=2, **engine)], workload="transformer"),
-        "harden": FleetSpec(pools=[PoolSpec("p", harden=True, **engine)],
-                            workload="transformer"),
-        "data_plane_fault": FleetSpec(
+            True),
+        "handoff_loss": (FleetSpec(
             pools=[PoolSpec("p", **engine)], workload="transformer",
-            faults=[FaultSpec("p", at_s=1.0, kind="slot_stall")]),
+            faults=[FaultSpec("p", at_s=1.0, kind="handoff_loss")]), False),
     }
 
 
@@ -353,33 +435,72 @@ def test_unported_paths_refuse_before_weights(case, monkeypatch):
     def no_init(*a, **k):
         raise AssertionError("weights were initialised before the refusal")
     monkeypatch.setattr(T, "model_init", no_init)
-    spec = _refused_specs()[case]
+    spec, pool_refuses = _refused_specs()[case]
     spec.arch = "qwen3-14b"
     spec.smoke = False                   # a full-width init would show
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         spec.build(device="cpu")
-    pool = spec.pools[0]
-    if case == "data_plane_fault":       # what build() makes of the target
-        pool = replace(pool, harden=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_server(TINY, None, pool, device="cpu")
+    if pool_refuses:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            make_server(TINY, None, spec.pools[0], device="cpu")
 
 
-def test_sampled_submit_refuses_before_admission(ref):
-    spec = FleetSpec(pools=[PoolSpec("lm", ("tpu_v5e_bf16",),
-                                     backend="engine", max_slots=2,
-                                     prompt_len=8, max_new=4)],
-                     workload="transformer")
-    client = spec.build(model=(TINY, ref[1]["tiny"]), device="cpu")
-    prompt = np.array([3, 4, 5], np.int32)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        client.submit(prompt, sampling=SamplingParams(temperature=1.0))
-    with pytest.raises(NotImplementedError, match="sampled"):
-        client.submit(LMWork(prompt, sampling=SamplingParams(temperature=0.7,
-                                                             seed=3)))
-    assert client.telemetry["admitted"] == 0
-    h = client.submit(prompt, sampling=SamplingParams(), max_new=3)
-    assert len(h.result().tokens) == 3          # greedy is served
+def _serve_hardening(ref, case):
+    want = ref[0]["hardening"][case]
+    real = executor.time
+    executor.time = StubClock()
+    try:
+        client = FleetSpec.from_dict(want["spec"]).build(
+            model=(TINY, ref[1]["tiny"]), device="cpu")
+        return want, client, hardening_serve(client)
+    finally:
+        executor.time = real
+
+
+@pytest.mark.parametrize("case", ["harden", "data_plane_fault"])
+def test_once_refused_pools_serve_as_the_reference(ref, case):
+    """The port's counterparts of ``test_hardened_no_faults_is_bit_
+    identical_and_quiet`` ("harden"), ``test_kv_bitflip_detected_
+    quarantined_recovered_bit_exact`` and ``test_slot_stall_watchdog_
+    evicts_and_replays_bit_exact`` ("data_plane_fault", which hardens its
+    target pool): tokens, pool counters and books equal the reference's,
+    and the reference's own claims hold on the port."""
+    base = ref[0]["hardening"]["base"]["tokens"]
+    for name in (("harden",) if case == "harden"
+                 else ("kv_bitflip", "slot_stall")):
+        want, client, got = _serve_hardening(ref, name)
+        assert got["tokens"] == want["tokens"] == base    # bit-exact
+        compare(got, {k: v for k, v in want.items() if k != "spec"}, name)
+        pool = got["pool"]
+        assert got["harden"] and isinstance(client.engines["lm"],
+                                            ContinuousBatchingEngine)
+        assert got["completed"] == got["admitted"]        # nobody dropped
+        if name == "harden":
+            assert (pool["bitflips_detected"], pool["blocks_quarantined"],
+                    pool["watchdog_trips"]) == (0, 0, 0)
+        elif name == "kv_bitflip":
+            assert pool["bitflips_detected"] >= 1
+            assert pool["blocks_quarantined"] >= 1
+            alloc = client.engines["lm"].alloc
+            assert alloc.available + len(alloc.quarantined) == \
+                alloc.num_blocks
+        else:
+            assert pool["watchdog_trips"] >= 1
+
+
+def test_sampled_submit_serves_as_the_reference(ref):
+    want = ref[0]["sampled"]
+    real = executor.time
+    executor.time = StubClock()
+    try:
+        client = FleetSpec.from_dict(want["spec"]).build(
+            model=(TINY, ref[1]["tiny"]), device="cpu")
+        got = sampled_serve(client, LMWork, SamplingParams)
+    finally:
+        executor.time = real
+    assert got == want["tokens"]
+    assert [len(t) for t in got] == [6, 6, 3]
+    assert client.telemetry["admitted"] == 3
 
 
 def test_add_pool_builds_on_the_fleet_device(ref):

@@ -197,3 +197,70 @@ def test_paged_decode_cache_rejects_what_the_reference_rejects(kw):
                           for f in cfg.__dataclass_fields__})
     with pytest.raises(ValueError):
         TT.init_paged_decode_cache(tcfg, 2, 8, 4, device="cpu")
+
+
+def _pools(dtype, stacked: bool, num_blocks=7):
+    """K and V pools with values spread over every bit (large and negative
+    elements too), plain ``[NB+1, P, KVp, hd]`` or stacked ``[3, NB+1,
+    ...]``."""
+    shape = ((3,) if stacked else ()) + (num_blocks + 1, 4, 2, 8)
+    k = (RNG.normal(size=shape) * 1e3).astype(dtype)
+    v = (RNG.normal(size=shape) * 1e-3).astype(dtype)
+    js = jpg.PagedKVState(jnp.asarray(k), jnp.asarray(v), None, None)
+    ts = tpg.PagedKVState(bridge.to_tensor(k, "cpu"),
+                          bridge.to_tensor(v, "cpu"), None, None)
+    return js, ts
+
+
+@pytest.mark.parametrize("stacked", [False, True], ids=["plain", "stacked"])
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],
+                         ids=["f32", "bf16"])
+def test_checksums_equal_the_reference(dtype, stacked):
+    js, ts = _pools(dtype, stacked)
+    want = np.asarray(jax.jit(jpg.pool_checksums)(js)).astype(np.int64)
+    got = tpg.pool_checksums(ts)
+    assert got.dtype == torch.int64 and got.shape == (8,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = np.array([5, 0, 7, 5, 2], np.int32)
+    want = np.asarray(jax.jit(jpg.block_checksums)(js, jnp.asarray(rows)))
+    got = tpg.block_checksums(ts, torch.as_tensor(rows))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16],
+                         ids=["f32", "bf16"])
+def test_every_single_bit_flip_moves_the_checksums(dtype):
+    """Each of an element's 16 or 32 bits, flipped alone, moves both sums
+    of its block and no other block's (bit 15 of an int16 word is its sign
+    bit: the flip is an XOR with -32768)."""
+    js, ts = _pools(dtype, stacked=True)
+    pool_sums = tpg.pool_checksums(ts)
+    block_sums = tpg.block_checksums(ts, torch.arange(8))
+    nbits = ts.k_pool.element_size() * 8
+    words = ts.v_pool.view(torch.int16 if nbits == 16 else torch.int32)
+    coord = (1, 3, 2, 1, 5)
+    for bit in range(nbits):
+        mask = -(1 << bit) if bit == nbits - 1 else 1 << bit
+        words[coord] ^= mask
+        moved = tpg.pool_checksums(ts) != pool_sums
+        assert moved.tolist() == [b == 3 for b in range(8)], bit
+        moved = tpg.block_checksums(ts, torch.arange(8)) != block_sums
+        assert moved.tolist() == [b == 3 for b in range(8)], bit
+        jflip = np.asarray(ts.v_pool.view(torch.int16 if nbits == 16
+                                          else torch.int32)).copy()
+        want = np.asarray(jax.jit(jpg.pool_checksums)(js._replace(
+            v_pool=jnp.asarray(jflip.view(np.asarray(js.v_pool).dtype)))))
+        np.testing.assert_array_equal(tpg.pool_checksums(ts).numpy(),
+                                      want.astype(np.int64))
+        words[coord] ^= mask                     # undo
+    assert torch.equal(tpg.pool_checksums(ts), pool_sums)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 9, 1000])
+def test_wire_checksum_equals_the_reference(n):
+    payload = RNG.integers(0, 256, n).astype(np.uint8).tobytes()
+    assert tpg.wire_checksum(payload) == jpg.wire_checksum(payload)
+    if n:
+        flipped = bytearray(payload)
+        flipped[n // 2] ^= 0x40
+        assert tpg.wire_checksum(bytes(flipped)) != tpg.wire_checksum(payload)

@@ -252,7 +252,7 @@ def test_harden_falls_back_to_the_reference_server(ref, name):
     """Hardened serving is asked of a stack paged decode cannot serve: the
     engine's ``ValueError`` comes first, so ``engine_or_windowed`` falls
     back once to the reference's server (the windowed loop takes no
-    ``harden``), where a pageable stack would refuse ``harden``."""
+    ``harden``), where a pageable stack would serve hardened."""
     want = ref[0]["harden"][name]
     cfg = (tr.SMOKE if name == "rwkv6" else
            _once_refused_cfg(name, TINY, MoEConfig, tj.SMOKE))
