@@ -48,7 +48,19 @@ counters, books and budgets, as int8 activations are quantized across the
 batch); and the fleet again with a ``kv_bitflip`` on its bf16 pool, a
 ``slot_stall`` on its "mpai" pool and half its requests sampled
 (``fleet_sampled_hardened``).  Launch counts include replayed decode calls
-and bucket re-prefills. Prints one JSON line per phase,
+and bucket re-prefills.
+
+Co-processing: the seam scenarios of ``tests/test_torch_disagg.py`` on the
+tiny dense stack on CUDA and on the CPU (``tiny_coproc``); the Qwen3-14B
+weights and trace through ``CoProcServer``, an "mpai" prefill engine
+feeding two bf16 decode shards, every handoff through the wire
+(``coproc_full_width``: each handoff's wire bytes and ms, one shard, a
+corrupted and a lost handoff, a bit flip restored through the seam, all
+held bit-equal to the two-shard run, and a bf16-prefill split against the
+unified bf16 engine under the near-tie rule); and the split as a facade
+pool with a ``handoff_loss`` fault (``fleet_coproc``); launches held to
+the prefill chunks, decode steps and replays, flash never. Prints one
+JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -836,6 +848,116 @@ class StageLog:
                                  f"for {prefill} bucket prefills")
 
 
+class CoProcLog:
+    """A ``CoProcServer``'s device calls, from its ``on_stage`` spans: the
+    prefill engine's ``prefill_chunk`` and ``handoff``, the shards'
+    ``import``, ``decode_step`` and ``replay`` (tagged with their shard).
+    Paged attention runs once a layer in every shard decode step and every
+    replayed decode call; flash attention never (every prefill is chunked
+    and attends through the pool); the int8 GEMM only in the prefill
+    chunks of an "mpai" prefill stage, the same number in each."""
+
+    def __init__(self, server):
+        self.spans = []
+        server.on_stage = lambda stage, t0, t1, rids, attrs: \
+            self.spans.append((stage, t0, t1, list(rids), attrs))
+
+    def count(self, stage: str) -> int:
+        return sum(1 for sp in self.spans if sp[0] == stage)
+
+    def decode_calls(self) -> int:
+        return self.count("decode_step") + sum(
+            max(sp[4]["tokens"] - 1, 0) for sp in self.spans
+            if sp[0] == "replay")
+
+    def ms(self, stage: str) -> dict:
+        """Each rid's last ``stage`` span, in ms (host wall time)."""
+        return {sp[3][0]: (sp[2] - sp[1]) * 1e3 for sp in self.spans
+                if sp[0] == stage}
+
+    def check(self, what: str, layers: int, launches: dict,
+              int8_per_chunk: int) -> None:
+        decode, chunks = self.decode_calls(), self.count("prefill_chunk")
+        pa_n, fa_n = launches["paged_attention"], launches["flash_attention"]
+        im_n = launches["int8_matmul"]
+        if pa_n != layers * decode or not decode:
+            raise AssertionError(f"{what}: {pa_n} paged_attention launches "
+                                 f"for {decode} decode calls")
+        if fa_n:
+            raise AssertionError(f"{what}: {fa_n} flash_attention launches "
+                                 f"in a split run")
+        if im_n != int8_per_chunk * chunks or not chunks:
+            raise AssertionError(f"{what}: {im_n} int8_matmul launches for "
+                                 f"{chunks} prefill chunks of "
+                                 f"{int8_per_chunk}")
+
+
+class HandoffTimes:
+    """Times every handoff's ``to_bytes`` (the device-to-host copy
+    included) and ``from_bytes`` while entered, by standing in for
+    ``PrefillHandoff``'s two methods (as ``Int8Shapes`` does for the int8
+    GEMM's call site); each row also has the frame's bytes."""
+
+    def __init__(self):
+        from repro_torch.runtime import serve
+        self.cls = serve.PrefillHandoff
+        self.real_to = self.cls.__dict__["to_bytes"]
+        self.real_from = self.cls.__dict__["from_bytes"]
+        self.rows = []
+
+    def __enter__(self):
+        real_to, real_from, rows = self.real_to, self.real_from, self.rows
+
+        def to_bytes(ho):
+            t0 = time.perf_counter()
+            wire = real_to(ho)
+            rows.append({"rid": ho.rid, "bytes": len(wire),
+                         "to_bytes_ms": (time.perf_counter() - t0) * 1e3})
+            return wire
+
+        def from_bytes(cls, buf):
+            t0 = time.perf_counter()
+            try:
+                return real_from.__func__(cls, buf)
+            finally:
+                rows[-1]["from_bytes_ms"] = (time.perf_counter() - t0) * 1e3
+        self.cls.to_bytes = to_bytes
+        self.cls.from_bytes = classmethod(from_bytes)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.to_bytes = self.real_to
+        self.cls.from_bytes = self.real_from
+
+
+def capture_top2(server) -> dict:
+    """The top two logits behind every token a ``CoProcServer`` picks,
+    ``{(rid, token index): values}``: the prefill engine's first tokens
+    and the shards' decode picks (a recomputed first token of a muted
+    handoff writes the same values again)."""
+    store, cur = {}, {}
+    pre = server.prefill
+    real_handoff, real_first = pre.prefill_handoff, pre._pick
+
+    def handoff(req):
+        cur["rid"] = req.rid
+        return real_handoff(req)
+
+    def first(logits, *a, **k):
+        store[(cur["rid"], 0)] = torch.topk(logits[0].float(), 2).values.cpu()
+        return real_first(logits, *a, **k)
+    pre.prefill_handoff, pre._pick = handoff, first
+    for eng in server.decodes:
+        def pick(logits, *a, _eng=eng, _real=eng._pick, **k):
+            top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+            for i, sl in enumerate(_eng.slots):
+                if sl is not None:
+                    store[(sl.req.rid, len(sl.gen))] = top[i]
+            return _real(logits, *a, **k)
+        eng._pick = pick
+    return store
+
+
 def launches_now(pa, im, fa) -> dict:
     return {"paged_attention": pa.paged_attention.launches,
             "int8_matmul": im.int8_matmul.launches,
@@ -1034,6 +1156,88 @@ def tiny_sampled_hardened(dev, cfg, weights, trace, kw) -> None:
                  tokens=sum(len(s) for s in streams["cuda"].values()),
                  streams_equal=len(trace) - ties, near_tie_divergences=ties,
                  **books["cuda"]["counters"])
+
+
+# the CPU test's scenarios the tiny split runs on CUDA and on the CPU
+TINY_COPROC = ("two_shards", "corrupt_wire", "handoff_loss",
+               "hardened_bitflip_bf16")
+
+
+def tiny_coproc_phase(dev) -> None:
+    """The co-processing scenarios of ``tests/test_torch_disagg.py`` (two
+    decode shards; a corrupted wire frame; a lost handoff; hardened
+    engines with a bit flip whose eviction comes back through the seam) on
+    the tiny dense stack, on CUDA and on the CPU with the same weights:
+    equal greedy streams unless the CPU's top two logits are a near-tie
+    where they part, equal ``stats()`` and allocator books, and on CUDA
+    every kernel launch as ``CoProcLog`` says."""
+    from repro_torch import bridge
+    from repro_torch.configs.tiny import TINY
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.serve import CoProcServer
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_disagg as case   # its scenarios, workload and drive
+
+    weights = tiny_params(TINY, seed=0)
+    for name in TINY_COPROC:
+        sc = case.SCENARIOS[name]
+        trace = case._requests(sc.get("requests", "disagg"))
+        runs = {}
+        for label, where in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            params = bridge.to_torch(weights, where)
+            logs = []
+
+            def server(pre, decs):
+                co = CoProcServer(pre, decs)
+                logs.append(CoProcLog(co))
+                return co
+            zero_counts()
+            runs[label] = case._drive(
+                case._port_pkg(params, where, server), sc)
+            if label == "cuda":
+                logs[0].check(f"tiny coproc {name}", TINY.num_layers,
+                              launches_now(pa, im, fa), 0)
+            else:
+                cpu_params = params
+        got, want = runs["cuda"], runs["cpu"]
+        for key in ("stats", "books", "steps"):
+            if got[key] != want[key]:
+                raise AssertionError(f"tiny coproc {name}: {key} differ "
+                                     f"between CUDA and the CPU: "
+                                     f"{got[key]} vs {want[key]}")
+        st = got["stats"]
+        if name == "hardened_bitflip_bf16" and not (
+                st["bitflips_detected"] and st["replays"]):
+            raise AssertionError(f"tiny coproc {name}: {st}")
+        if name in ("corrupt_wire", "handoff_loss") and \
+                st["handoffs_replayed"] != 1:
+            raise AssertionError(f"tiny coproc {name}: {st}")
+        streams = {k: {int(r): t for r, t in v["outputs"].items()}
+                   for k, v in runs.items()}
+
+        def top2_of(rid, t):
+            prompt = trace[rid][1]
+            ctx = np.zeros(-(-max(len(prompt), case.PROMPT_LEN)
+                             // case.PROMPT_LEN) * case.PROMPT_LEN, np.int32)
+            ctx[-len(prompt):] = prompt
+            ctx = np.concatenate([ctx, np.asarray(streams["cpu"][rid][:t],
+                                                  np.int32)])
+            logits = T.forward(cpu_params, TINY,
+                               torch.as_tensor(ctx[None])).logits[0, -1]
+            return torch.topk(logits.float(), 2).values
+        ties = near_tie_divergences(f"tiny coproc {name}", streams, trace,
+                                    top2_of)
+        emit("tiny_coproc", scenario=name, config=TINY.name,
+             requests=len(trace),
+             tokens=sum(len(v) for v in streams["cuda"].values()),
+             streams_equal=len(trace) - ties, near_tie_divergences=ties,
+             **{k: st[k] for k in ("handoffs", "handoffs_lost",
+                                   "handoffs_replayed", "imports_by_shard",
+                                   *HARDENING)})
 
 
 def kernel_wrappers() -> dict:
@@ -1512,13 +1716,35 @@ def fleet_sampled_hardened_phase(dev, card: str, cfg, params, pa, im,
                      "fleet_sampled_hardened", sampled=True)
 
 
+def fleet_coproc_phase(dev, card: str, cfg, params, kernels,
+                       int8_per_chunk: int) -> dict:
+    """Qwen3-14B at full width through the facade's co-processing split:
+    ``FLEET_COPROC`` built with ``FleetSpec.build`` on the card, the
+    seeded open loop of ``fleet_full_width_phase`` (greedy) with the
+    flight recorder on and a lost handoff: everything completes, the
+    prefill stage pool has the prompt tokens and no decode token, the seam
+    replayed, and the launches are the recorder's ``decode_step`` and
+    ``replay`` spans' (paged attention) and ``prefill_chunk`` spans'
+    (``int8_per_chunk`` int8 GEMMs each), with no flash launch."""
+    return fleet_run(dev, card, cfg, params, kernels, FLEET_COPROC,
+                     "fleet_coproc", sampled=False,
+                     int8_per_chunk=int8_per_chunk)
+
+
+FAULT_COUNTER = {"kv_bitflip": "bitflips_detected",
+                 "slot_stall": "watchdog_trips",
+                 "handoff_loss": "handoffs_replayed"}
+
+
 def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
-              sampled: bool) -> dict:
+              sampled: bool, int8_per_chunk=None) -> dict:
     """Build ``spec`` on the card over ``(cfg, params)``, drive the seeded
     open loop (``FLEET_LM`` LM requests, ``FLEET_COST`` cost-model ones)
     with the flight recorder on, check the run and emit its lines; with
-    ``sampled``, half the LM requests sample.  Returns each kernel's
-    launches in the run, counted from 0."""
+    ``sampled``, half the LM requests sample.  A split pool's stage pool
+    (``<pool>.prefill``) is checked and reported beside it, and with
+    ``int8_per_chunk`` the int8 launches are held to its prefill chunks.
+    Returns each kernel's launches in the run, counted from 0."""
     from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.serving import FleetSpec, LMWork, open_loop
 
@@ -1581,13 +1807,17 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
                              f"spans, {tracer.dropped} dropped")
     lm_pools = [p["name"] for p in spec["pools"]
                 if p.get("backend") == "engine"]
+    split = {p["name"] for p in spec["pools"]
+             if p.get("prefill_backend") == "engine"}
     lanes = collections.Counter((sp.pool, sp.stage) for sp in tracer.spans)
     steps = sum(lanes[(p, "decode_step")] for p in lm_pools)
     admits = sum(lanes[(p, "admit")] for p in lm_pools)
+    chunks = sum(lanes[(f"{p}.prefill", "prefill_chunk")] for p in split)
     replays = [sp for sp in tracer.spans if sp.stage == "replay"]
     replay_calls = sum(max(sp.attrs["tokens"] - 1, 0) for sp in replays)
-    reprefills = sum(1 for sp in replays
-                     if prompt_of[sp.rid] <= QWEN_SERVE["prompt_len"])
+    # a split pool restores through the seam (chunked): no bucket prefill
+    reprefills = sum(1 for sp in replays if sp.pool not in split
+                     and prompt_of[sp.rid] <= QWEN_SERVE["prompt_len"])
     if n["paged_attention"] != cfg.num_layers * (steps + replay_calls) \
             or not steps:
         raise AssertionError(f"{phase}: {n['paged_attention']} "
@@ -1595,24 +1825,39 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
                              f"decode_step spans and {replay_calls} "
                              f"replayed decode calls")
     if n["flash_attention"] != cfg.num_layers * (admits + reprefills) \
-            or not admits:
+            or not (admits or split):
         raise AssertionError(f"{phase}: {n['flash_attention']} "
                              f"flash_attention launches for {admits} admit "
                              f"spans and {reprefills} bucket re-prefills")
-    if not n["int8_matmul"]:
+    if int8_per_chunk is not None:
+        if n["int8_matmul"] != int8_per_chunk * chunks or not chunks:
+            raise AssertionError(f"{phase}: {n['int8_matmul']} int8_matmul "
+                                 f"launches for {chunks} prefill_chunk spans"
+                                 f" of {int8_per_chunk}")
+    elif not n["int8_matmul"]:
         raise AssertionError(f"{phase}: no int8_matmul launch")
     counters = client.router.telemetry.pools
     for f in spec.get("faults", ()):
         pool = snap["pools"][f["pool"]]
-        key = ("bitflips_detected" if f["kind"] == "kv_bitflip"
-               else "watchdog_trips")
+        key = FAULT_COUNTER[f["kind"]]
         if not pool[key] or pool[key] != getattr(counters[f["pool"]], key):
             raise AssertionError(f"{phase}: pool {f['pool']} reports "
                                  f"{key}={pool[key]}")
-    for name in lm_pools + ["vision"]:
+    for name in split:
+        pre, dec = snap["pools"][f"{name}.prefill"], snap["pools"][name]
+        if not pre["prefill_tokens"] or pre["decode_tokens"] \
+                or dec["prefill_tokens"] or not dec["decode_tokens"]:
+            raise AssertionError(f"{phase}: stage pools of {name} charged "
+                                 f"prefill {pre['prefill_tokens']}/"
+                                 f"{dec['prefill_tokens']}, decode "
+                                 f"{pre['decode_tokens']}/"
+                                 f"{dec['decode_tokens']} tokens")
+    stages = [f"{p}.prefill" for p in sorted(split)]
+    for name in lm_pools + stages + ["vision"]:
         pc = counters[name]
-        if not pc.batches:
-            raise AssertionError(f"{phase}: pool {name} served no batch")
+        # a stage pool is charged per request, not per batch
+        if not (pc.completed if name in stages else pc.batches):
+            raise AssertionError(f"{phase}: pool {name} served nothing")
         emit(f"{phase}_pool", pool=name, card=card,
              decode_tok_s=(pc.decode_tokens / pc.decode_s
                            if pc.decode_s else None),
@@ -1625,7 +1870,12 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
              busy_s=pc.busy_s, decode_s=pc.decode_s,
              bitflips_detected=pc.bitflips_detected,
              blocks_quarantined=pc.blocks_quarantined,
-             watchdog_trips=pc.watchdog_trips)
+             watchdog_trips=pc.watchdog_trips,
+             handoffs_replayed=pc.handoffs_replayed,
+             imports_by_shard=dict(pc.imports_by_shard),
+             prefill_chunks=lanes[(name, "prefill_chunk")],
+             handoffs=lanes[(name, "handoff")],
+             imports=lanes[(name, "import")])
     emit(phase, config=cfg.name, card=card,
          requests=len(handles) + len(cost), sampled=sum(samples),
          admitted=snap["admitted"], completed=snap["completed"],
@@ -1734,7 +1984,202 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
     for name, n in fleet_sampled_hardened_phase(dev, card, cfg, params, pa,
                                                 im, fa).items():
         launches[name][f"{cfg.name}/fleet_sampled_hardened"] = n
+    by_run, per_chunk = coproc_full_width_phase(
+        dev, card, cfg, params, mpai, trace, greedy["bf16"], (pa, im, fa))
+    for run, by_kernel in by_run.items():
+        for name, n in by_kernel.items():
+            launches[name][f"{cfg.name}/{run}"] = n
+    for name, n in fleet_coproc_phase(dev, card, cfg, params, (pa, im, fa),
+                                      per_chunk).items():
+        launches[name][f"{cfg.name}/fleet_coproc"] = n
     return launches
+
+
+COPROC_SLOTS = 4            # decode slots per shard of the split
+COPROC_GEOM = {k: v for k, v in QWEN_SERVE.items() if k != "max_slots"}
+
+
+def coproc_full_width_phase(dev, card: str, cfg, params, mpai, trace,
+                            unified: dict, kernels) -> tuple:
+    """Qwen3-14B at full width through the co-processing split: an "mpai"
+    prefill engine (one slot) feeding two bf16 decode shards of
+    ``COPROC_SLOTS`` slots over the trace of ``full_width_phase``, every
+    handoff through the wire.  Checks: ``max_new`` in-vocab tokens a
+    request, a handoff a request with imports on both shards, every
+    kernel's launches as ``CoProcLog`` says; one shard of
+    ``COPROC_SLOTS`` slots gives the same tokens bit for bit (bf16 decode
+    rows depend on their own row alone at a fixed shape), and so do a run
+    with a corrupted wire frame and a lost handoff (two replays) and a
+    hardened run whose bit flip is detected and restored through the seam;
+    one shard of 8 slots (another decode shape) and a split with a bf16
+    prefill stage against the unified bf16 engine part only at near-ties
+    of the picks' top two logits.  Prints each handoff of the main run
+    (wire bytes, ``to_bytes``/``from_bytes`` ms, the ``handoff`` and
+    ``import`` stages' host ms) and each run's prefill ``admit_s``, decode
+    tok/s per shard and peak memory.  Returns each run's launches by
+    kernel and the int8 GEMMs of one prefill chunk."""
+    from repro_torch.runtime.serve import (ContinuousBatchingEngine,
+                                           CoProcServer, Request)
+
+    pa, im, fa = kernels
+
+    def server(prefill_plan, shards, slots, harden=False):
+        hk = dict(harden=True) if harden else {}
+        pre = ContinuousBatchingEngine(params, cfg, plan=prefill_plan,
+                                       max_slots=1, device=dev, **COPROC_GEOM,
+                                       **hk)
+        return CoProcServer(pre, [ContinuousBatchingEngine(
+            params, cfg, plan=None, max_slots=slots, device=dev,
+            **COPROC_GEOM, **hk) for _ in range(shards)])
+
+    # first-use costs, and the int8 GEMMs of one "mpai" prefill chunk
+    co = server(mpai, 2, COPROC_SLOTS)
+    log = CoProcLog(co)
+    zero_counts()
+    serve(co, [(-1, np.array([1, 2, 3], np.int32), 2),
+               (-2, np.arange(1, 41, dtype=np.int32), 2)], Request)
+    chunks, im_n = log.count("prefill_chunk"), im.int8_matmul.launches
+    if not chunks or im_n % chunks:
+        raise AssertionError(f"coproc warm-up: {im_n} int8 launches for "
+                             f"{chunks} prefill chunks")
+    per_chunk = im_n // chunks
+    del co, log
+    launches, outs = {}, {}
+
+    def run(key, prefill_plan, shards, slots, inject=(), faults=(),
+            harden=False, top2=False):
+        co = server(prefill_plan, shards, slots, harden)
+        log = CoProcLog(co)
+        store = capture_top2(co) if top2 else None
+        for method in inject:
+            getattr(co, method)()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()                 # the main path's counts start here
+        t0 = time.perf_counter()
+        with HandoffTimes() as times:
+            out = outs[key] = serve(co, trace, Request, faults=faults)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launches[key] = launches_now(pa, im, fa)
+        log.check(f"coproc {key}", cfg.num_layers, n,
+                  per_chunk if prefill_plan is not None else 0)
+        for rid, _, max_new in trace:
+            toks = out[rid]
+            if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in toks):
+                raise AssertionError(f"coproc {key}: request {rid} returned "
+                                     f"{toks} for max_new={max_new}")
+        st = co.stats()
+        if st["handoffs"] != len(trace) or (
+                shards > 1 and not all(st["imports_by_shard"].values())):
+            raise AssertionError(f"coproc {key}: {st['handoffs']} handoffs, "
+                                 f"imports {st['imports_by_shard']}")
+        for i, eng in enumerate(co.decodes):
+            alloc = eng.alloc
+            if alloc.available + len(alloc.quarantined) != alloc.num_blocks:
+                raise AssertionError(f"coproc {key}: shard {i} holds "
+                                     f"{alloc.num_blocks - alloc.available}"
+                                     f" blocks after the run")
+        per_shard = [e.stats() for e in co.decodes]
+        wire = times.rows
+        if key == "coproc":
+            handoff_ms, import_ms = log.ms("handoff"), log.ms("import")
+            for row in wire:
+                emit("coproc_handoff", run=key, card=card, rid=row["rid"],
+                     wire_bytes=row["bytes"], wire_mb=row["bytes"] / 1e6,
+                     to_bytes_ms=row["to_bytes_ms"],
+                     from_bytes_ms=row.get("from_bytes_ms"),
+                     handoff_stage_ms=handoff_ms.get(row["rid"]),
+                     import_stage_ms=import_ms.get(row["rid"]))
+        emit("coproc_full_width", run=key, card=card, requests=len(trace),
+             shards=shards, slots=slots,
+             prefill_plan="mpai" if prefill_plan is not None else "bf16",
+             tokens=st["total_tokens"], decode_steps=st["decode_steps"],
+             handoffs=st["handoffs"], handoffs_lost=st["handoffs_lost"],
+             handoffs_replayed=st["handoffs_replayed"],
+             imports_by_shard=st["imports_by_shard"],
+             seam_deferrals_by_shard=st["seam_deferrals_by_shard"],
+             deferrals=st["deferrals"], prefill_tokens=st["prefill_tokens"],
+             prefill_admit_s=st["admit_s"],
+             decode_tok_s_by_shard=[s["decode_tokens"] / s["decode_s"]
+                                    if s["decode_s"] else None
+                                    for s in per_shard],
+             decode_tok_s_summed=sum(s["decode_tokens"] / s["decode_s"]
+                                     for s in per_shard if s["decode_s"]),
+             decode_tok_s_overall=st["decode_tokens"] / st["decode_s"],
+             decode_s=st["decode_s"], wall_s=wall,
+             wire_mb_mean=float(np.mean([r["bytes"] for r in wire])) / 1e6,
+             to_bytes_ms_mean=float(np.mean([r["to_bytes_ms"]
+                                             for r in wire])),
+             from_bytes_ms_mean=float(np.mean([r["from_bytes_ms"]
+                                               for r in wire])),
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             **{k: st[k] for k in HARDENING},
+             **{f"{k}_launches": v for k, v in n.items()})
+        del co, log
+        return out, st, store
+
+    def parted(a: dict, b: dict) -> list:
+        return sorted(rid for rid in a if a[rid] != b[rid])
+
+    base, _, _ = run("coproc", mpai, 2, COPROC_SLOTS)
+    for key, shards, slots, inject, faults, harden, want in (
+            ("coproc-1shard", 1, COPROC_SLOTS, (), (), False, None),
+            ("coproc-faulted", 2, COPROC_SLOTS,
+             ("inject_handoff_corruption", "inject_handoff_loss"), (),
+             False, 2),
+            ("coproc-hardened", 2, COPROC_SLOTS, (), QWEN_BITFLIP, True,
+             None)):
+        out, st, _ = run(key, mpai, shards, slots, inject, faults, harden)
+        if out != base:
+            raise AssertionError(f"coproc {key}: requests "
+                                 f"{parted(out, base)} part from the "
+                                 f"two-shard run")
+        if want is not None and st["handoffs_replayed"] != want:
+            raise AssertionError(f"coproc {key}: {st['handoffs_replayed']}"
+                                 f" handoffs replayed")
+        if harden and not (st["bitflips_detected"] and st["replays"]
+                           and st["blocks_quarantined"]):
+            raise AssertionError(f"coproc {key}: {st}")
+    summary = {}
+    by_rid = {rid: (rid, p, n) for rid, p, n in trace}
+    for key, prefill_plan, shards, slots, want in (
+            ("coproc-1shard-8", mpai, 1, 8, base),
+            ("coproc-bf16", None, 2, COPROC_SLOTS, unified)):
+        out, _, store = run(key, prefill_plan, shards, slots, top2=True)
+        ties = near_tie_divergences(
+            f"coproc {key}", {"cuda": out, "cpu": want}, trace,
+            lambda rid, t: store[(rid, t)])
+        bad = parted(out, want)
+        summary[key] = {
+            "streams_equal": len(trace) - len(bad),
+            "near_tie_divergences": ties,
+            "parted_long": [r for r in bad
+                            if len(by_rid[r][1]) > QWEN_SERVE["prompt_len"]],
+            "parted_short": [r for r in bad
+                             if len(by_rid[r][1]) <= QWEN_SERVE["prompt_len"]]}
+    emit("coproc_compare", card=card, **summary)
+    return launches, per_chunk
+
+
+# the co-processing fleet: one split pool ("mpai" prefill stage, two bf16
+# decode shards) beside the cost-model pool, with a lost handoff
+FLEET_COPROC = {
+    "pools": [{"name": "qwen-coproc", "profiles": ["tpu_v5e_bf16"],
+               "backend": "engine", "plan": "bf16",
+               "prefill_backend": "engine", "prefill_plan": "mpai",
+               "decode_shards": 2, "capacity": 1, "max_window": 8,
+               "max_wait_s": 0.5, "max_slots": COPROC_SLOTS,
+               "prompt_len": QWEN_SERVE["prompt_len"],
+               "block_size": QWEN_SERVE["block_size"], "max_prompt_len": 64,
+               "max_new": 32},
+              FLEET_SPEC["pools"][-1]],
+    "workload": "transformer", "dt": 0.01, "trace": True,
+    "slos": FLEET_SPEC["slos"],
+    "faults": [{"pool": "qwen-coproc", "at_s": 0.05,
+                "kind": "handoff_loss"}],
+}
 
 
 # the sampled half of the Qwen3 trace, (temperature, top_k, seed) by rid:
@@ -1939,6 +2384,7 @@ def main() -> int:
     tiny_phase(dev)
     tiny_windowed_phase(dev)
     tiny_fleet_phase(dev)
+    tiny_coproc_phase(dev)
     launches = {row["name"]: {} for row in rows}
     for phase in (lambda: rwkv_full_width_phase(dev, card, wk, im, fa),
                   lambda: jamba_full_width_phase(dev, card),

@@ -24,9 +24,19 @@ bit for bit (``core/prng.py``).  ``harden=True`` adds the reference's
 radiation hardening: per-block KV checksums verified on every decode step,
 sealing of full blocks, a budgeted ``scrub``, injected upsets
 (``arm_bitflip``) and slot stalls (``stall_slot``), quarantine of a
-corrupted block and exactly-once replay of the requests it held.  The
-prefill handoff is a later slice of the port and raises
-``NotImplementedError``.
+corrupted block and exactly-once replay of the requests it held.
+
+Co-processing (MPAI's prefill/decode split): ``prefill_handoff`` runs a
+prompt through chunked paged prefill on a prefill-class engine, picks the
+first token and exports the filled blocks as a :class:`PrefillHandoff`;
+``import_prefill`` pastes them into a decode-class engine's pool and
+resumes decode at token index 1.  ``PrefillHandoff.to_bytes`` /
+``from_bytes`` are the reference's wire format v1 byte for byte (the
+shared contract is the reference's ``repro/serving/WIRE_FORMAT.md``), so
+a frame crosses between the two packages.  :class:`CoProcServer` serves
+one prefill engine into N decode shards, every handoff through the wire,
+with per-shard backpressure, shard retirement and exactly-once recovery
+of lost or corrupted handoffs and of shard evictions (``restore_import``).
 
 ``WindowedBaselineServer`` — the windowed loop (greedy-only): a bounded
 window of requests prefills together (left-padded to ``prompt_len``), then
@@ -48,10 +58,11 @@ completes.
 """
 from __future__ import annotations
 
+import struct
 import time
 import warnings
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -104,6 +115,26 @@ def _require_prompt(req: Request, who: str) -> None:
         raise ValueError(
             f"request {req.rid}: empty prompt — the {who} needs at "
             f"least one prompt token to prefill")
+
+
+def _gather_block_rows(caches, rows: torch.Tensor) -> Dict[str, tuple]:
+    """Export the KV of block ``rows`` from every sublayer pool
+    ``[n_super, NB+1, P, KVp, hd]``: ``{key: (k, v)}``, copies on the
+    pools' device (the DPU->VPU transfer's source side)."""
+    return {key: (st.k_pool.index_select(1, rows),
+                  st.v_pool.index_select(1, rows))
+            for key, st in caches.items()}
+
+
+def _paste_block_rows(caches, kv: Dict[str, tuple],
+                      rows: torch.Tensor) -> None:
+    """Import handed-off KV into block ``rows`` of every sublayer pool
+    (mirrored geometry), moved to the pools' device and cast to their
+    dtype: the receiving side of the handoff."""
+    for key, st in caches.items():
+        k, v = kv[key]
+        for pool, x in ((st.k_pool, k), (st.v_pool, v)):
+            pool.index_copy_(1, rows, x.to(pool.device, pool.dtype))
 
 
 class ContinuousBatchingEngine:
@@ -192,7 +223,12 @@ class ContinuousBatchingEngine:
         self._stall_age = np.zeros(max_slots, np.int64)
         self._restore_queue: List[tuple] = []   # (req, gen) to replay
         self._armed_flips: List[int] = []       # kv_bitflip seeds pending
+        self.mute_rids: set = set()     # one-shot emission suppression
         self._idle_steps = 0            # livelock guard
+        # a co-processing decode shard must not restore itself: its KV came
+        # from a prefill engine under another plan, so the seam's owner
+        # re-runs the handoff instead (restore_import)
+        self.external_restore = False
         self.on_token: Optional[Callable[[int, int], None]] = None
         self.on_stage = None
         # per-slot sampling knobs; their device copies are refreshed where
@@ -288,7 +324,7 @@ class ContinuousBatchingEngine:
             self._apply_armed_flips()
         if self.stalled:
             self._watchdog()
-        if self._restore_queue:
+        if self._restore_queue and not self.external_restore:
             self._restore_pending()
         completed = self._admit()
         completed += self._decode_once()
@@ -334,12 +370,6 @@ class ContinuousBatchingEngine:
                 "replays": self.replays,
                 "scrubbed_blocks": self.scrubbed_blocks}
 
-    def prefill_handoff(self, req: Request):
-        raise NotImplementedError("the prefill handoff is not ported yet")
-
-    def import_prefill(self, req: Request, handoff):
-        raise NotImplementedError("the prefill handoff is not ported yet")
-
     # ------------------------------------------------------------------
     # internals
     # ------------------------------------------------------------------
@@ -368,6 +398,14 @@ class ContinuousBatchingEngine:
         if steps is None:
             steps = torch.zeros_like(seeds)
         return sample_logits(logits, temps, topks, seeds, steps)
+
+    def _pick_first(self, logits: torch.Tensor, sp: SamplingParams) -> int:
+        """A chunked admission's first token (token index 0) from its final
+        chunk's last logits [1, V], with the request's own knobs."""
+        knobs = (self._tensor(np.float32([sp.temperature])),
+                 self._tensor(np.int32([sp.top_k])),
+                 self._tensor(np.int32([sp.seed])))
+        return int(self._pick(logits, not sp.greedy, knobs)[0])
 
     def _prefill_paste(self, toks: np.ndarray,
                        admit: np.ndarray) -> torch.Tensor:
@@ -444,7 +482,7 @@ class ContinuousBatchingEngine:
                 bad_slots |= self._on_corrupt_block(b)
         for i in sorted(bad_slots):
             self._evict_slot(i)
-        if bad_slots:
+        if bad_slots and not self.external_restore:
             self._restore_pending()
         return len(blocks)
 
@@ -638,6 +676,52 @@ class ContinuousBatchingEngine:
         t1 = time.perf_counter()
         self._stage("replay", t0, t1, [req.rid], tokens=g, slot=i)
 
+    def restore_import(self, req: Request, gen: List[int],
+                       handoff: "PrefillHandoff") -> None:
+        """Co-processing recovery: rebuild an evicted decode slot from a
+        fresh handoff (the imported KV carries the prefill engine's bits;
+        this engine's own prefill, under its own plan, might not), then
+        replay the recorded tokens.  Raises ``OutOfBlocksError`` to defer
+        under pressure; the caller keeps the handoff so prefill is not
+        repeated."""
+        free = [j for j in range(self.max_slots)
+                if self.slots[j] is None and j not in self._tripped]
+        if not free:
+            raise OutOfBlocksError("decode engine has no healthy free slot")
+        i = free[0]
+        bs, length = self.block_size, handoff.length
+        need = self._held_blocks()
+        need[i] = -(-(length + req.max_new) // bs)
+        self.table = paging.plan_blocks(self.table, self.alloc, need)
+        rows = self.table[i][:length // bs]
+        _paste_block_rows(self.caches, handoff.kv,
+                          self._tensor(rows.astype(np.int64)))
+        self._verify_import(i, req, handoff, rows)
+        self.lengths[i] = length
+        sp = req.sampling or GREEDY
+        self._set_knobs(i, sp)
+        self._push_knobs()
+        self._replay_generation(i, req, gen, length, sp)
+
+    def _verify_import(self, i: int, req: Request,
+                       handoff: "PrefillHandoff", rows) -> None:
+        """Verify an import (hardened engines, digested handoffs): the
+        pasted rows' checksums against the digests stamped at gather
+        time.  A mismatch frees the planned row and raises
+        :class:`HandoffCorruptError` (the seam re-requests the handoff);
+        a clean import seals the rows with the sums just computed."""
+        if not self.harden or handoff.digests is None:
+            return
+        sums = self._row_checksums([int(b) for b in rows])
+        if any(int(a) != int(e) for a, e in zip(sums, handoff.digests)):
+            self.alloc.release(self.table[i][self.table[i] >= 0])
+            self.table[i] = -1
+            self._dirty = True
+            raise HandoffCorruptError(
+                f"handoff for request {req.rid} failed integrity verify")
+        for b, s in zip(rows, sums):
+            self.digests.seal(int(b), int(s))
+
     # ------------------------------------------------------------------
     # admission and decode
     # ------------------------------------------------------------------
@@ -799,10 +883,7 @@ class ContinuousBatchingEngine:
         self._push_knobs()
         logits = self._run_chunks(i, padded, shared_blocks * self.block_size
                                   // self.prefill_chunk, rid=req.rid)
-        knobs = (self._tensor(np.float32([sp.temperature])),
-                 self._tensor(np.int32([sp.top_k])),
-                 self._tensor(np.int32([sp.seed])))
-        tok = int(self._pick(logits, not sp.greedy, knobs)[0])
+        tok = self._pick_first(logits, sp)
         # publish the freshly prefilled prompt blocks for future sharers
         # (all are full, read-only blocks: decode appends start a new
         # block because the padded length is block-aligned)
@@ -908,6 +989,725 @@ class ContinuousBatchingEngine:
         self.lengths[i] = 0
         self._dirty = True        # device sees the freed row at next push
         return req
+
+    # ------------------------------------------------------------------
+    # co-processing handoff (prefill-class <-> decode-class engines)
+    # ------------------------------------------------------------------
+    def prefill_handoff(self, req: Request) -> "PrefillHandoff":
+        """Prefill ``req``'s prompt on this engine and export its KV blocks
+        for a decode engine: MPAI's DPU->VPU handoff.  The prompt is
+        left-padded to ``ceil(max(s, prompt_len) / prefill_chunk)`` chunks
+        and always runs through chunked paged prefill; the final chunk's
+        last logits pick the first token (token index 0, this engine's
+        plan: the prefill stage owns it), which is emitted here unless the
+        rid is muted (a replayed handoff).  The blocks are gathered and
+        freed before returning.  Raises ``OutOfBlocksError`` when the
+        prompt cannot be covered now (nothing is held: retry later)."""
+        _require_prompt(req, "engine")
+        bs, c = self.block_size, self.prefill_chunk
+        length = -(-max(int(req.prompt.shape[0]), self.prompt_len) // c) * c
+        free = [j for j, sl in enumerate(self.slots)
+                if sl is None and j not in self._tripped]
+        if not free:
+            raise OutOfBlocksError("prefill engine has no free slot")
+        i = free[0]
+        padded = np.zeros(length, np.int32)
+        padded[length - req.prompt.shape[0]:] = req.prompt
+        need = self._held_blocks()
+        need[i] = length // bs            # prompt only: no decode budget
+        self.table = paging.plan_blocks(self.table, self.alloc, need)
+        self._push_tables()
+        self._dirty = False
+        sp = req.sampling or GREEDY
+        tok = self._pick_first(self._run_chunks(i, padded, 0, rid=req.rid),
+                               sp)
+        if req.rid in self.mute_rids:
+            # a replayed handoff (the original was lost or corrupted after
+            # its first token streamed): recomputed, emitted nothing
+            self.mute_rids.discard(req.rid)
+        elif req.max_new >= 1:
+            self.total_tokens += 1
+            self._emit(req.rid, tok)
+        rows = self.table[i][:length // bs].copy()
+        g0 = time.perf_counter()
+        kv = _gather_block_rows(self.caches,
+                                self._tensor(rows.astype(np.int64)))
+        digests = None
+        if self.harden:
+            # the payload's per-block checksums, stamped before the blocks
+            # free: the importer verifies its paste against them
+            digests = tuple(int(s) for s in
+                            self._row_checksums([int(b) for b in rows]))
+        self._stage("handoff", g0, time.perf_counter(), [req.rid],
+                    blocks=len(rows), tokens=length)
+        self.alloc.release(self.shared.release(rows))
+        self.table[i] = -1
+        self.lengths[i] = 0
+        self._dirty = True
+        return PrefillHandoff(req.rid, tok, length, self.block_size, kv,
+                              digests)
+
+    def import_prefill(self, req: Request,
+                       handoff: "PrefillHandoff") -> Optional[Request]:
+        """Admit a request a co-processing peer already prefilled: reserve
+        its whole block budget, paste the handed-off blocks into this
+        engine's pool and resume decode after the peer's first token
+        (emitted there, not again here).  Returns the completed Request
+        for ``max_new<=1``, else None; raises ``OutOfBlocksError`` when
+        blocks or slots are short (callers defer), and
+        :class:`HandoffCorruptError` when a hardened import fails its
+        verify."""
+        assert handoff.block_size == self.block_size, \
+            (f"mirrored pools must share block geometry: handoff wrote "
+             f"{handoff.block_size}-token blocks, this pool holds "
+             f"{self.block_size}-token blocks")
+        free = [j for j, sl in enumerate(self.slots)
+                if sl is None and j not in self._tripped]
+        if not free:
+            raise OutOfBlocksError("decode engine has no free slot")
+        i = free[0]
+        bs, length = self.block_size, handoff.length
+        assert length + req.max_new <= self.table_width * bs, \
+            (req.rid, length, req.max_new, self.max_len)
+        need = self._held_blocks()
+        need[i] = -(-(length + req.max_new) // bs)
+        self.table = paging.plan_blocks(self.table, self.alloc, need)
+        rows = self.table[i][:length // bs]
+        p0 = time.perf_counter()
+        _paste_block_rows(self.caches, handoff.kv,
+                          self._tensor(rows.astype(np.int64)))
+        self._stage("import", p0, time.perf_counter(), [req.rid],
+                    blocks=len(rows), tokens=length)
+        self._verify_import(i, req, handoff, rows)
+        self.lengths[i] = length
+        self._gen_counts[i] = 1
+        self._dirty = True                # table + lengths push next step
+        sp = req.sampling or GREEDY
+        self._set_knobs(i, sp)
+        self._push_knobs()
+        tok = handoff.first_token
+        if req.max_new <= 1:
+            return self._finalize(i, req, [tok][:req.max_new])
+        self.slots[i] = _Slot(req, [tok], req.max_new - 1,
+                              sampled=not sp.greedy)
+        self.last[i, 0] = tok
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Prefill/decode disaggregation (MPAI co-processing)
+# ---------------------------------------------------------------------------
+class HandoffCorruptError(RuntimeError):
+    """A PrefillHandoff failed its integrity check (the frame checksum, or
+    a per-block digest after the paste): the seam re-requests the handoff
+    (prefill is deterministic, so the replacement carries the same bits
+    and the first token already streamed stays valid)."""
+
+
+class HandoffWireError(ValueError):
+    """A PrefillHandoff frame is structurally unusable: wrong magic, an
+    unknown version or dtype, a truncated or underrun frame.  Unlike
+    :class:`HandoffCorruptError`, retrying the same bytes cannot help: the
+    two ends do not speak the same format."""
+
+
+#: PrefillHandoff wire schema version.  The layout, its versioning rules
+#: and its failure taxonomy are the reference's
+#: ``repro/serving/WIRE_FORMAT.md`` (version 1), which both packages speak
+#: byte for byte: a frame written by either parses in the other.
+WIRE_VERSION = 1
+_WIRE_MAGIC = b"MPAI"
+_WIRE_HEADER = "<HQI"                  # version, payload length, checksum
+
+# wire dtype names (numpy's, and ml_dtypes' for bfloat16 and the fp8
+# formats) and the torch dtypes they carry
+_WIRE_DTYPES = {
+    "float32": torch.float32, "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
+    "float8_e4m3fnuz": torch.float8_e4m3fnuz,
+    "float8_e5m2fnuz": torch.float8_e5m2fnuz,
+    "int64": torch.int64, "int32": torch.int32, "int16": torch.int16,
+    "int8": torch.int8, "uint8": torch.uint8,
+}
+_WIRE_NAMES = {dt: name for name, dt in _WIRE_DTYPES.items()}
+
+
+def _wire_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a serialized dtype name."""
+    try:
+        return _WIRE_DTYPES[name]
+    except KeyError:
+        raise HandoffWireError(
+            f"handoff wire carries unknown dtype {name!r}") from None
+
+
+def _pack_array(a: torch.Tensor) -> bytes:
+    """One array on the wire: dtype name, shape and the raw C-order bytes
+    of a host copy."""
+    a = a.detach().cpu().contiguous()
+    name = _WIRE_NAMES[a.dtype].encode()
+    raw = a.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return b"".join([
+        struct.pack("<i", len(name)), name,
+        struct.pack("<i", a.dim()),
+        struct.pack(f"<{a.dim()}q", *a.shape),
+        struct.pack("<q", len(raw)), raw])
+
+
+@dataclass
+class PrefillHandoff:
+    """One prefilled prompt crossing the co-processing seam.
+
+    Made by :meth:`ContinuousBatchingEngine.prefill_handoff` on the
+    prefill-class engine, taken by
+    :meth:`ContinuousBatchingEngine.import_prefill` on a decode-class one.
+    Carries the first token (the prefill stage picks it), the padded prompt
+    length and each sublayer's block KV, ``kv[key] = (k, v)`` of shape
+    ``[n_super, n_blocks, P, KVp, hd]`` in the block geometry both pools
+    share: tensors on the exporter's device, or on the CPU once parsed from
+    the wire (the importer moves them to its own).
+
+    ``to_bytes`` / ``from_bytes`` are the wire format: versioned, checked
+    by a whole-frame checksum, bit-exact for every pool dtype.  Every
+    :class:`CoProcServer` handoff crosses the seam in wire form.
+    """
+    rid: int
+    first_token: int
+    length: int                        # padded prompt length (tokens)
+    block_size: int
+    kv: Dict[str, tuple]
+    # per-block checksums stamped at gather time (hardened prefill engines
+    # only): the importer verifies its paste against them
+    digests: Optional[tuple] = None
+
+    def to_bytes(self) -> bytes:
+        """Serialize to the version-1 frame::
+
+            MAGIC(4) | version(u16) | payload_len(u64) | checksum(u32)
+            payload: rid(i64) first_token(i32) length(i32)
+                     block_size(i32) digests(i32 count, -1=None, u32*)
+                     kv(i32 count; per sorted key: name, K arr, V arr)
+
+        Arrays carry dtype name, shape and raw bytes (copied to the host);
+        the checksum is :func:`repro_torch.runtime.paging.wire_checksum`
+        of the payload."""
+        parts = [struct.pack("<qiii", self.rid, self.first_token,
+                             self.length, self.block_size)]
+        if self.digests is None:
+            parts.append(struct.pack("<i", -1))
+        else:
+            digs = [int(d) & 0xFFFFFFFF for d in self.digests]
+            parts.append(struct.pack(f"<i{len(digs)}I", len(digs), *digs))
+        parts.append(struct.pack("<i", len(self.kv)))
+        for key in sorted(self.kv):
+            k, v = self.kv[key]
+            kb = key.encode()
+            parts.append(struct.pack("<i", len(kb)) + kb)
+            parts.append(_pack_array(k))
+            parts.append(_pack_array(v))
+        payload = b"".join(parts)
+        head = _WIRE_MAGIC + struct.pack(
+            _WIRE_HEADER, WIRE_VERSION, len(payload),
+            paging.wire_checksum(payload))
+        return head + payload
+
+    @classmethod
+    def from_bytes(cls, buf: bytes) -> "PrefillHandoff":
+        """Parse a wire frame into a handoff holding CPU tensors.  Raises
+        :class:`HandoffWireError` on a structural fault (bad magic, another
+        version, truncation, an underrun, an unknown dtype) and
+        :class:`HandoffCorruptError` when an intact frame fails its
+        checksum."""
+        buf = bytearray(buf)     # mutable: torch.frombuffer takes it as is
+        hdr = 4 + struct.calcsize(_WIRE_HEADER)
+        if len(buf) < hdr:
+            raise HandoffWireError(
+                f"handoff frame truncated: {len(buf)} bytes < {hdr}-byte "
+                f"header")
+        if bytes(buf[:4]) != _WIRE_MAGIC:
+            raise HandoffWireError(
+                f"not a PrefillHandoff frame (magic {bytes(buf[:4])!r})")
+        version, plen, want = struct.unpack_from(_WIRE_HEADER, buf, 4)
+        if version != WIRE_VERSION:
+            raise HandoffWireError(
+                f"handoff wire version {version} != {WIRE_VERSION}; both "
+                f"seam ends must run the same schema")
+        if len(buf) - hdr != plen:
+            raise HandoffWireError(
+                f"handoff frame truncated: payload {len(buf) - hdr} bytes, "
+                f"header declares {plen}")
+        if paging.wire_checksum(bytes(buf[hdr:])) != want:
+            raise HandoffCorruptError(
+                "handoff frame failed its wire checksum (payload upset "
+                "in transit)")
+        off = hdr
+
+        def underrun():
+            return HandoffWireError(
+                "handoff payload underruns its declared structure")
+
+        def take(fmt):
+            nonlocal off
+            size = struct.calcsize(fmt)
+            if off + size > len(buf):
+                raise underrun()
+            vals = struct.unpack_from(fmt, buf, off)
+            off += size
+            return vals
+
+        def take_name() -> str:
+            nonlocal off
+            (n,) = take("<i")
+            if n < 0 or off + n > len(buf):
+                raise underrun()
+            off += n
+            return bytes(buf[off - n:off]).decode()
+
+        def take_array() -> torch.Tensor:
+            nonlocal off
+            dtype = _wire_dtype(take_name())
+            (ndim,) = take("<i")
+            shape = take(f"<{ndim}q")
+            (rlen,) = take("<q")
+            nbytes = (int(np.prod(shape, dtype=np.int64))
+                      * torch.empty((), dtype=dtype).element_size())
+            if rlen != nbytes or off + rlen > len(buf):
+                raise underrun()
+            if nbytes == 0:
+                a = torch.empty(shape, dtype=dtype)
+            else:        # a copy: aligned, and independent of the frame
+                a = torch.frombuffer(buf, dtype=torch.uint8, count=nbytes,
+                                     offset=off).clone().view(dtype)
+            off += rlen
+            return a.reshape(shape)
+
+        rid, first_token, length, block_size = take("<qiii")
+        (ndig,) = take("<i")
+        digests = None if ndig < 0 else tuple(take(f"<{ndig}I"))
+        (nkv,) = take("<i")
+        kv = {}
+        for _ in range(nkv):
+            key = take_name()
+            kv[key] = (take_array(), take_array())
+        return cls(rid, first_token, length, block_size, kv, digests)
+
+
+class CoProcServer:
+    """Disaggregated serving: one prefill-class engine feeding N decode
+    shards over mirrored paged pools.
+
+    MPAI's co-processing split as a server: stage 1 (the DPU analogue,
+    typically under a cheaper int8 plan) runs chunked paged prefill and
+    picks the first token; stage 2 (the VPU analogue) imports the filled
+    blocks into its own pool and decodes.  Stage 2 may be sharded: N
+    identical decode engines, each with its own allocator and slots.  Every
+    handoff crosses the seam in :meth:`PrefillHandoff.to_bytes` form.  The
+    importer is the least-loaded live shard; a shard that cannot take a
+    handoff defers to the next, and only when every live shard defers does
+    the request park at the seam (its prefill is not repeated).  A lost or
+    corrupted handoff is re-requested exactly once: prefill replays muted
+    (deterministic, so bit-identical), and delivered tokens stay delivered
+    once.  Shard evictions (a detected upset, a watchdog trip) come back
+    through a fresh handoff (:meth:`_drain_restores`).
+
+    It has the engines' ``submit`` / ``step`` / ``flush`` / ``done`` /
+    ``stats`` API, so :class:`~repro_torch.serving.executor.EngineExecutor`
+    drives it unchanged; the per-stage counters (``prefill_tokens`` and
+    ``admit_s`` from the prefill engine, decode counters summed over the
+    shards) let the executor charge each stage to its own pool.
+    """
+
+    def __init__(self, prefill_engine: ContinuousBatchingEngine,
+                 decode_engines: Union[ContinuousBatchingEngine,
+                                       Sequence[ContinuousBatchingEngine]]):
+        if isinstance(decode_engines, ContinuousBatchingEngine):
+            decode_engines = [decode_engines]
+        self.decodes: List[ContinuousBatchingEngine] = list(decode_engines)
+        assert self.decodes, "need at least one decode shard"
+        for eng in self.decodes:
+            assert prefill_engine.block_size == eng.block_size, \
+                "mirrored pools must share block geometry"
+        self.prefill = prefill_engine
+        self.max_len = min(e.max_len for e in self.decodes)
+        self.prompt_len = self.decodes[0].prompt_len
+        self.queue: List[Request] = []
+        self._parked: Optional[tuple] = None   # (req, handoff) at the seam
+        self.handoff_count = 0
+        self._seam_deferrals = 0
+        self._on_token: Optional[Callable[[int, int], None]] = None
+        self._on_stage = None
+        # the seam owns every shard's restore queue: an eviction's KV must
+        # come back with the prefill engine's bits
+        for eng in self.decodes:
+            eng.external_restore = True
+        self._restore_parked: Optional[tuple] = None  # (shard, req, gen, ho)
+        self._lose_handoffs = 0        # armed handoff_loss faults
+        self._corrupt_wire = 0         # armed in-transit frame upsets
+        self.handoffs_lost = 0
+        self.handoffs_replayed = 0
+        self._draining: set = set()    # shard indices leaving the rotation
+        self.imports_by_shard: Dict[str, int] = {
+            f"shard{i}": 0 for i in range(len(self.decodes))}
+        self.seam_deferrals_by_shard: Dict[str, int] = {
+            f"shard{i}": 0 for i in range(len(self.decodes))}
+
+    @property
+    def decode(self) -> ContinuousBatchingEngine:
+        """The first decode shard (the whole stage when unsharded)."""
+        return self.decodes[0]
+
+    @property
+    def decode_shards(self) -> int:
+        return len(self.decodes)
+
+    # --- token relay: every stage emits through one hook --------------
+    @property
+    def on_token(self):
+        return self._on_token
+
+    @on_token.setter
+    def on_token(self, fn) -> None:
+        self._on_token = fn
+        self.prefill.on_token = fn         # the first token, at the handoff
+        for eng in self.decodes:
+            eng.on_token = fn              # everything after
+
+    # --- stage relay: prefill emits admit/prefill_chunk/handoff, the
+    # shards import/decode_step/replay, each tagged with its shard index --
+    @property
+    def on_stage(self):
+        return self._on_stage
+
+    @on_stage.setter
+    def on_stage(self, fn) -> None:
+        self._on_stage = fn
+        self.prefill.on_stage = fn
+        for i, eng in enumerate(self.decodes):
+            if fn is None:
+                eng.on_stage = None
+            else:
+                def relay(stage, t0, t1, rids, attrs, _i=i, _fn=fn):
+                    _fn(stage, t0, t1, rids, {**attrs, "shard": _i})
+                eng.on_stage = relay
+
+    # --- the engines' API ---------------------------------------------
+    @property
+    def done(self) -> Dict[int, Request]:
+        if len(self.decodes) == 1:
+            return self.decodes[0].done
+        merged: Dict[int, Request] = {}
+        for eng in self.decodes:
+            merged.update(eng.done)
+        return merged
+
+    @property
+    def pending(self) -> int:
+        return (len(self.queue) + (self._parked is not None)
+                + (self._restore_parked is not None)
+                + sum(e.pending for e in self.decodes))
+
+    # --- radiation hardening: fault API and counters ------------------
+    @property
+    def harden(self) -> bool:
+        return all(e.harden for e in self.decodes)
+
+    def inject_handoff_loss(self) -> None:
+        """Arm one seam upset: the next handoff vanishes between gather
+        and import and is re-requested."""
+        self._lose_handoffs += 1
+
+    def inject_handoff_corruption(self) -> None:
+        """Arm one in-transit upset: a byte of the next wire frame flips;
+        its checksum catches it and the seam re-requests the handoff."""
+        self._corrupt_wire += 1
+
+    def arm_bitflip(self, seed: int = 0) -> None:
+        # live KV lives in the decode pools (prefill rows free at gather)
+        self.decodes[0].arm_bitflip(seed)
+
+    def stall_slot(self, slot: int) -> None:
+        self.decodes[0].stall_slot(slot)
+
+    def unstall_slot(self, slot: int) -> None:
+        self.decodes[0].unstall_slot(slot)
+
+    def scrub(self, budget: Optional[int] = None) -> int:
+        n = self.prefill.scrub(budget)
+        for eng in self.decodes:
+            n += eng.scrub(budget)
+        return n
+
+    def _summed(self, name: str):
+        return getattr(self.prefill, name) + sum(getattr(e, name)
+                                                 for e in self.decodes)
+
+    @property
+    def bitflips_detected(self) -> int:
+        return self._summed("bitflips_detected")
+
+    @property
+    def blocks_quarantined(self) -> int:
+        return self._summed("blocks_quarantined")
+
+    @property
+    def watchdog_trips(self) -> int:
+        return self._summed("watchdog_trips")
+
+    @property
+    def replays(self) -> int:
+        return self._summed("replays")
+
+    @property
+    def scrubbed_blocks(self) -> int:
+        return self._summed("scrubbed_blocks")
+
+    @property
+    def total_tokens(self) -> int:
+        return self._summed("total_tokens")
+
+    @property
+    def prefix_hits(self) -> int:
+        return self._summed("prefix_hits")
+
+    @property
+    def prefix_lookups(self) -> int:
+        return self._summed("prefix_lookups")
+
+    @property
+    def occupancy(self) -> float:
+        slots = sum(e.max_slots for e in self.decodes)
+        busy = sum(e.occupancy * e.max_slots for e in self.decodes)
+        return busy / slots
+
+    @property
+    def decode_steps(self) -> int:
+        return sum(e.decode_steps for e in self.decodes)
+
+    @property
+    def decode_tokens(self) -> int:
+        return sum(e.decode_tokens for e in self.decodes)
+
+    @property
+    def decode_s(self) -> float:
+        return sum(e.decode_s for e in self.decodes)
+
+    @property
+    def prefill_tokens(self) -> int:
+        return self.prefill.prefill_tokens
+
+    @property
+    def admit_s(self) -> float:
+        return self.prefill.admit_s
+
+    @property
+    def deferrals(self) -> int:
+        return self._summed("deferrals") + self._seam_deferrals
+
+    def padded_prompt_len(self, s: int) -> int:
+        # the prefill engine's chunk grid sets the padded length crossing
+        # the seam (its chunks may be wider than the decode bucket)
+        c = self.prefill.prefill_chunk
+        return -(-max(s, self.prefill.prompt_len) // c) * c
+
+    def submit(self, req: Request) -> None:
+        _require_prompt(req, "engine")
+        padded = self.padded_prompt_len(int(req.prompt.shape[0]))
+        budget = min(e.table_width * e.block_size for e in self.decodes)
+        assert padded + req.max_new <= budget, \
+            (req.rid, req.prompt.shape[0], req.max_new, self.max_len)
+        self.queue.append(req)
+
+    # --- shard lifecycle ----------------------------------------------
+    def retire_shard(self, idx: int) -> None:
+        """Drain decode shard ``idx``: it leaves the import rotation now
+        but keeps stepping until its streams finish (none is dropped)."""
+        if not 0 <= idx < len(self.decodes):
+            raise IndexError(f"no decode shard {idx}")
+        live = [i for i in range(len(self.decodes))
+                if i not in self._draining]
+        if live == [idx]:
+            raise ValueError("cannot retire the last live decode shard")
+        self._draining.add(idx)
+
+    def _import_order(self) -> List[int]:
+        """Live shards, least-loaded first, ties by index (deterministic
+        routing)."""
+        live = [i for i in range(len(self.decodes))
+                if i not in self._draining]
+        return sorted(live, key=lambda i: (self.decodes[i].pending, i))
+
+    def _transport(self, handoff: PrefillHandoff) -> PrefillHandoff:
+        """Cross the seam: serialize to the wire frame and parse it back,
+        as a process or host boundary would.  An armed in-transit upset
+        flips one payload byte, which the frame checksum turns into
+        :class:`HandoffCorruptError` before any block is pasted."""
+        wire = handoff.to_bytes()
+        if self._corrupt_wire > 0:
+            self._corrupt_wire -= 1
+            wire = wire[:-1] + bytes([wire[-1] ^ 0x40])
+        return PrefillHandoff.from_bytes(wire)
+
+    def _rerequest(self, req: Request) -> None:
+        """Queue a lost or corrupted handoff's request again, its first
+        token muted: it streamed with the original."""
+        self.handoffs_replayed += 1
+        self.prefill.mute_rids.add(req.rid)
+        self.queue.insert(0, req)
+
+    def step(self) -> List[Request]:
+        """Move work across the seam, then run one decode step on every
+        shard.  Queued requests are prefilled (stage 1) and imported into
+        the least-loaded live shard (stage 2) while blocks and slots allow;
+        the first token streams from the prefill stage, the importing
+        shard resumes at token index 1."""
+        completed: List[Request] = []
+        self._drain_restores()             # recovery before fresh work
+        while True:
+            if self._parked is None:
+                if not self.queue:
+                    break
+                try:
+                    ho = self.prefill.prefill_handoff(self.queue[0])
+                except OutOfBlocksError:
+                    self._seam_deferrals += 1
+                    break
+                req = self.queue.pop(0)
+                if self._lose_handoffs > 0:
+                    # an armed seam upset: the payload vanishes in transit
+                    self._lose_handoffs -= 1
+                    self.handoffs_lost += 1
+                    self._rerequest(req)
+                    continue
+                try:
+                    ho = self._transport(ho)
+                except HandoffCorruptError:
+                    self._rerequest(req)
+                    continue
+                self._parked = (req, ho)
+            req, ho = self._parked
+            placed = corrupt = False
+            done = None
+            for si in self._import_order():
+                try:
+                    done = self.decodes[si].import_prefill(req, ho)
+                except OutOfBlocksError:
+                    self.seam_deferrals_by_shard[f"shard{si}"] += 1
+                    continue               # next-least-loaded shard
+                except HandoffCorruptError:
+                    corrupt = True         # no shard can import it
+                    break
+                placed = True
+                break
+            if corrupt:
+                self._parked = None
+                self._rerequest(req)
+                continue
+            if not placed:
+                self._seam_deferrals += 1  # every live shard deferred
+                break
+            self._parked = None
+            self.handoff_count += 1
+            self.imports_by_shard[f"shard{si}"] += 1
+            if done is not None:
+                completed.append(done)
+        for eng in self.decodes:           # draining shards step too
+            completed += eng.step()
+        return completed
+
+    def _drain_restores(self) -> None:
+        """Replay shard evictions across the seam: re-run the handoff
+        (muted), import it into a healthy slot of the same shard and replay
+        the recorded tokens.  A restore that cannot place yet parks with
+        its handoff and retries next step without another prefill."""
+        while (self._restore_parked is not None
+               or any(e._restore_queue for e in self.decodes)):
+            if self._restore_parked is None:
+                si = next(i for i, e in enumerate(self.decodes)
+                          if e._restore_queue)
+                eng = self.decodes[si]
+                req, gen = eng._restore_queue[0]
+                self.prefill.mute_rids.add(req.rid)
+                try:
+                    ho = self.prefill.prefill_handoff(req)
+                except OutOfBlocksError:
+                    self.prefill.mute_rids.discard(req.rid)
+                    self._seam_deferrals += 1
+                    return
+                eng._restore_queue.pop(0)
+                try:
+                    ho = self._transport(ho)
+                except HandoffCorruptError:
+                    self.handoffs_replayed += 1
+                    eng._restore_queue.insert(0, (req, gen))
+                    continue
+                self._restore_parked = (si, req, gen, ho)
+            si, req, gen, ho = self._restore_parked
+            eng = self.decodes[si]
+            try:
+                eng.restore_import(req, gen, ho)
+            except HandoffCorruptError:
+                self._restore_parked = None
+                self.handoffs_replayed += 1
+                eng._restore_queue.insert(0, (req, gen))
+                continue
+            except OutOfBlocksError:
+                self._seam_deferrals += 1
+                return
+            self._restore_parked = None
+            eng.replays += 1
+
+    def flush(self) -> List[Request]:
+        """Blocking form: run until at least one request completes."""
+        if not self.pending:
+            return []
+        while True:
+            done = self.step()
+            if done:
+                return done
+
+    def stats(self) -> Dict[str, float]:
+        shard_stats = [e.stats() for e in self.decodes]
+        p = self.prefill.stats()
+        d = dict(shard_stats[0])
+        for s in shard_stats[1:]:
+            for key, val in s.items():
+                d[key] += val
+        # mean occupancy does not sum: weight each shard's by its steps
+        steps = sum(s["decode_steps"] for s in shard_stats)
+        d["mean_occupancy"] = (
+            sum(s["mean_occupancy"] * s["decode_steps"]
+                for s in shard_stats) / steps if steps
+            else shard_stats[0]["mean_occupancy"])
+        d["total_tokens"] = self.total_tokens
+        d["prefill_tokens"] = p["prefill_tokens"]
+        d["admit_s"] = p["admit_s"]            # the prefill stage's time
+        d["shared_block_hits"] += p["shared_block_hits"]
+        d["shared_block_lookups"] += p["shared_block_lookups"]
+        d["deferrals"] = self.deferrals
+        d["handoffs"] = self.handoff_count
+        for key in ("bitflips_detected", "blocks_quarantined",
+                    "watchdog_trips", "replays", "scrubbed_blocks"):
+            d[key] = getattr(self, key)    # prefill + shards
+        d["handoffs_lost"] = self.handoffs_lost
+        d["handoffs_replayed"] = self.handoffs_replayed
+        d["decode_shards"] = len(self.decodes)
+        d["imports_by_shard"] = dict(self.imports_by_shard)
+        d["seam_deferrals_by_shard"] = dict(self.seam_deferrals_by_shard)
+        return d
+
+    def reset_stats(self) -> None:
+        self.prefill.reset_stats()
+        for eng in self.decodes:
+            eng.reset_stats()
+        self._seam_deferrals = 0
+        self.handoff_count = 0
+        self.handoffs_lost = 0
+        self.handoffs_replayed = 0
+        self.imports_by_shard = {
+            f"shard{i}": 0 for i in range(len(self.decodes))}
+        self.seam_deferrals_by_shard = {
+            f"shard{i}": 0 for i in range(len(self.decodes))}
 
 
 # ---------------------------------------------------------------------------

@@ -39,10 +39,13 @@ Layers (one module per concern)::
 Requests may sample (``SamplingParams``: temperature, top-k, seed; the
 reference's threefry key stream bit for bit), and engine pools may be
 hardened (``PoolSpec(harden=True)``, or the target of a ``kv_bitflip`` /
-``slot_stall`` ``FaultSpec``).  Not ported yet, and refused with
-``NotImplementedError``: the co-processing split (``prefill_backend=
-"engine"``), stage-axis pools (``pipeline_stages``) and ``handoff_loss``
-faults.
+``slot_stall`` ``FaultSpec``).  An engine pool with ``prefill_backend=
+"engine"`` splits into MPAI's co-processing stages (a prefill engine under
+``prefill_plan`` feeding ``decode_shards`` decode engines through
+``runtime.serve.CoProcServer``, its prefill stage charged to the
+``<pool>.prefill`` pool), and a ``handoff_loss`` fault cuts its seam.  Not
+ported yet, and refused with ``NotImplementedError``: stage-axis pools
+(``pipeline_stages``).
 """
 from repro_torch.router.slo import SLO_CLASSES, SLOClass
 from repro_torch.runtime.sampling import GREEDY, SamplingParams

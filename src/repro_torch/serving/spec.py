@@ -17,12 +17,13 @@ slot serves each request is the router's business.
 
 The port reads the reference's fleet JSON unchanged and serves it through
 its own engines, on the device ``build(device=...)`` names (the card by
-default), sampled requests and hardened engine pools (``harden=True``,
-which a data-plane :class:`FaultSpec` turns on) included.  What the port
-does not serve yet refuses loudly, before any weights are touched: the
-co-processing split (``prefill_backend="engine"``), stage-axis pools
-(``pipeline_stages``) and ``handoff_loss`` faults, which cut the
-co-processing handoff.
+default), sampled requests, hardened engine pools (``harden=True``, which
+a data-plane :class:`FaultSpec` turns on) and the co-processing split
+(``prefill_backend="engine"``: a prefill engine feeding
+``decode_shards`` decode engines through a ``CoProcServer``, the target
+of ``handoff_loss`` faults) included.  What the port does not serve yet
+refuses loudly, before any weights are touched: stage-axis pools
+(``pipeline_stages``).
 """
 from __future__ import annotations
 
@@ -449,12 +450,6 @@ class FleetSpec:
         specs = [replace(ps, harden=True)
                  if ps.name in hardened_targets and not ps.harden else ps
                  for ps in self.pools]
-        lost = [f.pool for f in self.faults if f.kind == "handoff_loss"]
-        if lost:
-            raise NotImplementedError(
-                f"handoff_loss faults on {lost}: the prefill->decode "
-                f"handoff they cut (CoProcServer) is not ported yet "
-                f"(ROADMAP.md, port queue item 4)")
         for ps in specs:
             _refuse_unported(ps)
         cfg = params = None
@@ -572,21 +567,41 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
     ``repro_torch.serving`` touches the engine classes directly.
     ``backend="engine"`` falls back to the windowed loop (with a warning)
     for stacks paged decode cannot serve (a hardened one too: the
-    windowed loop takes no hardening, as in the reference).  The
-    co-processing split and stage-axis pools are not ported yet and raise
-    ``NotImplementedError`` before any server is built.
+    windowed loop takes no hardening, as in the reference).  Stage-axis
+    pools are not ported yet and raise ``NotImplementedError`` before any
+    server is built.
     """
     import numpy as np
 
     from repro_torch.runtime.sampling import SamplingParams
-    from repro_torch.runtime.serve import (ContinuousBatchingEngine, Request,
+    from repro_torch.runtime.serve import (ContinuousBatchingEngine,
+                                           CoProcServer, Request,
                                            WindowedBaselineServer,
                                            engine_or_windowed)
     _refuse_unported(spec)
     plan = _resolve_plan(spec, cfg, spec.plan)
     hkw = dict(harden=spec.harden, watchdog_steps=spec.watchdog_steps,
-               scrub_blocks=spec.scrub_blocks)
-    if spec.backend == "engine":
+               scrub_blocks=spec.scrub_blocks, device=device)
+    if spec.backend == "engine" and spec.prefill_backend == "engine":
+        # MPAI co-processing split: a prefill-class engine under its own
+        # (typically cheaper) plan fills paged blocks, decode-class engines
+        # import them over mirrored pools.  The prefill engine is
+        # single-slot (the handoff is synchronous) and sized to one
+        # max-length prompt; the split has no windowed fallback
+        prefill = ContinuousBatchingEngine(
+            params, cfg, plan=_resolve_plan(spec, cfg, spec.prefill_plan),
+            max_slots=1, prompt_len=spec.prompt_len, max_len=spec.max_len,
+            block_size=spec.block_size, prefill_chunk=spec.prefill_chunk,
+            **hkw)
+        # decode_shards > 1: N mirrored decode engines behind the one
+        # prefill stage, each wire handoff to the least-loaded shard
+        decodes = [ContinuousBatchingEngine(
+            params, cfg, plan=plan, max_slots=spec.max_slots,
+            prompt_len=spec.prompt_len, max_len=spec.max_len,
+            block_size=spec.block_size, num_blocks=spec.num_blocks, **hkw)
+            for _ in range(spec.decode_shards)]
+        srv = CoProcServer(prefill, decodes)
+    elif spec.backend == "engine":
         srv = engine_or_windowed(
             params, cfg, plan=plan, max_slots=spec.max_slots,
             prompt_len=spec.prompt_len, max_len=spec.max_len,
@@ -594,7 +609,7 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
             prefill_chunk=spec.prefill_chunk, **hkw,
             on_fallback=lambda e: warnings.warn(
                 f"pool {spec.name!r}: paged decode unavailable ({e}); "
-                f"falling back to the windowed baseline"), device=device)
+                f"falling back to the windowed baseline"))
     else:
         srv = WindowedBaselineServer(params, cfg, plan=plan,
                                      max_batch=spec.max_slots,
@@ -608,7 +623,7 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
         # latency telemetry
         srv.submit(Request(-1, np.array([1, 2], np.int32), max_new=2))
         srv.flush()
-        if isinstance(srv, ContinuousBatchingEngine):
+        if isinstance(srv, (ContinuousBatchingEngine, CoProcServer)):
             srv.submit(Request(-2, np.array([1, 2], np.int32), max_new=2,
                                sampling=SamplingParams(temperature=1.0,
                                                        seed=0)))
@@ -632,11 +647,6 @@ def _refuse_unported(spec: PoolSpec) -> None:
     or servers are touched."""
     if spec.backend == "costmodel":
         return
-    if spec.prefill_backend == "engine":
-        raise NotImplementedError(
-            f"pool {spec.name!r}: the co-processing split "
-            f"(prefill_backend='engine', CoProcServer) is not ported yet "
-            f"(ROADMAP.md, port queue item 4)")
     if spec.pipeline_stages is not None:
         raise NotImplementedError(
             f"pool {spec.name!r}: stage-axis pools (pipeline_stages, "

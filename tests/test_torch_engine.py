@@ -318,10 +318,12 @@ def test_what_is_not_ported_refuses_loudly(ref):
         eng.submit(Request(0, np.zeros((0,), np.int32), max_new=2))
     eng.submit(Request(2, np.array([1, 2], np.int32), max_new=2,
                        sampling=SamplingParams()))      # greedy is fine
-    with pytest.raises(NotImplementedError):
-        eng.prefill_handoff(Request(3, np.array([1], np.int32)))
-    with pytest.raises(NotImplementedError):
-        eng.import_prefill(Request(3, np.array([1], np.int32)), None)
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.prefill_handoff(Request(3, np.zeros((0,), np.int32)))
+    ho = eng.prefill_handoff(Request(3, np.array([1], np.int32)))
+    ho.block_size = 8                     # another pool geometry
+    with pytest.raises(AssertionError, match="block geometry"):
+        eng.import_prefill(Request(3, np.array([1], np.int32)), ho)
     with pytest.raises(ValueError):       # paged decode is attention-only
         ContinuousBatchingEngine(params, TINY.with_(mixer="mamba"),
                                  device="cpu", **ENGINE)

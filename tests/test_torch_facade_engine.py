@@ -23,8 +23,12 @@ an ``rwkv6-smoke`` engine pool (same warning, same tokens), the fallback
 of a hardened pool whose stack paged decode cannot serve, the hardening
 fleets of ``tests/test_serving.py`` (a hardened pool with no fault, a
 ``kv_bitflip`` and a ``slot_stall`` fault: tokens, pool counters and the
-allocator's books) and sampled submits.  What the port does not serve
-yet raises ``NotImplementedError`` before any weights are touched."""
+allocator's books), sampled submits, and a co-processing split pool (an
+"mpai" prefill stage feeding two bf16 decode shards, under a
+``handoff_loss`` fault, traced: handles, the snapshot with its
+``lm.prefill`` stage pool, and the flight recorder's spans).  What the
+port does not serve yet (stage-axis pools) raises ``NotImplementedError``
+before any weights are touched."""
 import json
 import os
 import subprocess
@@ -222,6 +226,49 @@ def sampled_serve(client, lmwork_cls, sampling_cls):
 SAMPLED_POOL = dict(backend="engine", max_slots=2, prompt_len=8, max_new=6)
 
 
+def split_spec(Fleet, Pool, Fault):
+    """``tests/test_serving.py``'s disaggregated pool (``_disagg_spec``)
+    with an "mpai" prefill stage, two bf16 decode shards and a
+    ``handoff_loss`` fault, traced."""
+    return Fleet(pools=[Pool("lm", ("tpu_v5e_bf16",), backend="engine",
+                             capacity=1, max_window=4, max_wait_s=0.0,
+                             max_slots=3, prompt_len=8, max_new=6,
+                             max_prompt_len=32, prefill_backend="engine",
+                             prefill_plan="mpai", decode_shards=2)],
+                 workload="transformer", seq_len=8, trace=True,
+                 faults=[Fault("lm", at_s=0.001, kind="handoff_loss")])
+
+
+# engine stages: their span endpoints are wall time
+ENGINE_STAGES = ("admit", "prefill_chunk", "handoff", "import",
+                 "decode_step", "replay", "seu_bitflip", "bitflip_detected",
+                 "watchdog_trip")
+
+
+def split_serve(client):
+    """Prompts inside and beyond the bucket (``test_serving.py``'s 5, 19
+    and 24 tokens, and more), ``max_new`` 3-6; what the comparison
+    reads."""
+    rng = np.random.default_rng(22)
+    handles = [client.submit(rng.integers(0, 256, n).astype(np.int32),
+                             slo="offline", max_new=m)
+               for n, m in ((5, 3), (19, 6), (24, 4), (2, 5), (30, 6),
+                            (9, 3))]
+    streamed = {h.rid: list(h.stream()) for h in handles}
+    client.drain()
+    spans = []
+    for sp in client.tracer.spans:
+        d = sp.to_dict()
+        if sp.stage in ENGINE_STAGES:
+            del d["t0"], d["t1"]
+        spans.append(d)
+    return {"handles": [{**h.telemetry, "tokens": h.tokens,
+                         "token_steps": h.token_steps,
+                         "streamed": streamed[h.rid]} for h in handles],
+            "snapshot": client.telemetry, "spans": spans,
+            "open_spans": len(client.tracer.open_spans())}
+
+
 # ---------------------------------------------------------------------------
 # the reference, run as ``python tests/test_torch_facade_engine.py OUT_DIR``
 # ---------------------------------------------------------------------------
@@ -286,6 +333,11 @@ def _reference(out):
                   workload="transformer")
     res["sampled"] = {"spec": spec.to_dict(), "tokens": sampled_serve(
         spec.build(model=(tiny_dense(), params["tiny"])), JWork, JS)}
+    jexecutor.time = StubClock()
+    spec = split_spec(JFleet, JPool, JFault)
+    res["split"] = {"spec": spec.to_dict(), **split_serve(
+        JFleet.from_dict(spec.to_dict()).build(
+            model=(tiny_dense(), params["tiny"])))}
     (out / "ref.json").write_text(json.dumps(res))
 
 
@@ -325,14 +377,15 @@ def served(ref):
         executor.time = real
 
 
-def compare(got, want, path=""):
-    """Same keys at every depth; every value equal but ``WALL_CLOCK``."""
+def compare(got, want, path="", skip=()):
+    """Same keys at every depth; every value equal but ``WALL_CLOCK`` and
+    the paths in ``skip``."""
     if isinstance(want, dict):
         assert isinstance(got, dict), path
         assert sorted(got) == sorted(want), path
         for k in want:
-            if k not in WALL_CLOCK:
-                compare(got[k], want[k], f"{path}/{k}")
+            if k not in WALL_CLOCK and f"{path}/{k}" not in skip:
+                compare(got[k], want[k], f"{path}/{k}", skip)
         return
     assert got == want, (path, got, want)
 
@@ -413,20 +466,13 @@ def test_rwkv_engine_pool_falls_back_as_the_reference(ref, harden):
 
 def _refused_specs():
     """Fleets the port refuses, and whether ``make_server`` refuses their
-    pool on its own (a ``handoff_loss`` fault is the fleet's, not the
-    pool's)."""
+    pool on its own."""
     engine = dict(profiles=("tpu_v5e_bf16",), backend="engine", max_slots=2,
                   prompt_len=8, max_new=4)
     return {
-        "prefill_backend": (FleetSpec(pools=[PoolSpec(
-            "p", prefill_backend="engine", **engine)],
-            workload="transformer"), True),
         "pipeline_stages": (FleetSpec(pools=[PoolSpec(
             "p", pipeline_stages=2, **engine)], workload="transformer"),
             True),
-        "handoff_loss": (FleetSpec(
-            pools=[PoolSpec("p", **engine)], workload="transformer",
-            faults=[FaultSpec("p", at_s=1.0, kind="handoff_loss")]), False),
     }
 
 
@@ -443,6 +489,81 @@ def test_unported_paths_refuse_before_weights(case, monkeypatch):
     if pool_refuses:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             make_server(TINY, None, spec.pools[0], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def split(ref):
+    """The port's run of the split-pool fleet, on the CPU."""
+    real = executor.time
+    executor.time = StubClock()
+    try:
+        client = FleetSpec.from_dict(ref[0]["split"]["spec"]).build(
+            model=(TINY, ref[1]["tiny"]), device="cpu")
+        return client, split_serve(client)
+    finally:
+        executor.time = real
+
+
+def test_split_pool_handles_and_tokens_equal_the_reference(ref, split):
+    """``test_disaggregated_pool_serves_and_stamps_stage_pools`` and
+    ``test_handoff_loss_is_replayed_exactly_once`` on the port: every
+    handle as the reference's, its tokens streamed exactly once, the
+    prefill and decode stage pools stamped on it."""
+    want, (client, got) = ref[0]["split"], split
+    srv = client.engines["lm"]
+    assert type(srv).__name__ == "CoProcServer" and srv.decode_shards == 2
+    assert srv.prefill.plan is not None and srv.decode.plan is None
+    assert len(got["handles"]) == len(want["handles"])
+    for g, w in zip(got["handles"], want["handles"]):
+        assert g["tokens"] == w["tokens"], (
+            f"request {w['rid']}: streams differ; check the reference's "
+            f"top-2 logit margin at the first divergent token (ROADMAP, "
+            f"'Greedy near-ties')")
+        compare(g, w, f"handle {w['rid']}")
+        assert g["streamed"] == g["tokens"] and g["tokens"]
+        assert (g["prefill_pool"], g["decode_pool"]) == ("lm.prefill", "lm")
+
+
+def test_split_pool_snapshot_charges_each_stage(ref, split):
+    """``test_disaggregated_pool_charges_each_stage_separately``: prompt
+    tokens and their energy on the prefill stage pool only, decode tokens
+    on the routed pool; the seam's replay counted.  The prefill stage's
+    ``busy_s`` is its engine's wall time, so it is left out."""
+    want, got = ref[0]["split"]["snapshot"], split[1]["snapshot"]
+    compare(got, want, "snapshot", skip=("snapshot/pools/lm.prefill/busy_s",))
+    pools = got["pools"]
+    assert set(pools) == {"lm", "lm.prefill"}
+    pre, dec = pools["lm.prefill"], pools["lm"]
+    assert pre["prefill_tokens"] > 0 and pre["energy_j"] > 0
+    assert pre["decode_tokens"] == 0 and dec["prefill_tokens"] == 0
+    assert dec["decode_tokens"] > 0 and dec["energy_j"] > 0
+    assert dec["handoffs_replayed"] >= 1
+    assert sum(dec["imports_by_shard"].values()) == len(
+        split[1]["handles"])
+    assert all(n > 0 for n in dec["imports_by_shard"].values())
+    assert got["completed"] == got["admitted"] == len(split[1]["handles"])
+
+
+def test_split_pool_spans_equal_the_reference(ref, split):
+    """``test_disaggregated_trace_attributes_stages_to_stage_pools``:
+    prefill chunks and handoffs on the prefill stage pool's lane, imports
+    on the routed pool's, tagged with their shard; summed chunk energy is
+    the prefill stage counter's charge; no orphan span."""
+    want, got = ref[0]["split"], split[1]
+    assert got["spans"] == want["spans"]
+    assert got["open_spans"] == want["open_spans"] == 0
+    stages = {(sp["stage"], sp["pool"]) for sp in got["spans"]
+              if sp["rid"] is not None}
+    assert {("prefill_chunk", "lm.prefill"), ("handoff", "lm.prefill"),
+            ("import", "lm")} <= stages
+    assert not {st for st, pool in stages
+                if st in ("prefill_chunk", "handoff") and pool != "lm.prefill"}
+    assert {sp["attrs"]["shard"] for sp in got["spans"]
+            if sp["stage"] == "import"} == {0, 1}
+    chunk_e = sum(sp["attrs"]["energy_j"] for sp in got["spans"]
+                  if sp["stage"] == "prefill_chunk")
+    pre = split[0].router.telemetry.pools["lm.prefill"]
+    assert chunk_e == pytest.approx(pre.energy_j, rel=1e-6)
 
 
 def _serve_hardening(ref, case):

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: every ``repro_torch`` module imports with
-JAX blocked, and no module (nor ``chip_smoke.py`` or the port's scripts)
-imports JAX or the reference package ``repro``.  Its entry points run on
+JAX and ml_dtypes blocked, and no module (nor ``chip_smoke.py`` or the
+port's scripts) imports JAX, ml_dtypes or the reference package ``repro``.  Its entry points run on
 the card unless the caller asks for the CPU."""
 import ast
 import inspect
@@ -29,7 +29,7 @@ def test_every_port_module_imports_with_jax_blocked():
     names = [_module_name(p) for p in sorted(PORT.rglob("*.py"))]
     code = (
         "import sys, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "sys.modules['jax'] = sys.modules['ml_dtypes'] = None\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
@@ -54,7 +54,7 @@ def test_port_file_imports_neither_jax_nor_repro(path):
         elif isinstance(node, ast.ImportFrom) and node.module:
             imported.append(node.module)
     bad = [m for m in imported
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path}: imports {bad}"
 
 
