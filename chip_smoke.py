@@ -59,8 +59,17 @@ corrupted and a lost handoff, a bit flip restored through the seam, all
 held bit-equal to the two-shard run, and a bf16-prefill split against the
 unified bf16 engine under the near-tie rule); and the split as a facade
 pool with a ``handoff_loss`` fault (``fleet_coproc``); launches held to
-the prefill chunks, decode steps and replays, flash never. Prints one
-JSON line per phase,
+the prefill chunks, decode steps and replays, flash never.
+
+UrsoNet pose (the paper's Table I workload): ``tests/test_pose_qat.py``'s
+network on CUDA against the CPU, the forward under the four serve pairs
+and three ``train_step``s (``tiny_pose``); then ``run_condition`` for each
+of the four conditions at ``configs/ursonet.FULL`` (200 steps of 16, 8 eval
+batches), with LOCE, ORIE, train-step ms and eval images/s per condition,
+the int8 GEMM launched 3 times an eval batch of the int8-head conditions,
+those evaluations bit-equal to the same run on ``int8_matmul_plain``, and
+the kernel bit-equal to its plain version at the heads' shapes
+(``ursonet_full_width``).  Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -71,6 +80,7 @@ Needs one card with 80 GB (the Qwen3-14B f32 weights take 59 GB, Jamba's
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import subprocess
@@ -2333,6 +2343,286 @@ def qwen_sampled_hardened_phase(dev, card: str, cfg, params, plans: dict,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# UrsoNet pose: the paper's Table I workload (training and serving)
+# ---------------------------------------------------------------------------
+# The heads' int8 GEMMs at FULL, (K, N): fc, head_loc, head_ori
+URSONET_HEAD_GEMMS = ((256, 256), (256, 3), (256, 4))
+POSE_TINY_STEPS = 3
+
+
+@contextlib.contextmanager
+def patched(module, name: str, value):
+    """``module.name`` is ``value`` while entered (the port's call sites
+    read module attributes at call time)."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+def capture_features(cnn, apply, feat=None):
+    """``apply()`` (an ``ursonet_apply`` call) with ``cnn.pdot`` watched:
+    its (loc, quat) and the pooled features that reach the first FC
+    product, replaced by ``feat`` when given (the heads alone)."""
+    seen = []
+    real = cnn.pdot
+
+    def pdot(x, w, policy):
+        if not seen and feat is not None:
+            x = feat
+        seen.append(x)
+        return real(x, w, policy)
+
+    with patched(cnn, "pdot", pdot):
+        loc, q = apply()
+    return loc, q, seen[0]
+
+
+def tiny_pose_phase(dev) -> None:
+    """``tests/test_pose_qat.py``'s UrsoNet (48 x 64, widths (8, 16)) on
+    CUDA against the port on the CPU: the same weights (the port's seed-0
+    init, made on the CPU) and the same batch.  The forward under the four
+    serve pairs and an all-f32 pair: features, the heads on the CPU's
+    features, and the whole network where the heads keep float
+    activations, within ``2**-6 |ref| + 2**-8`` (f32: 1e-5), as
+    ``tests/test_torch_pose.py`` holds the port to the reference (cuDNN
+    sums in another order, and an int8 head amplifies a flipped ulp).
+    Then three ``train_step``s under "fp32", "mpai" and f32: losses within
+    2e-2 relative (f32: 1e-4)."""
+    from repro_torch import pose
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.precision import PrecisionPolicy as P
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import pose_batch
+    from repro_torch.models import cnn
+    from repro_torch.optim import adamw
+
+    cfg = cnn.UrsoNetConfig(name="test", image_hw=(48, 64), widths=(8, 16),
+                            blocks_per_stage=1, fc_dim=32)
+    cpu = torch.device("cpu")
+    weights = cnn.ursonet_init(torch.Generator().manual_seed(0), cfg, cpu)
+    sides = (("cpu", cpu), ("card", dev))
+    on = {"cpu": weights, "card": tree_map(lambda t: t.to(dev), weights)}
+    images = pose_batch(8, 0, image_hw=cfg.image_hw, device=cpu)["images"]
+    pairs = {name: pols[2:] for name, pols in pose.POLICIES.items()}
+    pairs["f32"] = (P.fp32(), P.fp32())
+    for name, (bp, hp) in pairs.items():
+        rel, abs_ = (1e-5, 1e-5) if name == "f32" else (2 ** -6, 2 ** -8)
+        out = {}
+        with torch.no_grad():
+            for side, where in sides:
+                out[side] = [t.cpu() for t in capture_features(
+                    cnn, lambda: cnn.ursonet_apply(
+                        on[side], cfg, images.to(where), bp, hp))]
+            heads = [t.cpu() for t in capture_features(
+                cnn, lambda: cnn.ursonet_apply(on["card"], cfg,
+                                               images.to(dev), bp, hp),
+                out["cpu"][2].to(dev))[:2]]
+        int8_head = hp.precision.is_quantized
+        checks = {"feat": (out["card"][2], out["cpu"][2]),
+                  "heads_loc": (heads[0], out["cpu"][0]),
+                  "heads_quat": (heads[1], out["cpu"][1])}
+        if not int8_head:
+            checks.update(loc=(out["card"][0], out["cpu"][0]),
+                          quat=(out["card"][1], out["cpu"][1]))
+        errs = {}
+        for what, (got, want) in checks.items():
+            err, ok = within(got, want, rel, abs_)
+            errs[what] = err
+            if not ok:
+                raise AssertionError(f"tiny_pose {name}: {what} max |err| "
+                                     f"{err} beyond {rel} |ref| + {abs_}")
+        emit("tiny_pose_forward", pair=name, int8_head=int8_head,
+             max_abs_err=errs)
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=10, total_steps=200,
+                     weight_decay=0.0, grad_clip=1.0)
+    trains = {"fp32": pose.POLICIES["fp32"][:2],
+              "mpai": pose.POLICIES["mpai"][:2], "f32": (P.fp32(), P.fp32())}
+    for name, pols in trains.items():
+        losses = {}
+        for side, where in sides:
+            p, opt, ls = on[side], adamw.init(on[side]), []
+            for s in range(POSE_TINY_STEPS):
+                b = pose_batch(8, s, image_hw=cfg.image_hw, device=cpu)
+                p, opt, loss = pose.train_step(
+                    p, opt, b["images"].to(where), b["loc"].to(where),
+                    b["quat"].to(where), cfg, pols, tc)
+                ls.append(float(loss))
+            losses[side] = ls
+        bound = 1e-4 if name == "f32" else 2e-2
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["card"], losses["cpu"]))
+        if not rel <= bound:
+            raise AssertionError(f"tiny_pose train {name}: losses "
+                                 f"{losses} apart by {rel} (> {bound})")
+        emit("tiny_pose_train", pair=name, losses=losses, max_rel_err=rel)
+
+
+def ursonet_macs(cfg) -> dict:
+    """Multiply-accumulates of one image through ``ursonet_apply``, read
+    off the network's shapes (SAME convs: outputs ceil(size / stride);
+    the shortcut projection runs at stride 1 before its subsampling)."""
+    h, w = cfg.image_hw
+    ceil = lambda a, b: -(-a // b)
+    h, w = ceil(h, 2), ceil(w, 2)
+    stem = h * w * 7 * 7 * 3 * cfg.widths[0]
+    convs, cin = 0, cfg.widths[0]
+    for si, width in enumerate(cfg.widths):
+        for bi in range(cfg.blocks_per_stage):
+            stride = 2 if bi == 0 and si > 0 else 1
+            if cin != width:
+                convs += h * w * cin * width              # proj, stride 1
+            h, w = ceil(h, stride), ceil(w, stride)
+            convs += h * w * 9 * cin * width + h * w * 9 * width * width
+            cin = width
+    heads = cin * cfg.fc_dim + cfg.fc_dim * 7
+    return {"stem": stem, "convs": convs, "heads": heads,
+            "forward": stem + convs + heads,
+            # + the weight gradients of everything and the input gradients
+            # of all but the stem (the images need none)
+            "train": 3 * (stem + convs + heads) - stem}
+
+
+def ursonet_full_width_phase(dev, card: str, timer, im) -> dict:
+    """Table I on the card: ``run_condition`` for each of the four
+    conditions at ``configs/ursonet.FULL`` (192 x 256, widths 32-256, 2
+    blocks a stage, fc 256) with the reference's defaults (200 steps,
+    batch 16, 8 eval batches of 16).  Every loss finite, the last below
+    the first; the int8 GEMM launched 3 times an eval batch exactly where
+    the serve head is int8 (``int8_ptq``, ``int8_qat``), and those
+    evaluations equal, bit for bit, the same evaluation with
+    ``int8_matmul_plain`` in the kernel's place; the kernel equals its
+    plain version at the heads' shapes (M 16 and 32, K 256, N 256, 3, 4).
+    Returns the int8 GEMM's launches by condition."""
+    from repro_torch import pose
+    from repro_torch.configs.ursonet import FULL
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    for m in (16, 32):
+        for k, n in URSONET_HEAD_GEMMS:
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int8)
+            w = torch.randint(-127, 128, (k, n), generator=g, device=dev,
+                              dtype=torch.int8)
+            if not torch.equal(im.int8_matmul(x, w),
+                               im.int8_matmul_plain(x, w)):
+                raise AssertionError(f"int8_matmul != plain at M={m} K={k} "
+                                     f"N={n}")
+            try:
+                lib_ms = timer.ms(lambda: torch._int_mm(x, w))
+            except RuntimeError:
+                lib_ms = None         # cuBLAS refuses the shape
+            t_bytes = (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
+            t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+            emit("kernel_int8_matmul", M=m, K=k, N=n, exact=True,
+                 shapes="ursonet head",
+                 ms=timer.ms(lambda: im.int8_matmul(x, w)),
+                 device_ms=timer.device_ms(lambda: im.int8_matmul(x, w)),
+                 plain_ms=timer.ms(lambda: im.int8_matmul_plain(x, w)),
+                 library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    cfg, batch, batches, steps = FULL, 16, 8, 200
+    macs = ursonet_macs(cfg)
+    step_bound = 2 * macs["train"] * batch / PEAK_BF16_FLOPS * 1e3
+    emit("ursonet_macs", config=cfg.name, per_image=macs,
+         train_step_bound_ms=step_bound, bound_by="bf16 tensor-core "
+         "operations", eval_batch_bound_ms=2 * macs["forward"] * batch
+         / PEAK_BF16_FLOPS * 1e3)
+    launches, seen = {}, {}
+    real_step, real_train = pose.train_step, pose.train_ursonet
+    real_eval, real_apply = pose.eval_ursonet, pose.ursonet_apply
+
+    def timed_step(*a, **kw):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        t0 = time.perf_counter()
+        start.record()
+        out = real_step(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        seen["steps"].append((time.perf_counter() - t0, start, end))
+        return out
+
+    def kept_train(*a, **kw):
+        seen["params"], seen["hist"] = real_train(*a, **kw)
+        return seen["params"], seen["hist"]
+
+    def timed_eval(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        seen["eval_s"] = time.perf_counter() - t0
+        return out
+
+    for name, (_, _, sb, sh) in pose.POLICIES.items():
+        seen.clear()
+        seen["steps"] = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()                 # the main path's counts start here
+        t0 = time.perf_counter()
+        with patched(pose, "train_step", timed_step), \
+                patched(pose, "train_ursonet", kept_train), \
+                patched(pose, "eval_ursonet", timed_eval):
+            row = pose.run_condition(name, cfg, steps=steps, batch=batch,
+                                     device=dev)
+        wall = time.perf_counter() - t0
+        n = launches[f"{cfg.name}/{name}"] = im.int8_matmul.launches
+        hist = seen["hist"]
+        losses = [loss for _, loss in hist]
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and np.isfinite([row["loce"], row["orie"]]).all()):
+            raise AssertionError(f"ursonet {name}: history {hist}, row {row}")
+        int8_head = sh.precision.is_quantized
+        if n != (3 * batches if int8_head else 0):
+            raise AssertionError(f"ursonet {name}: {n} int8_matmul launches "
+                                 f"for {batches} eval batches")
+        if int8_head:                 # the same eval with the plain GEMM
+            outs = {}
+            for tag, fn in (("kernel", ops.int8_matmul),
+                            ("plain", im.int8_matmul_plain)):
+                rec = []
+
+                def kept_apply(*a, **kw):
+                    rec.append(real_apply(*a, **kw))
+                    return rec[-1]
+                with patched(ops, "int8_matmul", fn), \
+                        patched(pose, "ursonet_apply", kept_apply):
+                    metrics = real_eval(seen["params"], cfg, sb, sh,
+                                        batch=batch, device=dev)
+                outs[tag] = (metrics, rec)
+            same = outs["kernel"][0] == outs["plain"][0] and all(
+                torch.equal(a, b) for ka, kb in zip(outs["kernel"][1],
+                                                    outs["plain"][1])
+                for a, b in zip(ka, kb))
+            if not same or outs["kernel"][0] != (row["loce"], row["orie"]):
+                raise AssertionError(f"ursonet {name}: eval with the kernel "
+                                     f"{outs['kernel'][0]} vs plain "
+                                     f"{outs['plain'][0]} vs run "
+                                     f"{(row['loce'], row['orie'])}")
+        wall_ms = [s * 1e3 for s, _, _ in seen["steps"]]
+        dev_ms = [a.elapsed_time(b) for _, a, b in seen["steps"]]
+        emit("ursonet_condition", condition=name, config=cfg.name, card=card,
+             loce=row["loce"], orie=row["orie"],
+             final_train_loss=row["final_train_loss"],
+             first_train_loss=losses[0], steps=len(wall_ms), batch=batch,
+             train_step_ms_wall=float(np.median(wall_ms)),
+             train_step_ms_device=float(np.median(dev_ms)),
+             train_step_bound_ms=step_bound,
+             eval_images_per_s=batches * batch / seen["eval_s"],
+             eval_s=seen["eval_s"], wall_s=wall,
+             int8_gemm_launches=n, eval_bit_equal_to_plain=int8_head or None,
+             peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -2391,6 +2681,17 @@ def main() -> int:
                   lambda: full_width_phase(dev, card, pa, im, fa)):
         for name, by_plan in phase().items():
             launches[name].update(by_plan)
+    gc.collect()                      # the LM phases' weights, in cycles
+    torch.cuda.empty_cache()
+    # the pose phases: cuDNN's deterministic convolutions, so an evaluation
+    # repeats bit for bit (TF32 stays off, above)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tiny_pose_phase(dev)
+    timer = Timer(dev)
+    launches["int8_matmul"].update(
+        ursonet_full_width_phase(dev, card, timer, im))
+    del timer
     for row in rows:
         # each (config, plan) run is a main path, counted from 0 on its
         # own; "launches" is their sum, "launches_by_plan" keeps them apart

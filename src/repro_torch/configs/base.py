@@ -2,7 +2,8 @@
 
 Every architecture is described by a frozen :class:`ModelConfig`, field for
 field the reference's, so a config means the same model in both packages.
-The reference's shape, mesh and training configs belong to later slices.
+:class:`TrainConfig` is the reference's too (AdamW and the pose trainer
+read it).  The reference's shape and mesh configs belong to later slices.
 """
 from __future__ import annotations
 
@@ -182,3 +183,25 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    seed: int = 0
+    # distributed-optimization tricks
+    grad_compression: str = "none"     # none | int8  (cross-pod all-reduce)
+    opt_dtype: str = "float32"         # adam m/v dtype (bfloat16 halves
+    #   optimizer HBM; pairs with fp32 master params)
+    accum_dtype: str = "float32"       # grad-accumulation buffer dtype
+    checkpoint_every: int = 100
+    keep_checkpoints: int = 3

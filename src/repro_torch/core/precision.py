@@ -46,8 +46,8 @@ class PrecisionPolicy:
 
     mode:
       * ``raw``   — plain matmul in ``precision.compute_dtype``
-      * ``fake``  — fake-quant (QAT training of int8 segments); training is
-                    a later slice of the port, so ``pdot`` refuses it
+      * ``fake``  — fake-quant (QAT training of int8 segments, gradients
+                    passed straight through)
       * ``quant`` — real int8 execution (per-channel weight scales, dynamic
                     per-tensor activation quantization)
 

@@ -1,10 +1,12 @@
 """Symmetric int8 quantization — the numerical core of MPAI's DPU path.
 
-Implements per-channel / per-tensor symmetric absmax quantization and
-``pdot``, the precision-dispatched matmul every model layer calls.  A
-segment's :class:`~repro_torch.core.precision.PrecisionPolicy` decides
-whether a matmul runs raw (bf16/fp32) or truly quantized (the int8 GEMM
-kernel).  Fake quantization (QAT training) is a later slice of the port.
+Implements per-channel / per-tensor symmetric absmax quantization, fake
+quantization with a straight-through gradient (QAT, the paper's
+partition-aware training) and ``pdot``, the precision-dispatched matmul
+every model layer calls.  A segment's
+:class:`~repro_torch.core.precision.PrecisionPolicy` decides whether a
+matmul runs raw (bf16/fp32), fake-quantized (training an int8 segment) or
+truly quantized (the int8 GEMM kernel).
 
 The arithmetic follows the reference step for step, because the int8
 codes and the int32 accumulators must come out equal: the scale is
@@ -67,6 +69,19 @@ def quantize(x: torch.Tensor, channel_axis: Optional[int] = None,
     return QTensor(q.to(torch.int8), scale)
 
 
+def fake_quant(x: torch.Tensor, channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Quantize-dequantize with a straight-through gradient.
+
+    Forward: the round trip through the int8 grid, written as the
+    reference writes it, ``x + (dq - x)`` with the difference detached (its
+    value is ``dq``: a nonzero ``dq`` lies within a factor of 2 of ``x``,
+    so the difference is exact).  Backward: the identity (the STE)."""
+    with torch.no_grad():
+        dq = quantize(x, channel_axis).dequantize(torch.float32).to(x.dtype)
+        delta = dq - x
+    return x + delta
+
+
 def _int8_dot(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x: [..., K] float;  w: QTensor [K, N] (per-out-channel scales)."""
     xq = quantize(x)                                        # per-tensor dynamic
@@ -80,20 +95,20 @@ def _int8_dot(x: torch.Tensor, w: QTensor) -> torch.Tensor:
 def pdot(x: torch.Tensor, w, policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
     """Precision-dispatched ``x @ w``.
 
-    ``w`` is either a float tensor [K, N] (cast or quantized at use) or a
-    :class:`QTensor` (weights pre-quantized offline).
+    ``w`` is either a float tensor [K, N] (cast, fake-quantized or
+    quantized at use) or a :class:`QTensor` (weights pre-quantized
+    offline).
     """
     if policy.mode == "quant":
         if not isinstance(w, QTensor):
             w = quantize(w, channel_axis=-1 if policy.per_channel else None)
         return _int8_dot(x, w)
-    if policy.mode != "raw":
-        raise NotImplementedError(
-            f"pdot mode {policy.mode!r}: fake quantization (QAT) is not "
-            f"ported yet")
     dt = policy.precision.compute_dtype
     if isinstance(w, QTensor):       # pre-quantized checkpoint, raw segment
         w = w.dequantize(dt)
+    if policy.mode == "fake":
+        w = fake_quant(w, channel_axis=-1 if policy.per_channel else None)
+        x = fake_quant(x)
     return torch.matmul(x.to(dt), w.to(dt))
 
 

@@ -5,13 +5,28 @@ JAX (a bf16 ``KVCache`` has no scales)."""
 from __future__ import annotations
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of each
+    tree in ``rest`` (same structure), into a tree of ``tree``'s shape."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
+        return type(tree)(*(tree_map(fn, *vs) for vs in zip(tree, *rest)))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *vs) for vs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in ``jax.tree_util.tree_leaves`` order: dict keys sorted,
+    sequences and named tuples in order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]

@@ -107,6 +107,16 @@ def check(status: int, what: str) -> None:
                            f"{status}")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """The kernels have no backward (nor have the reference's): a CUDA call
+    whose output a gradient would need raises, rather than leave the
+    inputs out of the autograd graph."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{what}: the CUDA kernel has no backward; "
+                                  f"call it under torch.no_grad()")
+
+
 def aligned(t):
     """``t`` contiguous on a 16-byte boundary (kernels that copy 16 bytes
     at a time take their inputs so)."""

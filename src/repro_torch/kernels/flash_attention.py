@@ -67,6 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v)
+    build.refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _ENTRIES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention kernel takes bf16 or f32 q, k, v "
                         f"of one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -89,6 +89,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                          f"{tuple(d.shape)}")
     if not x.is_cuda:
         return selective_scan_plain(x, dt, b, c, a, d)
+    build.refuse_grad("selective_scan", x, dt, b, c, a, d)
     if any(t.dtype != torch.float32 for t in (x, dt, b, c, a, d)):
         raise TypeError("selective_scan kernel takes f32 x, dt, b, c, a, d")
     if n not in STATE_SIZES:

@@ -109,6 +109,7 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
                          f"{tuple(u.shape)}")
     if not r.is_cuda:
         return wkv_plain(r, k, v, w, u)
+    build.refuse_grad("wkv", r, k, v, w, u)
     if any(t.dtype != torch.float32 for t in (r, k, v, w, u)):
         raise TypeError("wkv kernel takes f32 r, k, v, w and u")
     if n not in HEAD_SIZES:

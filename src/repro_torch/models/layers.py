@@ -75,11 +75,31 @@ def mlp_init(n: int, d_model: int, d_ff: int, glu: bool,
     return p
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic``: forward ``1 / (1 + exp(-x))``, backward
+    ``g * (s * (1 - s))`` from the output, each step rounded to the dtype
+    as JAX's rule computes it (autograd through the forward's three ops
+    rounds otherwise, which bf16 gradients show)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as the reference runs it: ``1 / (1 + exp(-x))``
     with every step rounded to ``x``'s dtype (XLA keeps no excess
     precision in bf16), which ``torch.sigmoid``'s single rounding does not
-    reproduce."""
+    reproduce; its gradient is JAX's (``_Logistic``)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Logistic.apply(x)
     return 1 / (1 + torch.exp(-x))
 
 
@@ -123,3 +143,16 @@ def lm_logits(table: torch.Tensor, x: torch.Tensor,
     """Logits against the (possibly tied) embedding table [V, D]."""
     dt = policy.precision.compute_dtype
     return torch.matmul(x.to(dt), table.to(dt).T)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in f32.  The gold logit comes from a masked
+    sum over the vocab axis, as in the reference (there it keeps a
+    vocab-sharded logits tensor from being gathered)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    vocab = logits.shape[-1]
+    onehot = labels[..., None] == torch.arange(vocab, dtype=labels.dtype,
+                                               device=labels.device)
+    gold = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    return torch.mean(lse - gold)

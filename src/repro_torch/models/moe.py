@@ -10,7 +10,9 @@ whose capacity drops overflowing tokens (Switch/GShard semantics).
 
 Routers run in f32 and are never quantized.  The expert products are bf16
 einsums in the policy's compute dtype, as in the reference (XLA code
-there, not a Pallas kernel), so ``"mpai"`` leaves them unquantized.
+there, not a Pallas kernel), so ``"mpai"`` leaves them unquantized; a
+fake-quant (QAT) policy rounds the expert weights and the dispatch buffer
+through the int8 grid first, with a straight-through gradient.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
-from repro_torch.core.quantization import QTensor
+from repro_torch.core.quantization import QTensor, fake_quant
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, silu
 
 FLAT_DISPATCH_MAX = 4096       # t * k at or below: flat dropless dispatch
@@ -49,23 +51,27 @@ def moe_init(n: int, d_model: int, moe: MoEConfig, glu: bool,
 def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
                 policy: PrecisionPolicy) -> torch.Tensor:
     """buf: [E, C, D] or [G, E, C, D] -> same, through each expert's MLP."""
-    if policy.mode == "fake":
-        raise NotImplementedError("MoE experts under fake quantization (QAT) "
-                                  "are not ported yet")
     a = silu if act == "silu" else functools.partial(F.gelu,
                                                      approximate="tanh")
     dt = policy.precision.compute_dtype
     dq = lambda w: w.dequantize(dt) if isinstance(w, QTensor) else w
-    w_in, w_out = dq(params["w_in"]).to(dt), dq(params["w_out"]).to(dt)
+    w_in, w_out = dq(params["w_in"]), dq(params["w_out"])
+    w_gate = dq(params["w_gate"]) if "w_gate" in params else None
+    if policy.mode == "fake":
+        # one scale per output column across all experts, as the reference
+        w_in = fake_quant(w_in, channel_axis=-1)
+        w_out = fake_quant(w_out, channel_axis=-1)
+        if w_gate is not None:
+            w_gate = fake_quant(w_gate, channel_axis=-1)
+        buf = fake_quant(buf)
     bufc = buf.to(dt)
     g = "g" if buf.ndim == 4 else ""
-    h = torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_in)
-    if "w_gate" in params:
-        h = a(torch.einsum(f"{g}ecd,edf->{g}ecf", bufc,
-                           dq(params["w_gate"]).to(dt))) * h
+    h = torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_in.to(dt))
+    if w_gate is not None:
+        h = a(torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_gate.to(dt))) * h
     else:
         h = a(h)
-    return torch.einsum(f"{g}ecf,efd->{g}ecd", h, w_out)
+    return torch.einsum(f"{g}ecf,efd->{g}ecd", h, w_out.to(dt))
 
 
 def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,

@@ -26,10 +26,12 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwk
-from repro_torch.models.layers import (embed, embedding_init, lm_logits,
-                                       mlp_apply, mlp_init, rmsnorm,
-                                       rmsnorm_init)
+from repro_torch.models.layers import (cross_entropy, embed,
+                                       embedding_init, lm_logits, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init)
 from repro_torch.runtime.paging import PagedKVState
+
+AUX_LOSS_COEF = 0.01
 
 
 # ---------------------------------------------------------------------------
@@ -362,6 +364,23 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return LMOutput(lm_logits(table, x, plan.head_policy), cache, aux_total)
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, plan: Optional[PartitionPlan] = None,
+            tp: int = 1,
+            frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
+    load-balancing losses.  Differentiable on CPU tensors; on the card the
+    attention and recurrence kernels have no backward and refuse a
+    gradient."""
+    if frontend_embeds is not None:
+        raise NotImplementedError("frontend_embeds: the vision and audio "
+                                  "frontends are not ported yet (ROADMAP.md, "
+                                  "port queue item 10)")
+    out = forward(params, cfg, tokens, plan, tp)
+    logits = out.logits[:, -tokens.shape[1]:]
+    return cross_entropy(logits, labels) + AUX_LOSS_COEF * out.aux_loss
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, cache,

@@ -77,6 +77,11 @@ ENTRY_POINTS = [
     ("repro_torch.serving.spec", "make_server"),
     # ServingClient.add_pool builds on the device the client holds
     ("repro_torch.serving.client", "ServingClient"),
+    ("repro_torch.models.cnn", "ursonet_init"),
+    ("repro_torch.data.pipeline", "pose_batch"),
+    ("repro_torch.pose", "train_ursonet"),
+    ("repro_torch.pose", "eval_ursonet"),
+    ("repro_torch.pose", "run_condition"),
 ]
 
 

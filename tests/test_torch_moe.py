@@ -185,11 +185,24 @@ def test_port_init_builds_the_reference_tree():
 
 
 def test_fake_quant_experts_are_refused():
+    """Fake-quant (QAT) experts are ported now: they compute the bf16
+    experts on fake-quantized weights and dispatch buffer, and pass the
+    gradient straight through (held against the reference in
+    ``test_torch_qat.py``)."""
+    from repro_torch.core.quantization import fake_quant
     moe = MoEConfig(num_experts=2, top_k=1, d_ff_expert=8)
-    p = TMoE.moe_init(1, 8, moe, True, torch.Generator(), "cpu")
+    p = TMoE.moe_init(1, 8, moe, True, torch.Generator().manual_seed(0),
+                      "cpu")
     p = {k: v[0] for k, v in p.items()}
-    with pytest.raises(NotImplementedError):
-        TMoE.moe_apply(p, moe, torch.zeros(1, 2, 8), policy=TPolicy.int8_qat())
+    buf = torch.randn(2, 3, 8, generator=torch.Generator().manual_seed(1)
+                      ).bfloat16().requires_grad_(True)
+    out = TMoE._expert_ffn(p, buf, "silu", True, TPolicy.int8_qat())
+    pq = {k: fake_quant(v, channel_axis=-1) for k, v in p.items()}
+    want = TMoE._expert_ffn(pq, fake_quant(buf.detach()), "silu", True,
+                            TPolicy.bf16())
+    assert torch.equal(out, want)
+    out.float().sum().backward()
+    assert buf.grad is not None and torch.isfinite(buf.grad.float()).all()
 
 
 if __name__ == "__main__":

@@ -111,8 +111,15 @@ def test_pdot_raw_equal(policy):
 
 
 def test_pdot_fake_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        tq.pdot(torch.ones(2, 4), torch.ones(4, 3), TPolicy.int8_qat())
+    """Fake mode (QAT) is ported now: on f32 activations it equals the
+    jitted reference bit for bit (bf16 activations are held in
+    ``test_torch_qat.py``, against a reference without excess precision)."""
+    x = RNG.normal(size=(3, 5, 32)).astype(np.float32)
+    w = (RNG.normal(size=(32, 48)) / 6).astype(np.float32)
+    ref = jax.jit(lambda a, b: jq.pdot(a, b, JPolicy.int8_qat()))(
+        jnp.asarray(x), jnp.asarray(w))
+    got = tq.pdot(torch.tensor(x), torch.tensor(w), TPolicy.int8_qat())
+    np.testing.assert_array_equal(_np(got), _np(ref))
 
 
 def test_quantize_params_stacked_equal():
