@@ -69,7 +69,23 @@ batches), with LOCE, ORIE, train-step ms and eval images/s per condition,
 the int8 GEMM launched 3 times an eval batch of the int8-head conditions,
 those evaluations bit-equal to the same run on ``int8_matmul_plain``, and
 the kernel bit-equal to its plain version at the heads' shapes
-(``ursonet_full_width``).  Prints one JSON line per phase,
+(``ursonet_full_width``).
+
+The orbit control plane and the launchers: ``vision_orbit`` runs the orbit
+and dashboard launchers at the reference's defaults (cost-model pools, no
+model) and holds their reports to the reference's (``VISION_ORBIT_DIGESTS``);
+``orbit_full_width`` serves the Qwen3-14B weights through ``ORBIT_SPEC`` (the
+fleet's two engine pools, its cost-model pool and a priority-1 class) under
+the port's eclipse orbit sized to the fleet's measured batch time, with an
+autoscaler on the bf16 pool, and checks the mode leaving nominal and coming
+back, deferrals completing after their defer spans (none of priority 1), a
+clone added and retired, every request accounted for, the launches held to
+the spans, and the Chrome trace, spans, Prometheus and SLO-report exports;
+``orbit_storm`` runs the same fleet with a full battery and a ``kv_bitflip``,
+the storm ladder flooring the mode at conserve; ``launch_serve`` runs
+``python -m repro_torch.launch.serve --arch qwen3-14b --plan mpai --requests
+16`` at full width once the other Qwen3 phases have freed their weights.
+Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, and the script
@@ -82,6 +98,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import hashlib
 import json
 import subprocess
 import sys
@@ -1691,6 +1708,8 @@ FLEET_SPEC = {
               "max_accuracy_penalty": 0.0}],
 }
 FLEET_LM, FLEET_COST = 24, 4
+FLEET_RATE_HZ = 8.0
+FLEET_MIX = (("lm-any", 0.5), ("lm-accurate", 0.5))
 
 
 def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
@@ -1699,7 +1718,8 @@ def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
     a seeded open loop of 24 greedy requests (2-32 token prompts, two of
     40-64, ``max_new`` 1-32) over both engine pools at once, and cost-model
     requests to the third pool, with the flight recorder on.  Returns each
-    kernel's launches in the run, counted from 0."""
+    kernel's launches in the run, counted from 0, and the engine pools'
+    mean batch seconds."""
     return fleet_run(dev, card, cfg, params, (pa, im, fa), FLEET_SPEC,
                      "fleet_full_width", sampled=False)
 
@@ -1723,7 +1743,7 @@ def fleet_sampled_hardened_phase(dev, card: str, cfg, params, pa, im,
     admission spans say."""
     spec = {**FLEET_SPEC, "faults": FLEET_FAULTS}
     return fleet_run(dev, card, cfg, params, (pa, im, fa), spec,
-                     "fleet_sampled_hardened", sampled=True)
+                     "fleet_sampled_hardened", sampled=True)[0]
 
 
 def fleet_coproc_phase(dev, card: str, cfg, params, kernels,
@@ -1738,7 +1758,7 @@ def fleet_coproc_phase(dev, card: str, cfg, params, kernels,
     (``int8_per_chunk`` int8 GEMMs each), with no flash launch."""
     return fleet_run(dev, card, cfg, params, kernels, FLEET_COPROC,
                      "fleet_coproc", sampled=False,
-                     int8_per_chunk=int8_per_chunk)
+                     int8_per_chunk=int8_per_chunk)[0]
 
 
 FAULT_COUNTER = {"kv_bitflip": "bitflips_detected",
@@ -1747,14 +1767,20 @@ FAULT_COUNTER = {"kv_bitflip": "bitflips_detected",
 
 
 def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
-              sampled: bool, int8_per_chunk=None) -> dict:
+              sampled: bool, int8_per_chunk=None, n_lm: int = FLEET_LM,
+              mix=FLEET_MIX, orbit=None) -> dict:
     """Build ``spec`` on the card over ``(cfg, params)``, drive the seeded
-    open loop (``FLEET_LM`` LM requests, ``FLEET_COST`` cost-model ones)
-    with the flight recorder on, check the run and emit its lines; with
-    ``sampled``, half the LM requests sample.  A split pool's stage pool
-    (``<pool>.prefill``) is checked and reported beside it, and with
-    ``int8_per_chunk`` the int8 launches are held to its prefill chunks.
-    Returns each kernel's launches in the run, counted from 0."""
+    open loop (``n_lm`` LM requests over the classes of ``mix``,
+    ``FLEET_COST`` cost-model ones) with the flight recorder on, check the
+    run and emit its lines; with ``sampled``, half the LM requests sample.
+    A split pool's stage pool (``<pool>.prefill``) is checked and reported
+    beside it, and with ``int8_per_chunk`` the int8 launches are held to
+    its prefill chunks.  With ``orbit`` (an :class:`OrbitRun`) its
+    controller is attached before the traffic, an idle tail follows it, the
+    pools the autoscaler adds count as engine pools (their warm-up
+    launches aside), and the orbit's own checks and exports close the run.
+    Returns each kernel's launches in the run, counted from 0, and the
+    engine pools' mean batch seconds (wall time, the virtual clock's)."""
     from repro_torch.runtime.sampling import SamplingParams
     from repro_torch.serving import FleetSpec, LMWork, open_loop
 
@@ -1765,6 +1791,17 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     budgets, prompt_lens, samples = [], [], []
+    warm = collections.Counter()      # launches of live-added pools' warm-up
+    if orbit is not None:
+        orbit.attach(client)
+        real_add = client.add_pool
+
+        def add_pool(*a, **kw):
+            before = launches_now(pa, im, fa)
+            real_add(*a, **kw)
+            warm.update({k: v - before[k]
+                         for k, v in launches_now(pa, im, fa).items()})
+        client.add_pool = add_pool    # the autoscaler's call
 
     def payload(rng):
         i = len(budgets)
@@ -1783,13 +1820,16 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
     zero_counts()                     # the main path's counts start here
     t0 = time.perf_counter()
     cost = [client.submit(None, slo="exact") for _ in range(FLEET_COST)]
-    handles = open_loop(client, [client.resolve_slo("lm-any"),
-                                 client.resolve_slo("lm-accurate")],
-                        [0.5, 0.5], rate_hz=8.0, n_requests=FLEET_LM,
-                        seed=3, payload_fn=payload)
+    handles = open_loop(client, [client.resolve_slo(c) for c, _ in mix],
+                        [w for _, w in mix], rate_hz=FLEET_RATE_HZ,
+                        n_requests=n_lm, seed=3, payload_fn=payload)
+    if orbit is not None:
+        for _ in range(orbit.tail_ticks):   # idle: clones drain and retire
+            client.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = launches_now(pa, im, fa)
+    served = {k: v - warm[k] for k, v in n.items()}
     snap = client.telemetry
     if handles.truncated:
         raise AssertionError(f"{phase}: the open loop was cut at its time "
@@ -1815,8 +1855,11 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
     if tracer.open_spans() or tracer.dropped:
         raise AssertionError(f"{phase}: {len(tracer.open_spans())} orphan "
                              f"spans, {tracer.dropped} dropped")
-    lm_pools = [p["name"] for p in spec["pools"]
-                if p.get("backend") == "engine"]
+    counters = client.router.telemetry.pools
+    built = [p["name"] for p in spec["pools"] if p.get("backend") == "engine"]
+    clones = [name for name in counters
+              if any(name.startswith(f"{p}/as") for p in built)]
+    lm_pools = built + clones
     split = {p["name"] for p in spec["pools"]
              if p.get("prefill_backend") == "engine"}
     lanes = collections.Counter((sp.pool, sp.stage) for sp in tracer.spans)
@@ -1828,25 +1871,24 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
     # a split pool restores through the seam (chunked): no bucket prefill
     reprefills = sum(1 for sp in replays if sp.pool not in split
                      and prompt_of[sp.rid] <= QWEN_SERVE["prompt_len"])
-    if n["paged_attention"] != cfg.num_layers * (steps + replay_calls) \
+    if served["paged_attention"] != cfg.num_layers * (steps + replay_calls) \
             or not steps:
-        raise AssertionError(f"{phase}: {n['paged_attention']} "
+        raise AssertionError(f"{phase}: {served['paged_attention']} "
                              f"paged_attention launches for {steps} "
                              f"decode_step spans and {replay_calls} "
                              f"replayed decode calls")
-    if n["flash_attention"] != cfg.num_layers * (admits + reprefills) \
+    if served["flash_attention"] != cfg.num_layers * (admits + reprefills) \
             or not (admits or split):
-        raise AssertionError(f"{phase}: {n['flash_attention']} "
+        raise AssertionError(f"{phase}: {served['flash_attention']} "
                              f"flash_attention launches for {admits} admit "
                              f"spans and {reprefills} bucket re-prefills")
     if int8_per_chunk is not None:
-        if n["int8_matmul"] != int8_per_chunk * chunks or not chunks:
-            raise AssertionError(f"{phase}: {n['int8_matmul']} int8_matmul "
-                                 f"launches for {chunks} prefill_chunk spans"
-                                 f" of {int8_per_chunk}")
-    elif not n["int8_matmul"]:
+        if served["int8_matmul"] != int8_per_chunk * chunks or not chunks:
+            raise AssertionError(f"{phase}: {served['int8_matmul']} "
+                                 f"int8_matmul launches for {chunks} "
+                                 f"prefill_chunk spans of {int8_per_chunk}")
+    elif not served["int8_matmul"]:
         raise AssertionError(f"{phase}: no int8_matmul launch")
-    counters = client.router.telemetry.pools
     for f in spec.get("faults", ()):
         pool = snap["pools"][f["pool"]]
         key = FAULT_COUNTER[f["kind"]]
@@ -1865,8 +1907,10 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
     stages = [f"{p}.prefill" for p in sorted(split)]
     for name in lm_pools + stages + ["vision"]:
         pc = counters[name]
-        # a stage pool is charged per request, not per batch
-        if not (pc.completed if name in stages else pc.batches):
+        # a stage pool is charged per request, not per batch; a clone the
+        # autoscaler added may have retired before it took a batch
+        if name not in clones and not (pc.completed if name in stages
+                                       else pc.batches):
             raise AssertionError(f"{phase}: pool {name} served nothing")
         emit(f"{phase}_pool", pool=name, card=card,
              decode_tok_s=(pc.decode_tokens / pc.decode_s
@@ -1886,6 +1930,8 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
              prefill_chunks=lanes[(name, "prefill_chunk")],
              handoffs=lanes[(name, "handoff")],
              imports=lanes[(name, "import")])
+    extra = ({} if orbit is None else
+             orbit.finish(client, list(handles) + cost, wall))
     emit(phase, config=cfg.name, card=card,
          requests=len(handles) + len(cost), sampled=sum(samples),
          admitted=snap["admitted"], completed=snap["completed"],
@@ -1894,8 +1940,349 @@ def fleet_run(dev, card: str, cfg, params, kernels, spec: dict, phase: str,
          peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
          spans=len(tracer.spans), replayed_decode_calls=replay_calls,
          bucket_reprefills=reprefills,
-         **{f"{k}_launches": v for k, v in n.items()})
+         **{f"{k}_launches": v for k, v in n.items()},
+         **{f"{k}_warmup_launches": v for k, v in warm.items()}, **extra)
+    batch_s = (sum(counters[p].busy_s for p in lm_pools)
+               / max(sum(counters[p].batches for p in lm_pools), 1))
     del client, handles, cost
+    return n, batch_s
+
+
+# The orbit fleet: FLEET_SPEC's pools and classes and one LM class of
+# priority 1, which the controller never defers (its default
+# defer_max_priority is 0)
+ORBIT_SPEC = {**FLEET_SPEC, "slos": FLEET_SPEC["slos"] + [
+    {"name": "lm-critical", "max_latency_s": 600.0,
+     "max_accuracy_penalty": 0.02, "priority": 1}]}
+ORBIT_MIX = (("lm-any", 0.4), ("lm-accurate", 0.3), ("lm-critical", 0.3))
+# an LM pool charges its plan's energy_j per decoded token: budgets of 1-32
+# tokens decode 15.5 a request on average (the first comes from admission)
+ORBIT_DECODED = 15.5
+# The orbit: the first second sunlit, while the open loop's first eight
+# arrivals come in, then an eclipse of two batch times T of the engine
+# pools (a backlog outlives a batch), a battery of one second of demand
+# (eight requests' worth), the reference's harvest margins; the autoscaler
+# acts at most every quarter batch
+ORBIT_SUNLIT_S, ORBIT_ECLIPSE_T, ORBIT_BUCKET_S = 1.0, 2.0, 1.0
+ORBIT_COOLDOWN_T = 0.25
+ORBIT_TAIL_S = 5.0          # idle virtual seconds after the open loop
+
+
+class OrbitRun:
+    """The orbit control plane over one ``fleet_run``: the port's
+    ``eclipse_orbit_spec`` around the fleet's demand, in units of the
+    fleet's measured batch time ``batch_s``, with an autoscaler on the bf16
+    pool (``storm=False``); or a battery that never runs low with the
+    storm ladder on (``storm=True``).  ``finish`` checks the run's orbit
+    invariants and its four exports and emits its ``orbit`` line."""
+
+    def __init__(self, phase: str, card: str, batch_s: float,
+                 storm: bool = False):
+        self.phase, self.card = phase, card
+        self.batch_s, self.storm = batch_s, storm
+        self.tail_ticks = int(round(ORBIT_TAIL_S / FLEET_SPEC["dt"]))
+
+    def demand_w(self, client) -> float:
+        """``mix_demand_w`` over ``ORBIT_MIX``, each class priced at the
+        plan nominal dispatch picks for it (looked up on the client: the
+        global ``SLO_CLASSES`` hold no ``lm-*`` class), per decoded
+        token."""
+        from repro_torch.router import select_plan
+        per_req = 0.0
+        for name, w in ORBIT_MIX:
+            plan = select_plan(client.router.frontier,
+                               client.resolve_slo(name),
+                               latency_headroom=client.router.latency_headroom)
+            if plan is not None:
+                per_req += w * plan.energy_j * ORBIT_DECODED
+        return FLEET_RATE_HZ * per_req
+
+    def attach(self, client) -> None:
+        from repro_torch.launch.orbit import eclipse_orbit_spec
+        from repro_torch.orbit import OrbitSpec, PhaseSpec, ScalingPolicy
+        demand = self.demand_w(client)
+        t = self.batch_s
+        if self.storm:
+            # a battery of an hour's demand, charged at ten times it
+            self.ospec = OrbitSpec(
+                phases=[PhaseSpec("sunlit", 3600.0, 10 * demand)],
+                bucket_j=3600.0 * demand, storm_events=1, storm_decay=0.9)
+            sizing = {}
+        else:
+            # growth when a pool holds the arrivals of a quarter batch,
+            # at most 4: admission prepays drain the battery below conserve
+            # (where growth stops) within about a second of arrivals
+            queue_high = min(4, max(2, int(round(FLEET_RATE_HZ * t / 4))))
+            self.ospec = eclipse_orbit_spec(
+                demand, sunlit_s=ORBIT_SUNLIT_S,
+                eclipse_s=ORBIT_ECLIPSE_T * t, bucket_s=ORBIT_BUCKET_S,
+                scaling=ScalingPolicy(template="qwen-bf16", min_pools=1,
+                                      max_pools=2, queue_high=queue_high,
+                                      queue_low=0,
+                                      cooldown_s=ORBIT_COOLDOWN_T * t))
+            sizing = {"queue_high": queue_high,
+                      "cooldown_s": ORBIT_COOLDOWN_T * t}
+        self.ctrl = self.ospec.attach(client)
+        emit(f"{self.phase}_sizing", batch_s=t, demand_w_cost_model=demand,
+             phases=[p.to_dict() for p in self.ospec.phases],
+             bucket_j_cost_model=self.ospec.bucket_j,
+             storm_events=self.ospec.storm_events, **sizing)
+
+    def finish(self, client, handles, wall: float) -> dict:
+        """Check the run and emit its ``orbit`` line; returns the exports'
+        summary for the phase's line."""
+        ctrl, tracer = self.ctrl, client.tracer
+        snap = client.telemetry
+        phase = self.phase
+        modes = [m for _, m in ctrl.transitions]
+        if self.storm:
+            storms = [sp for sp in tracer.spans
+                      if sp.stage == "mode" and sp.attrs["storm"]]
+            if not storms or any(sp.attrs["mode"] != "conserve"
+                                 or sp.attrs["bucket_frac"]
+                                 <= self.ospec.conserve_frac
+                                 for sp in storms):
+                raise AssertionError(
+                    f"{phase}: the storm ladder did not floor the mode at "
+                    f"conserve on a full battery: "
+                    f"{[sp.attrs for sp in storms]}")
+        else:
+            left = next((i for i, m in enumerate(modes) if m != "nominal"),
+                        None)
+            if modes[0] != "nominal" or left is None \
+                    or "nominal" not in modes[left:]:
+                raise AssertionError(f"{phase}: transitions {modes} do not "
+                                     f"leave nominal and come back")
+            if snap["energy_deferred"] < 1:
+                raise AssertionError(f"{phase}: nothing was deferred")
+            if snap["pools_added"] < 1 or \
+                    snap["pools_retired"] != snap["pools_added"] or \
+                    any("/as" in name for name in client.router.pools):
+                raise AssertionError(
+                    f"{phase}: {snap['pools_added']} pools added, "
+                    f"{snap['pools_retired']} retired, fleet "
+                    f"{sorted(client.router.pools)} at the end")
+        by_rid = {h.rid: h for h in handles}
+        for sp in tracer.spans:
+            if sp.stage != "defer":
+                continue
+            h = by_rid[sp.rid]
+            if h._rreq.slo.priority > ctrl.spec.defer_max_priority:
+                raise AssertionError(f"{phase}: request {sp.rid} of "
+                                     f"priority {h._rreq.slo.priority} "
+                                     f"was deferred")
+            r = h.result()
+            if sp.t1 is None or r.dropped or not r.admitted or \
+                    h._rreq.done_s < sp.t1:
+                raise AssertionError(f"{phase}: deferred request {sp.rid} "
+                                     f"did not complete after its defer "
+                                     f"span ({sp.t1}, {h._rreq.done_s})")
+        if any(not h.done for h in handles):
+            raise AssertionError(f"{phase}: unresolved handles")
+        if snap["completed"] + snap["dropped"] + snap["rejected"] \
+                != len(handles):
+            raise AssertionError(
+                f"{phase}: {snap['completed']} completed + "
+                f"{snap['dropped']} dropped + {snap['rejected']} rejected "
+                f"!= {len(handles)} submitted")
+        exports = self.export(client)
+        pools = client.router.telemetry.pools
+        report = ctrl.report()
+        budget = (ctrl.initial_level_j
+                  + self.ospec.profile().energy_between(0.0, client.now))
+        emit("orbit", run=phase, card=self.card,
+             transitions=report["transitions"],
+             deferred=snap["energy_deferred"],
+             energy_rejected=snap["energy_rejected"],
+             scale_actions=report["scale_actions"], wall_s=wall,
+             virtual_s=client.now,
+             decode_tok_s={name: (c.decode_tokens / c.decode_s
+                                  if c.decode_s else None)
+                           for name, c in sorted(pools.items())},
+             energy_ratio_cost_model_units=round(snap["energy_j"] / budget,
+                                                 4))
+        return exports
+
+    def export(self, client) -> dict:
+        """The four exports into a temporary directory: the Chrome trace
+        parses, has one lane per pool that took work and holds every mode
+        event; every Prometheus counter equals its snapshot field; the
+        spans file has one line a span; the SLO report's telemetry is the
+        snapshot."""
+        import tempfile
+        from repro_torch.obs import (export_chrome_trace, export_prometheus,
+                                     export_slo_report, export_spans_jsonl)
+        phase = self.phase
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            export_chrome_trace(client, tmp / "trace.json")
+            n_spans = export_spans_jsonl(client, tmp / "spans.jsonl")
+            text = export_prometheus(client, str(tmp / "metrics.prom"))
+            report = export_slo_report(client, str(tmp / "slo.json"))
+            snap = client.telemetry
+            trace = json.loads((tmp / "trace.json").read_text())
+            lines = (tmp / "spans.jsonl").read_text().splitlines()
+            slo = json.loads((tmp / "slo.json").read_text())
+        events = trace["traceEvents"]
+        lanes = {e["args"]["name"] for e in events
+                 if e["ph"] == "M" and e["name"] == "process_name"}
+        busy = {name for name, c in snap["pools"].items() if c["dispatched"]}
+        if lanes != {"fleet"} | busy:
+            raise AssertionError(f"{phase}: trace lanes {sorted(lanes)} for "
+                                 f"the pools that took work {sorted(busy)}")
+        marks = sum(e["name"] == "mode" for e in events)
+        if marks != len(self.ctrl.transitions):
+            raise AssertionError(f"{phase}: {marks} mode events in the "
+                                 f"trace for {len(self.ctrl.transitions)} "
+                                 f"transitions")
+        if n_spans != len(lines) or n_spans != len(client.tracer.spans):
+            raise AssertionError(f"{phase}: {len(lines)} span lines for "
+                                 f"{len(client.tracer.spans)} spans")
+        if slo["telemetry"] != json.loads(json.dumps(report["telemetry"])) \
+                or report["telemetry"] != snap:
+            raise AssertionError(f"{phase}: the SLO report's telemetry is "
+                                 f"not the snapshot")
+        counters = 0
+        for line in text.splitlines():
+            name, _, value = line.rpartition(" ")
+            if name.startswith("repro_fleet_events_total{event="):
+                key = name.split('"')[1]
+                want = snap[key]
+            elif name.startswith("repro_pool_") and name.endswith("}"):
+                field = name[len("repro_pool_"):name.index("_total{")]
+                want = snap["pools"][name.split('"')[1]][field]
+            else:
+                continue
+            if float(value) != want:
+                raise AssertionError(f"{phase}: Prometheus {name} = {value}, "
+                                     f"snapshot {want}")
+            counters += 1
+        if not counters:
+            raise AssertionError(f"{phase}: no Prometheus counter")
+        return {"trace_events": len(events), "trace_lanes": sorted(lanes),
+                "spans_jsonl": n_spans, "prometheus_counters": counters}
+
+
+def orbit_full_width_phase(dev, card: str, cfg, params, kernels,
+                           batch_s: float) -> dict:
+    """Qwen3-14B at full width through an eclipse: ``ORBIT_SPEC`` (the two
+    engine pools and the cost-model pool of ``FLEET_SPEC``, and a priority-1
+    class) under the port's orbit controller, sized to ``batch_s``, with
+    the seeded greedy open loop of ``fleet_full_width_phase`` over
+    ``ORBIT_MIX`` (``orbit_full_width``); then a short run of the same
+    fleet with a full battery, the storm ladder on and ``FLEET_FAULTS``'
+    ``kv_bitflip`` (``orbit_storm``).  Returns each run's launches by
+    kernel, counted from 0."""
+    runs = {}
+    for phase, spec, storm, n_lm in (
+            ("orbit_full_width", ORBIT_SPEC, False, FLEET_LM),
+            ("orbit_storm", {**ORBIT_SPEC, "faults": FLEET_FAULTS[:1]}, True,
+             12)):
+        runs[phase] = fleet_run(dev, card, cfg, params, kernels, spec, phase,
+                                sampled=False, n_lm=n_lm, mix=ORBIT_MIX,
+                                orbit=OrbitRun(phase, card, batch_s,
+                                               storm=storm))[0]
+    return runs
+
+
+# sha256 (first 16 hex digits) of the reference's reports at the launchers'
+# defaults, as ``json.dumps(report, sort_keys=True)``: the two eclipse
+# scenarios, the dashboard's final report and its frames.  The runs are plain
+# Python on the virtual clock; ``tests/test_torch_launch.py`` holds these
+# digests to the reference's own runs.
+VISION_ORBIT_DIGESTS = {"orbit_eclipse_on": "93f0de1ea556b868",
+                        "orbit_eclipse_off": "250a51a247302549",
+                        "top_report": "720b7e93e8725d46",
+                        "top_frames": "f1e41db0ee317eac"}
+
+
+def digest(obj) -> str:
+    return hashlib.sha256(json.dumps(obj, sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def vision_orbit_phase() -> None:
+    """The orbit and dashboard launchers at the reference's defaults on the
+    card's machine (cost-model pools, no model): the eclipse scenario with
+    and without the controller and ``top.run_dashboard`` give the
+    reference's reports exactly (``VISION_ORBIT_DIGESTS``), every handle
+    resolves, and the controller keeps the fleet within the orbit budget
+    that the uncontrolled fleet overdraws (cost-model units)."""
+    from repro_torch.launch import orbit, top
+    t0 = time.perf_counter()
+    reports = {}
+    for controlled in (True, False):
+        r = orbit.run_eclipse_scenario(controlled=controlled)
+        reports[r["scenario"]] = r
+        if r["unresolved_handles"]:
+            raise AssertionError(f"vision_orbit: {r['scenario']} left "
+                                 f"{r['unresolved_handles']} handles")
+    frames = []
+    reports["top_report"] = top.run_dashboard(emit=frames.append)
+    reports["top_frames"] = frames
+    on, off = reports["orbit_eclipse_on"], reports["orbit_eclipse_off"]
+    if on["energy_ratio"] > off["energy_ratio"]:
+        raise AssertionError(f"vision_orbit: energy_ratio {on['energy_ratio']}"
+                             f" with the controller, {off['energy_ratio']} "
+                             f"without")
+    got = {k: digest(v) for k, v in reports.items()}
+    if got != VISION_ORBIT_DIGESTS:
+        raise AssertionError(f"vision_orbit: reports differ from the "
+                             f"reference's: {got}")
+    emit("vision_orbit", wall_s=time.perf_counter() - t0,
+         energy_ratio_cost_model_units={"controlled": on["energy_ratio"],
+                                        "uncontrolled": off["energy_ratio"]},
+         deferred=on["deferred"], t_end_s=on["t_end_s"],
+         transitions=len(on["controller"]["transitions"]),
+         scale_actions=len(on["controller"]["scale_actions"]),
+         dashboard_frames=len(frames), reports_equal_reference=True)
+
+
+LAUNCH_SERVE = ["--arch", "qwen3-14b", "--plan", "mpai", "--requests", "16"]
+LAUNCH_SERVE_MAX_NEW = 8    # the launcher's default budget a request
+
+
+def launch_serve_phase(card: str, kernels) -> dict:
+    """``python -m repro_torch.launch.serve --arch qwen3-14b --plan mpai
+    --requests 16 --trace PATH`` at full width from the port's seeded init,
+    as ``main(argv)``: 16 requests served with all their budgets' tokens,
+    the trace has the pool's lane, and paged attention, the int8 GEMM and
+    flash attention all launch.  Returns their launches, counted from 0."""
+    import tempfile
+    from repro_torch.launch import serve
+    pa, im, fa = kernels
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve_trace.json"
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                 # the main path's counts start here
+        t0 = time.perf_counter()
+        out = serve.main(LAUNCH_SERVE + ["--trace", str(path)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = launches_now(pa, im, fa)
+        trace = json.loads(path.read_text())
+    requests = int(LAUNCH_SERVE[LAUNCH_SERVE.index("--requests") + 1])
+    pool = out["pool"]
+    if out["served"] != requests or \
+            out["tokens"] != [LAUNCH_SERVE_MAX_NEW] * requests or \
+            pool["tokens_generated"] != LAUNCH_SERVE_MAX_NEW * requests:
+        raise AssertionError(f"launch_serve: served {out['served']}, tokens "
+                             f"{out['tokens']}, pool "
+                             f"{pool['tokens_generated']}")
+    lanes = {e["args"]["name"] for e in trace["traceEvents"]
+             if e["ph"] == "M" and e["name"] == "process_name"}
+    if "serve" not in lanes:
+        raise AssertionError(f"launch_serve: trace lanes {sorted(lanes)}")
+    idle = [k for k, v in n.items() if not v]
+    if idle:
+        raise AssertionError(f"launch_serve: no launch of {idle}")
+    emit("launch_serve", card=card, argv=LAUNCH_SERVE, wall_s=wall,
+         served=out["served"], tokens=pool["tokens_generated"],
+         batches=pool["batches"], busy_s=pool["busy_s"],
+         decode_tok_s=pool["decode_tokens_per_s"],
+         trace_events=out["trace_events"], trace_lanes=sorted(lanes),
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+         **{f"{k}_launches": v for k, v in n.items()})
     return n
 
 
@@ -1988,8 +2375,9 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
             (pa, im, fa)).items():
         for name, n in by_kernel.items():
             launches[name][f"{cfg.name}/{run}"] = n
-    for name, n in fleet_full_width_phase(dev, card, cfg, params, pa, im,
-                                          fa).items():
+    by_kernel, batch_s = fleet_full_width_phase(dev, card, cfg, params, pa,
+                                                im, fa)
+    for name, n in by_kernel.items():
         launches[name][f"{cfg.name}/fleet"] = n
     for name, n in fleet_sampled_hardened_phase(dev, card, cfg, params, pa,
                                                 im, fa).items():
@@ -2002,6 +2390,10 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
     for name, n in fleet_coproc_phase(dev, card, cfg, params, (pa, im, fa),
                                       per_chunk).items():
         launches[name][f"{cfg.name}/fleet_coproc"] = n
+    for run, by_kernel in orbit_full_width_phase(
+            dev, card, cfg, params, (pa, im, fa), batch_s).items():
+        for name, n in by_kernel.items():
+            launches[name][f"{cfg.name}/{run}"] = n
     return launches
 
 
@@ -2675,6 +3067,7 @@ def main() -> int:
     tiny_windowed_phase(dev)
     tiny_fleet_phase(dev)
     tiny_coproc_phase(dev)
+    vision_orbit_phase()
     launches = {row["name"]: {} for row in rows}
     for phase in (lambda: rwkv_full_width_phase(dev, card, wk, im, fa),
                   lambda: jamba_full_width_phase(dev, card),
@@ -2682,6 +3075,10 @@ def main() -> int:
         for name, by_plan in phase().items():
             launches[name].update(by_plan)
     gc.collect()                      # the LM phases' weights, in cycles
+    torch.cuda.empty_cache()
+    for name, n in launch_serve_phase(card, (pa, im, fa)).items():
+        launches[name]["qwen3-14b/launch_serve"] = n
+    gc.collect()                      # the launcher's weights
     torch.cuda.empty_cache()
     # the pose phases: cuDNN's deterministic convolutions, so an evaluation
     # repeats bit for bit (TF32 stays off, above)

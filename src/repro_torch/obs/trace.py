@@ -32,8 +32,7 @@ Design constraints, in order:
 One tracer per fleet: it lives on
 :class:`~repro_torch.router.telemetry.Telemetry` (the shared observability
 bag every layer already holds), and
-``ResponseHandle.trace()`` reads it back out (the reference's exporters,
-``repro.obs.export``, are not ported yet).
+``ResponseHandle.trace()`` / :mod:`repro_torch.obs.export` read it back out.
 """
 from __future__ import annotations
 

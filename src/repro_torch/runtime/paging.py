@@ -12,14 +12,21 @@ prefill pastes route writes from batch slots with no allocated blocks into
 it, so a fixed-shape batch can ride one scatter without corrupting live
 blocks.  Readers never touch it.
 
-The JAX reference returns a new pool from every write.  Here the writes
-(``append_tokens``, ``write_prefill_batch``, ``write_prefill_chunk``)
-update the pools, table views and lengths *in place* and return nothing:
-the engine's pools are tens of GB at full width and are never copied.
+The JAX reference returns a new state from every write.  Here the writes
+(``ensure_blocks``, ``release_sequence``, ``append_tokens``,
+``write_prefill``, ``write_prefill_batch``, ``write_prefill_chunk``) update
+the pools, table views and lengths *in place* and return nothing: the
+engine's pools are tens of GB at full width and are never copied.
+
+Two readers materialize a sequence's KV from its blocks, as the
+reference's test oracles: ``gather_kv`` and ``paged_decode_attention``
+(a dense f32 softmax over the gathered KV).  The engine serves with the
+paged-attention kernel (``kernels.ops.paged_attention``) instead.
 """
 from __future__ import annotations
 
 import hashlib
+import math
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -152,6 +159,30 @@ def plan_blocks(table: np.ndarray, alloc: BlockAllocator,
     return table
 
 
+def ensure_blocks(state: PagedKVState, alloc: BlockAllocator,
+                  new_tokens: np.ndarray) -> None:
+    """Grow each sequence's table to cover len+new tokens, in place.
+
+    Atomic through :func:`plan_blocks`: an :class:`OutOfBlocksError` is
+    raised before any block is taken, and the table is left as it was.
+    """
+    p = state.k_pool.shape[1]
+    lengths = state.lengths.cpu().numpy()
+    need = -(-(lengths + np.asarray(new_tokens)) // p)   # blocks, not tokens
+    table = plan_blocks(state.block_table.cpu().numpy(), alloc, need)
+    state.block_table.copy_(torch.from_numpy(table))
+
+
+def release_sequence(state: PagedKVState, alloc: BlockAllocator,
+                     seq: int) -> None:
+    """Hand sequence ``seq``'s blocks back to ``alloc`` (in table order) and
+    clear its table row and length, in place."""
+    row = state.block_table[seq].cpu().numpy()
+    alloc.release(row[row >= 0])
+    state.block_table[seq] = -1
+    state.lengths[seq] = 0
+
+
 def append_tokens(state: PagedKVState, k: torch.Tensor,
                   v: torch.Tensor) -> None:
     """Write one new token per sequence, in place.  k, v: [B, KVp, hd].
@@ -172,6 +203,31 @@ def append_tokens(state: PagedKVState, k: torch.Tensor,
     state.k_pool[blk, off] = k.to(state.k_pool.dtype)
     state.v_pool[blk, off] = v.to(state.v_pool.dtype)
     state.lengths.add_(active.to(state.lengths.dtype))
+
+
+def write_prefill(state: PagedKVState, k: torch.Tensor, v: torch.Tensor,
+                  seq: int) -> None:
+    """Paste a prefilled sequence's KV into its blocks in one scatter, in
+    place.
+
+    k, v: [S, KVp, hd] — tokens 0..S-1 of sequence ``seq`` (whose table
+    row must already cover ceil(S / P) blocks and whose length restarts
+    at S).  The pad tail of the last block is zero-filled; it sits past
+    ``lengths[seq]`` so every reader masks it off.  Dead table entries are
+    clamped to row 0, as the reference clamps them.
+    """
+    p = state.k_pool.shape[1]
+    s = k.shape[0]
+    nb = -(-s // p)
+    pad = nb * p - s
+
+    def blocked(x):
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        return x.reshape(nb, p, *x.shape[1:])
+    rows = torch.clamp_min(state.block_table[seq, :nb], 0).long()
+    state.k_pool[rows] = blocked(k).to(state.k_pool.dtype)
+    state.v_pool[rows] = blocked(v).to(state.v_pool.dtype)
+    state.lengths[seq] = s
 
 
 def write_prefill_batch(state: PagedKVState, k: torch.Tensor,
@@ -428,3 +484,40 @@ class SharedBlockIndex:
             return
         del self._refs[b]
         self._by_digest.pop(self._digest_of.pop(b), None)
+
+
+def gather_kv(state: PagedKVState, max_len: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Materialize each sequence's KV up to max_len.
+
+    Returns (k [B, max_len, KVp, hd], v likewise, valid [B, max_len]).
+    Dead table entries read row 0; ``valid`` masks by ``lengths``.
+    """
+    p = state.k_pool.shape[1]
+    nb = -(-max_len // p)
+    rows = state.block_table[:, :nb]
+    table = torch.where(rows >= 0, rows, 0).long()
+    k = state.k_pool[table]                    # [B, nb, P, KVp, hd]
+    v = state.v_pool[table]
+    b = k.shape[0]
+    k = k.reshape(b, nb * p, *k.shape[3:])[:, :max_len]
+    v = v.reshape(b, nb * p, *v.shape[3:])[:, :max_len]
+    valid = (torch.arange(max_len, device=state.lengths.device)[None, :]
+             < state.lengths[:, None])
+    return k, v, valid
+
+
+def paged_decode_attention(q: torch.Tensor, state: PagedKVState,
+                           max_len: int) -> torch.Tensor:
+    """q: [B, KVp, gp, hd] (one token) -> [B, KVp, gp, hd].
+
+    Reference path: gathers the full KV, then a dense f32 softmax with the
+    scores divided by ``sqrt(hd)`` and invalid positions at ``-1e30``.
+    """
+    k, v, valid = gather_kv(state, max_len)
+    hd = q.shape[-1]
+    scores = torch.einsum("bkgd,btkd->bkgt", q.float(),
+                          k.float()) / math.sqrt(hd)
+    scores = torch.where(valid[:, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", w, v.float()).to(q.dtype)

@@ -229,8 +229,8 @@ class ServingClient:
         self.device = device                 # where new LM pools run
         self._layers = layers if layers is not None else list(router.layers)
         self._retiring: set = set()
-        # orbit control plane (the reference's repro.orbit.FleetController;
-        # not ported yet), if attached
+        # orbit control plane (repro_torch.orbit.FleetController), if
+        # attached
         self.controller = None
         # SLO judgment plane (repro_torch.obs.slo.SLOEngine), if attached
         self.slo_engine = None
@@ -566,7 +566,7 @@ class ServingClient:
     def enable_tracing(self, max_spans: Optional[int] = None) -> None:
         """Turn the flight recorder on: every subsequent submission
         records its span chain (``ResponseHandle.trace()`` reads one
-        back)."""
+        back; ``repro_torch.obs.export`` serializes them all)."""
         if max_spans is not None:
             self.tracer.max_spans = max_spans
         self.tracer.enabled = True

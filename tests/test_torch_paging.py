@@ -1,7 +1,12 @@
 """The port's paged KV cache against ``repro.runtime.paging``: allocator
 books, block planning, the in-place pool writes (byte-equal to the
 reference's functional ones outside the trash row, whose duplicate-index
-scatter is unordered in both), prefix-sharing digests and refcounts."""
+scatter is unordered in both), prefix-sharing digests and refcounts; and
+``tests/test_paging.py``'s scenarios through both packages —
+``ensure_blocks`` (atomic under exhaustion), ``release_sequence``,
+``write_prefill`` (the zero-filled pad tail, dead entries clamped to row
+0), ``gather_kv`` (equal) and ``paged_decode_attention`` (within the
+reference test's 1e-5)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -264,3 +269,155 @@ def test_wire_checksum_equals_the_reference(n):
         flipped = bytearray(payload)
         flipped[n // 2] ^= 0x40
         assert tpg.wire_checksum(bytes(flipped)) != tpg.wire_checksum(payload)
+
+
+# ---------------------------------------------------------------------------
+# tests/test_paging.py's scenarios through both packages: ensure_blocks,
+# release_sequence, write_prefill, gather_kv and paged_decode_attention
+# ---------------------------------------------------------------------------
+B, P, KV, HD = 3, 4, 2, 8
+
+
+def _fresh(batch, num_blocks, dtype=np.float32):
+    """Empty allocators and caches of both packages, the same geometry."""
+    jdt = jnp.float32 if dtype == np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    return ((jpg.BlockAllocator(num_blocks),
+             jpg.init_paged_cache(batch, num_blocks, P, KV, HD, dtype=jdt)),
+            (tpg.BlockAllocator(num_blocks),
+             tpg.init_paged_cache(batch, num_blocks, P, KV, HD, dtype=tdt,
+                                  device="cpu")))
+
+
+def _ensure(j, t, new_tokens):
+    """``ensure_blocks`` in both; the port's updates its state in place."""
+    (ja, js), (ta, ts) = j, t
+    js = jpg.ensure_blocks(js, ja, new_tokens)
+    assert tpg.ensure_blocks(ts, ta, new_tokens) is None
+    assert list(ta.free) == list(ja.free)
+    _assert_state_equal(ts, js)
+    return (ja, js), t
+
+
+def _write_tokens(n, seed=0):
+    """``tests/test_paging.py``'s ``_write_tokens``: one block-ensure and
+    one appended token a step for every sequence, in both packages."""
+    rng = np.random.default_rng(seed)
+    j, t = _fresh(B, 32)
+    for _ in range(n):
+        j, t = _ensure(j, t, np.ones(B, np.int64))
+        k = rng.normal(size=(B, KV, HD)).astype(np.float32)
+        v = rng.normal(size=(B, KV, HD)).astype(np.float32)
+        j = (j[0], jpg.append_tokens(j[1], jnp.asarray(k), jnp.asarray(v)))
+        tpg.append_tokens(t[1], torch.tensor(k), torch.tensor(v))
+    _assert_state_equal(t[1], j[1])
+    return j, t
+
+
+def _assert_gather_equal(ts, js, max_len):
+    got, want = tpg.gather_kv(ts, max_len), jpg.gather_kv(js, max_len)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(w, np.float32))
+    return got
+
+
+@pytest.mark.parametrize("max_len", [12, 10, 4])
+def test_gather_kv_equals_the_reference(max_len):
+    (_, js), (_, ts) = _write_tokens(10)
+    k, _, valid = _assert_gather_equal(ts, js, max_len)
+    n = min(10, max_len)
+    assert bool(valid[:, :n].all()) and not bool(valid[:, n:].any())
+
+
+@pytest.mark.parametrize("gp,max_len", [(2, 12), (1, 16), (4, 9)])
+def test_paged_decode_attention_equals_the_reference(gp, max_len):
+    (_, js), (_, ts) = _write_tokens(9)
+    q = np.random.default_rng(1).normal(size=(B, KV, gp, HD)).astype(
+        np.float32)
+    got = tpg.paged_decode_attention(torch.tensor(q), ts, max_len)
+    want = jpg.paged_decode_attention(jnp.asarray(q), js, max_len)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_paged_decode_attention_of_an_empty_sequence_equals_the_reference():
+    """A sequence with no tokens: every score is masked to -1e30 and both
+    packages average row 0's values alike."""
+    j, t = _write_tokens(5)
+    (ja, js), (ta, ts) = j, t
+    js = jpg.release_sequence(js, ja, 1)
+    tpg.release_sequence(ts, ta, 1)
+    q = np.random.default_rng(2).normal(size=(B, KV, 2, HD)).astype(
+        np.float32)
+    got = tpg.paged_decode_attention(torch.tensor(q), ts, 8)
+    want = jpg.paged_decode_attention(jnp.asarray(q), js, 8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_allocator_reuse_after_release_equals_the_reference():
+    j, t = _fresh(2, 8, dtype=ml_dtypes.bfloat16)
+    j, t = _ensure(j, t, np.array([P * 3, P * 3]))
+    assert t[0].available == 2
+    js = jpg.release_sequence(j[1], j[0], 0)
+    assert tpg.release_sequence(t[1], t[0], 0) is None
+    assert list(t[0].free) == list(j[0].free) and t[0].available == 5
+    _assert_state_equal(t[1], js)
+    assert int(t[1].lengths[0]) == 0
+    j, t = _ensure((j[0], js), t, np.array([0, P * 4]))
+    assert t[0].available == 4
+
+
+@pytest.mark.parametrize("batch,num_blocks,first,second", [
+    (1, 2, None, [P * 3]),                  # tests/test_paging.py's first
+    (2, 3, [P, 0], [P * 2, P * 3]),         # 1 + 3 more needed, 2 left
+    (2, 4, [P * 2, P], [P * 5, P]),         # wider than a table row
+])
+def test_exhaustion_is_typed_atomic_and_equal(batch, num_blocks, first,
+                                              second):
+    j, t = _fresh(batch, num_blocks)
+    if first is not None:
+        j, t = _ensure(j, t, np.array(first))
+    before = (list(t[0].free), t[1].block_table.clone())
+    with pytest.raises(jpg.OutOfBlocksError, match="exhausted"):
+        jpg.ensure_blocks(j[1], j[0], np.array(second))
+    with pytest.raises(tpg.OutOfBlocksError, match="exhausted"):
+        tpg.ensure_blocks(t[1], t[0], np.array(second))
+    # nothing leaked, not even a satisfiable share
+    assert list(t[0].free) == before[0] == list(j[0].free)
+    assert torch.equal(t[1].block_table, before[1])
+    _assert_state_equal(t[1], j[1])
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+@pytest.mark.parametrize("s", [7, 8, 1])
+def test_write_prefill_equals_the_reference(dtype, s):
+    j, t = _fresh(2, 8, dtype=dtype)
+    j, t = _ensure(j, t, np.array([s, 0]))
+    rng = np.random.default_rng(5)
+    k = rng.normal(size=(s, KV, HD)).astype(np.float32)
+    v = rng.normal(size=(s, KV, HD)).astype(np.float32)
+    js = jpg.write_prefill(j[1], jnp.asarray(k), jnp.asarray(v), 0)
+    assert tpg.write_prefill(t[1], torch.tensor(k), torch.tensor(v),
+                             0) is None
+    _assert_state_equal(t[1], js)
+    assert t[1].lengths.tolist() == [s, 0]
+    gk, gv, valid = _assert_gather_equal(t[1], js, 8)
+    np.testing.assert_array_equal(gk[0, :s].float().numpy(),
+                                  k.astype(dtype).astype(np.float32))
+    assert bool(valid[0, :s].all()) and not bool(valid[0, s:].any())
+
+
+def test_write_prefill_clamps_dead_table_entries_to_row_zero():
+    """A sequence whose row owns no block pastes into row 0 (here the
+    block sequence 0 owns), in both."""
+    j, t = _fresh(2, 8)
+    j, t = _ensure(j, t, np.array([P, 0]))
+    k = np.random.default_rng(6).normal(size=(P, KV, HD)).astype(
+        np.float32)
+    js = jpg.write_prefill(j[1], jnp.asarray(k), jnp.asarray(-k), 1)
+    tpg.write_prefill(t[1], torch.tensor(k), torch.tensor(-k), 1)
+    _assert_state_equal(t[1], js)
+    assert t[1].block_table[0, 0] == 0
+    np.testing.assert_array_equal(t[1].k_pool[0].numpy(), k)
