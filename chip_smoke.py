@@ -85,6 +85,18 @@ the spans, and the Chrome trace, spans, Prometheus and SLO-report exports;
 the storm ladder flooring the mode at conserve; ``launch_serve`` runs
 ``python -m repro_torch.launch.serve --arch qwen3-14b --plan mpai --requests
 16`` at full width once the other Qwen3 phases have freed their weights.
+LM training: ``kernel_flash_backward`` holds the flash-attention
+backward kernel to its plain version (autograd of the plain forward) at
+Qwen3's layout (S 32 and 2048), StableLM-2's (S 4096, B 1 and 4) and a
+ragged S in f32, twice bit-equal, timed beside SDPA's backward;
+``tiny_train`` trains ``tiny_dense`` on CUDA and on the CPU;
+``train_full_width`` trains StableLM-2 1.6B at full width (24 layers,
+remat) on 4 x 4096 tokens (``train_4k``'s batch of 256 cut to 4), 4 steps
+under bf16 and 4 under "mpai", with step ms, tokens/s, peak memory and
+the flash kernels' launches, then a fault-tolerant run (a fault at step
+2, a checkpoint every step, 2 layers deep) bit-equal to the
+uninterrupted one; ``launch_train`` runs ``python -m
+repro_torch.launch.train --arch musicgen-medium --smoke --steps 2``.
 Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
@@ -1275,6 +1287,7 @@ def kernel_wrappers() -> dict:
     return {"paged_attention": paged_attention.paged_attention,
             "int8_matmul": int8_matmul.int8_matmul,
             "flash_attention": flash_attention.flash_attention,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "wkv": wkv.wkv,
             "selective_scan": selective_scan.selective_scan,
             "rowwise_quant": quant.rowwise_quant}
@@ -3015,6 +3028,353 @@ def ursonet_full_width_phase(dev, card: str, timer, im) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM training: the flash-attention backward kernel, tiny and full-width
+# StableLM-2 1.6B training, fault-tolerant restart, the train launcher
+# ---------------------------------------------------------------------------
+FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/models/attention.py:115"
+# (B, S, KVp, gp, hd, dtype): Qwen3's layout at the admission round and a
+# 2048-token prefill, StableLM-2's at S 4096 (B 1 and the training batch of
+# 4, the main path's shape and the row's), a ragged S in f32
+FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
+                   (1, 2048, 8, 5, 128, "bfloat16"),
+                   (1, 4096, 32, 1, 64, "bfloat16"),
+                   (4, 4096, 32, 1, 64, "bfloat16"),
+                   (2, 37, 2, 3, 64, "float32"))
+# per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
+# (bf16: P and dS enter their products as bf16)
+FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
+
+
+def flash_backward_phase(timer, fa, dev) -> dict:
+    """The backward kernel against its plain version (autograd of
+    ``flash_attention_plain``) at ``FLASH_BWD_CASES``: ``dq``, ``dk`` and
+    ``dv`` within ``FLASH_BWD_TOL``, two launches bit-equal, the forward's
+    ``lse`` consistent (the autograd path gives the kernel's own
+    gradients); times beside one ``scaled_dot_product_attention`` backward
+    at the same shapes (timed only here: the port never calls it)."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = {}
+    for b, s, kvp, gp, hd, dtype in FLASH_BWD_CASES:
+        dt = getattr(torch, dtype)
+        mk = lambda *shape: torch.randn(shape, generator=g,
+                                        device=dev).to(dt)
+        q, do = mk(b, s, kvp, gp, hd), mk(b, s, kvp, gp, hd)
+        k, v = mk(b, s, kvp, hd), mk(b, s, kvp, hd)
+        out, lse = fa._forward(q, k, v, True)
+        grads = fa.flash_attention_bwd(do, q, k, v, out, lse)
+        again = fa.flash_attention_bwd(do, q, k, v, out, lse)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+            raise AssertionError(f"flash_attention_bwd: two launches differ "
+                                 f"at B={b} S={s}")
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+        fa.flash_attention(qq, kk, vv).backward(do)
+        if not all(torch.equal(a, c) for a, c in
+                   zip((qq.grad, kk.grad, vv.grad), grads)):
+            raise AssertionError(f"flash_attention: the autograd path's "
+                                 f"gradients are not the kernel's at S={s}")
+        del qq, kk, vv
+        plain = fa.flash_attention_bwd_plain(do, q, k, v)
+        max_tol, fro_tol = FLASH_BWD_TOL[dtype]
+        errs = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, plain):
+            err = (got.float() - want.float())
+            errs[name] = err.abs().max().item()
+            ok = (bool(torch.isfinite(got).all())
+                  and errs[name] <= max_tol * want.float().abs().max().item()
+                  and torch.linalg.norm(err).item()
+                  <= fro_tol * torch.linalg.norm(want.float()).item())
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {name} disagrees "
+                                     f"with its plain version at B={b} "
+                                     f"S={s} gp={gp} {dtype}: max |err| "
+                                     f"{errs[name]}")
+        del plain, again
+        # the library yardstick: SDPA's backward on [B, H, S, hd]
+        ql = q.reshape(b, s, kvp * gp, hd).transpose(1, 2).contiguous() \
+            .requires_grad_(True)
+        kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (k, v))
+        dol = do.reshape(b, s, kvp * gp, hd).transpose(1, 2).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        try:
+            ol = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
+            lib_ms = timer.ms(lambda: torch.autograd.grad(
+                ol, (ql, kl, vl), dol, retain_graph=True), reps=10)
+        except (RuntimeError, TypeError) as e:
+            lib_ms, lib_note = None, str(e).splitlines()[0]
+        else:
+            lib_note = None
+        del ql, kl, vl, dol
+        size = 2 if dt == torch.bfloat16 else 4
+        # do, q, out and dq [B,S,KVp,gp,hd]; k, v, dk, dv; lse read
+        nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
+        flops = 2.5 * 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / peak * 1e3
+        rows[(b, s, gp, dtype)] = row = {
+            "ms": timer.ms(lambda: fa.flash_attention_bwd(do, q, k, v, out,
+                                                          lse), reps=10),
+            "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(
+                do, q, k, v), reps=3),
+            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "forward_ms": timer.ms(lambda: fa._forward(q, k, v, False),
+                                   reps=10),
+            "max_abs_err": max(errs.values())}
+        emit("kernel_flash_backward", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
+             dtype=dtype, **row, errs=errs, bit_equal=True,
+             library_note=lib_note,
+             tolerance=f"per gradient max|err| <= {max_tol} max|ref|, "
+                       f"||err|| <= {fro_tol} ||ref||",
+             bound_peak=("bf16 tensor cores, 989 TFLOP/s, 2.5x the "
+                         "forward's operations" if dt == torch.bfloat16
+                         else "f32 CUDA cores, 67 TFLOP/s"))
+        del q, k, v, do, out, lse, grads
+        torch.cuda.empty_cache()
+    main = rows[(4, 4096, 1, "bfloat16")]
+    return {"name": "flash_attention_bwd", "route": "cuda",
+            "source": FLASH_BWD_SRC, "replaces": FLASH_BWD_REPLACES,
+            "launches": 0, "max_abs_err": max(r["max_abs_err"]
+                                              for r in rows.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "replaces_note": "no TPU counterpart: the reference trains "
+                             "through XLA's autodiff of full_attention",
+            "shapes": "one StableLM-2 1.6B layer of the training step: B=4 "
+                      "S=4096 KVp=32 gp=1 hd=64; bound on bf16 tensor "
+                      "cores at 2.5x the forward's operations"}
+
+
+class StepClock:
+    """``on_step`` hook: the wall time of each training step, from the end
+    of the previous one (or ``start()``) to a synchronize after it."""
+
+    def __init__(self):
+        self.times = []
+        self.t0 = None
+
+    def start(self) -> None:
+        torch.cuda.synchronize()
+        self.t0 = time.perf_counter()
+
+    def __call__(self, step, state, metrics) -> None:
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.times.append(now - self.t0)
+        self.t0 = now
+
+
+def train_launches(fa) -> dict:
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+TINY_TRAIN_STEPS = 4
+TINY_TRAIN_SHAPE = (64, 4)       # seq, batch
+
+
+def tiny_train_phase(dev, fa) -> None:
+    """``tiny_dense`` trained ``TINY_TRAIN_STEPS`` bf16 steps by the
+    ``Trainer`` on CUDA (the flash kernel and its backward) and on the CPU
+    (the plain attention), from the same init (made on the CPU) and data:
+    every loss within 2**-7 of the CPU's (the kernel sums in another
+    order; a step's bf16 gradients agree within 2e-2 and an early Adam
+    step is +-lr a weight), every grad norm within 5e-2."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.tiny import TINY
+    from repro_torch.core.tree import tree_map
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.train_loop import Trainer, TrainState
+
+    shape = ShapeConfig("tiny", *TINY_TRAIN_SHAPE, "train")
+    tc = TrainConfig(learning_rate=1e-2, warmup_steps=2, total_steps=50)
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    hist = {}
+    state0 = Trainer(TINY, shape, mesh, tc, device="cpu").init_state()
+    for where in (dev, torch.device("cpu")):
+        tr = Trainer(TINY, shape, mesh, tc, device=where)
+        state = TrainState(*tree_map(lambda t: t.to(where), tuple(state0)))
+        zero_counts()
+        _, hist[where.type] = tr.run(
+            state, lambda s: lm_batch(TINY, shape, s, device=where),
+            TINY_TRAIN_STEPS, log_every=1)
+        if where.type == "cuda":
+            n = train_launches(fa)
+    idle = [k for k, v in n.items() if not v]
+    if idle:
+        raise AssertionError(f"tiny_train: no launch of {idle}")
+    for c, g in zip(hist["cpu"], hist["cuda"]):
+        if abs(c["loss"] - g["loss"]) > 2 ** -7 * c["loss"] or \
+                abs(c["grad_norm"] - g["grad_norm"]) > 5e-2 * c["grad_norm"]:
+            raise AssertionError(f"tiny_train: step {c['step']} CUDA "
+                                 f"{g} against CPU {c}")
+    emit("tiny_train", steps=TINY_TRAIN_STEPS, shape=TINY_TRAIN_SHAPE,
+         loss_cuda=[h["loss"] for h in hist["cuda"]],
+         loss_cpu=[h["loss"] for h in hist["cpu"]],
+         grad_norm_cuda=[h["grad_norm"] for h in hist["cuda"]],
+         grad_norm_cpu=[h["grad_norm"] for h in hist["cpu"]],
+         tolerance="loss 2**-7 relative, grad norm 5e-2 relative",
+         **{f"{k}_launches": v for k, v in n.items()})
+
+
+TRAIN_SHAPE = (4096, 4)          # train_4k's sequence, its batch 256 cut to 4
+TRAIN_STEPS = 4
+FT_LAYERS = 2                    # the restart check's depth (checkpoint I/O)
+FT_FAULT_AT = 2
+
+
+def train_full_width_phase(dev, card: str, fa) -> dict:
+    """StableLM-2 1.6B at full width (24 layers, d 2048, vocab 100352,
+    remat) trained ``TRAIN_STEPS`` steps of 4 x 4096 tokens under bf16 and
+    under "mpai" (``qat.train_plan``: a fake-quantized backbone) by the
+    ``Trainer`` from its seeded init: loss and grad norm finite, step ms
+    (median, each step ending in a synchronize), tokens/s, peak memory and
+    the flash kernels' launches, counted from 0 for each plan's run.  Then
+    fault-tolerant restart at the same widths, ``FT_LAYERS`` deep (each
+    checkpoint of the 24-layer state is 19.7 GB of host copy and disk): an
+    uninterrupted run of ``TRAIN_STEPS`` against a ``FaultTolerantRunner``
+    with a ``FaultInjector`` at step ``FT_FAULT_AT`` and ``checkpoint_every
+    =1``; history and final parameters bit-equal."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.stablelm_1_6b import FULL
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.fault import FaultInjector, FaultTolerantRunner
+    from repro_torch.runtime.train_loop import Trainer
+
+    shape = ShapeConfig("train_4k_cut", *TRAIN_SHAPE, "train")
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    data = lambda cfg: (lambda s: lm_batch(cfg, shape, s, device=dev))
+    out = {}
+    for name, plan in (("bf16", None),
+                       ("mpai", qat.train_plan(PartitionPlan.mpai(
+                           FULL.num_layers)))):
+        tc = TrainConfig(total_steps=TRAIN_STEPS)
+        tr = Trainer(FULL, shape, mesh, tc, plan=plan, device=dev)
+        t0 = time.perf_counter()
+        handed = [tr.init_state()]    # not kept: each old state is freed
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        clock = StepClock()
+        zero_counts()                 # the main path's counts start here
+        clock.start()
+        state, hist = tr.run(handed.pop(), data(FULL), TRAIN_STEPS,
+                             log_every=1, on_step=clock)
+        n = train_launches(fa)
+        bad = [h for h in hist if not (np.isfinite(h["loss"])
+                                       and np.isfinite(h["grad_norm"]))]
+        if bad or int(state.step) != TRAIN_STEPS:
+            raise AssertionError(f"train_full_width {name}: {hist}")
+        idle = [k for k, v in n.items() if not v]
+        if idle:
+            raise AssertionError(f"train_full_width {name}: no launch of "
+                                 f"{idle}")
+        step_ms = float(np.median(clock.times)) * 1e3
+        emit("train_full_width", card=card, config=FULL.name, plan=name,
+             shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+             reduced=["global batch 256 -> 4 (one card)"],
+             params=sum(p.numel() for p in tree_leaves(state.params)),
+             init_s=init_s, step_ms=step_ms,
+             step_ms_each=[t * 1e3 for t in clock.times],
+             tokens_per_s=shape.tokens / (step_ms / 1e3),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             loss=[h["loss"] for h in hist],
+             grad_norm=[h["grad_norm"] for h in hist],
+             **{f"{k}_launches": v for k, v in n.items()})
+        out[name] = n
+        del state, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # fault-tolerant restart at full width, FT_LAYERS deep
+    cfg = FULL.with_(num_layers=FT_LAYERS)
+    tc = TrainConfig(total_steps=TRAIN_STEPS, checkpoint_every=1)
+    ref_tr = Trainer(cfg, shape, mesh, tc, device=dev)
+    ref_state, ref_hist = ref_tr.run(ref_tr.init_state(), data(cfg),
+                                     TRAIN_STEPS, log_every=1)
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="ft_ckpt_", dir=ROOT / "build")
+    try:
+        tr = Trainer(cfg, shape, mesh, tc, device=dev)
+        ckpt = CheckpointManager(ckpt_dir, keep=2)
+        runner = FaultTolerantRunner(tr, ckpt, max_restarts=1)
+        t0 = time.perf_counter()
+        state, hist = runner.run(tr.init_state(), data(cfg), TRAIN_STEPS,
+                                 on_step=FaultInjector({FT_FAULT_AT}),
+                                 log_every=1)
+        ckpt.wait()
+        ft_s = time.perf_counter() - t0
+        saved = ckpt.steps()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same_params = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ref_state.params), tree_leaves(state.params)))
+    if runner.restarts != 1 or hist != ref_hist or not same_params:
+        raise AssertionError(f"train_fault_tolerant: restarts "
+                             f"{runner.restarts}, history {hist} against "
+                             f"{ref_hist}, params equal {same_params}")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(tuple(state)))
+    emit("train_fault_tolerant", card=card, config=cfg.name,
+         layers=FT_LAYERS, reduced=["global batch 256 -> 4",
+                                    f"layers 24 -> {FT_LAYERS}"],
+         fault_at=FT_FAULT_AT, restarts=runner.restarts, steps=TRAIN_STEPS,
+         checkpoint_gb=nbytes / 1e9, checkpoints_kept=saved, wall_s=ft_s,
+         history_bit_equal=True, params_bit_equal=True,
+         loss=[h["loss"] for h in hist])
+    del ref_state, state, tr, ref_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+LAUNCH_TRAIN = ["--arch", "musicgen-medium", "--smoke", "--steps", "2"]
+
+
+def launch_train_phase(card: str, fa) -> dict:
+    """``python -m repro_torch.launch.train --arch musicgen-medium --smoke
+    --steps 2`` on the card, as ``main(argv)`` (the audio frontend's
+    synthetic embeddings made on the card): two finite steps, both flash
+    kernels launched.  Returns their launches, counted from 0."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="launch_train_", dir=ROOT / "build")
+    try:
+        zero_counts()                 # the main path's counts start here
+        t0 = time.perf_counter()
+        out = train.main(LAUNCH_TRAIN + ["--ckpt-dir", ckpt_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = train_launches(fa)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    hist = out["history"]
+    if [h["step"] for h in hist] != [1, 2] or not all(
+            np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"launch_train: {hist}")
+    idle = [k for k, v in n.items() if not v]
+    if idle:
+        raise AssertionError(f"launch_train: no launch of {idle}")
+    emit("launch_train", card=card, argv=LAUNCH_TRAIN, wall_s=wall,
+         arch=out["arch"], shape=out["shape"],
+         loss=[h["loss"] for h in hist],
+         **{f"{k}_launches": v for k, v in n.items()})
+    return n
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3060,13 +3420,15 @@ def main() -> int:
             flash_attention_phase(timer, fa, dev),
             wkv_phase(timer, wk, dev),
             selective_scan_phase(timer, ss, dev, sm_mhz),
-            rowwise_quant_phase(timer, rq, dev)]
+            rowwise_quant_phase(timer, rq, dev),
+            flash_backward_phase(timer, fa, dev)]
     sampling_phase(timer, dev)
     del timer
     tiny_phase(dev)
     tiny_windowed_phase(dev)
     tiny_fleet_phase(dev)
     tiny_coproc_phase(dev)
+    tiny_train_phase(dev, fa)
     vision_orbit_phase()
     launches = {row["name"]: {} for row in rows}
     for phase in (lambda: rwkv_full_width_phase(dev, card, wk, im, fa),
@@ -3080,6 +3442,11 @@ def main() -> int:
         launches[name]["qwen3-14b/launch_serve"] = n
     gc.collect()                      # the launcher's weights
     torch.cuda.empty_cache()
+    for plan, by_kernel in train_full_width_phase(dev, card, fa).items():
+        for name, n in by_kernel.items():
+            launches[name][f"stablelm-1.6b/train/{plan}"] = n
+    for name, n in launch_train_phase(card, fa).items():
+        launches[name]["musicgen-smoke/launch_train"] = n
     # the pose phases: cuDNN's deterministic convolutions, so an evaluation
     # repeats bit for bit (TF32 stays off, above)
     torch.backends.cudnn.deterministic = True
@@ -3094,8 +3461,8 @@ def main() -> int:
         # own; "launches" is their sum, "launches_by_plan" keeps them apart
         row["launches_by_plan"] = launches[row["name"]]
         row["launches"] = sum(launches[row["name"]].values())
-        if row["name"] in ("selective_scan", "rowwise_quant") and \
-                not row["launches"]:
+        if row["name"] in ("selective_scan", "rowwise_quant",
+                           "flash_attention_bwd") and not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on the main path")
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -2,12 +2,16 @@
 architecture registry: ``--arch <id>`` and ``FleetSpec.arch`` resolve
 here.
 
-The reference's shape table (``SHAPES``) and its dry-run ``cells()`` belong
-to the meta-device dry-run, a later slice of the port.
+The reference's dry-run ``cells()`` belongs to the meta-device dry-run, a
+later slice of the port.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import (LONG_500K, DECODE_32K,  # noqa: F401
+                                      PREFILL_32K, TRAIN_4K, MeshConfig,
+                                      ModelConfig, MoEConfig, MULTI_POD,
+                                      ShapeConfig, SHAPES, SINGLE_POD,
+                                      SMOKE_MESH, TrainConfig)
 
 from repro_torch.configs import (jamba_v0_1_52b, llama3_405b,
                                  llava_next_mistral_7b, moonshot_v1_16b_a3b,

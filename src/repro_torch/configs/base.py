@@ -2,15 +2,17 @@
 
 Every architecture is described by a frozen :class:`ModelConfig`, field for
 field the reference's, so a config means the same model in both packages.
-:class:`TrainConfig` is the reference's too (AdamW and the pose trainer
-read it).  The reference's shape and mesh configs belong to later slices.
+:class:`TrainConfig`, :class:`ShapeConfig` (with the reference's four
+cells ``SHAPES``) and :class:`MeshConfig` are the reference's too; the port
+trains on one device, so a mesh other than one device is refused where it
+would be used (``runtime/train_loop.Trainer``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +185,62 @@ class ModelConfig:
 
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (the four assigned cells per arch)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+# ---------------------------------------------------------------------------
+# Mesh
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def tp(self) -> int:
+        return self.shape[self.axes.index("model")] if "model" in self.axes else 1
+
+    @property
+    def dp(self) -> int:
+        d = 1
+        for ax in ("pod", "data"):
+            if ax in self.axes:
+                d *= self.shape[self.axes.index(ax)]
+        return d
+
+
+SINGLE_POD = MeshConfig((16, 16), ("data", "model"))
+MULTI_POD = MeshConfig((2, 16, 16), ("pod", "data", "model"))
+SMOKE_MESH = MeshConfig((1, 1), ("data", "model"))
 
 
 # ---------------------------------------------------------------------------

@@ -85,6 +85,14 @@ class PartitionPlan:
                                 PrecisionPolicy.bf16(), "tpu_v5e_bf16"))
         return cls(tuple(segs))
 
+    @classmethod
+    def int8_all(cls, num_layers: int, mode: str = "quant",
+                 use_pallas: bool = False) -> "PartitionPlan":
+        """Everything quantized (the paper's DPU-only row — fast, lossy)."""
+        pol = (PrecisionPolicy.int8_qat() if mode == "fake"
+               else PrecisionPolicy.int8(use_pallas=use_pallas))
+        return cls((Segment("all", 0, num_layers, pol, "tpu_v5e_int8"),))
+
     def align_to_period(self, period: int, num_layers: int) -> "PartitionPlan":
         """Snap segment boundaries to multiples of the layer-pattern period."""
         if period <= 1:
@@ -102,3 +110,6 @@ class PartitionPlan:
                                 last.accelerator))
         return PartitionPlan(tuple(segs), self.embed_policy, self.head_policy)
 
+
+def default_plan(num_layers: int) -> PartitionPlan:
+    return PartitionPlan.uniform(num_layers)

@@ -1,8 +1,8 @@
 """Counter-based random numbers, bit for bit as ``jax.random`` draws them
 with its default threefry2x32 keys (the port's twin of the parts of
-``jax.random`` the serving path and the pose data reach: ``PRNGKey``,
-``fold_in``, ``split``, ``bits``, ``uniform``, ``normal``, ``gumbel`` and
-``categorical``).
+``jax.random`` the serving path and the synthetic data reach: ``PRNGKey``,
+``fold_in``, ``split``, ``bits``, ``uniform``, ``normal``, ``gumbel``,
+``categorical``, ``randint`` and ``bernoulli``).
 
 A key is an int64 tensor ``[..., 2]`` holding two uint32 words, as
 ``jax.random.key_data`` shows them.  Every 32-bit word lives in an int64
@@ -128,6 +128,31 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     # XLA's CPU code fuses the scale and shift into one fma (one rounding):
     # the product is exact in float64, the sum rounds once to float32
     return torch.clamp_min((floats.double() * span + lo).float(), lo)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` into int32 for int32 bounds: two 32-bit draws
+    under ``split(key)``, ``hi`` and ``lo``, folded into ``[minval,
+    maxval)`` as jax does it, ``((hi % span) * m + lo % span) % span`` in
+    wrapping uint32 with ``m = (2**16 % span)**2 % span`` (the square wraps
+    too: 0 for spans above 2**16)."""
+    keys = split(key, 2)
+    hi = random_bits(keys[..., 0, :], shape)
+    lo = random_bits(keys[..., 1, :], shape)
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & MASK) % span
+    # the product of two words below 2**32 may wrap int64: its low 32 bits
+    # stay right, and those are all uint32 arithmetic keeps
+    off = (((hi % span) * mult & MASK) + lo % span) & MASK
+    return (minval + off % span).to(torch.int32)
+
+
+def bernoulli(key: torch.Tensor, p: float,
+              shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli`` with a float32 ``p`` (mode ``"low"``): a
+    float32 uniform below ``p``."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:

@@ -123,3 +123,13 @@ def quantize_params(params, channel_axis: int = -1, stacked: bool = False):
             return quantize(p, channel_axis=channel_axis, batch_axes=batch)
         return p
     return tree_map(_q, params)
+
+
+def quantization_error(x: torch.Tensor,
+                       channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Max abs round-trip error — bounded by scale/2 (property-tested).
+    ``codes * scale - x`` is rounded once, as XLA's CPU code fuses it into
+    one fma (the product is exact in float64)."""
+    qt = quantize(x, channel_axis)
+    err = (qt.values.double() * qt.scale.double() - x.double()).float()
+    return torch.max(torch.abs(err))

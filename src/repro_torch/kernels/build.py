@@ -108,9 +108,10 @@ def check(status: int, what: str) -> None:
 
 
 def refuse_grad(what: str, *tensors) -> None:
-    """The kernels have no backward (nor have the reference's): a CUDA call
-    whose output a gradient would need raises, rather than leave the
-    inputs out of the autograd graph."""
+    """The wkv and selective-scan kernels have no backward (nor have the
+    reference's): a CUDA call whose output a gradient would need raises,
+    rather than leave the inputs out of the autograd graph.  (Flash
+    attention differentiates through its backward kernel.)"""
     import torch
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(f"{what}: the CUDA kernel has no backward; "

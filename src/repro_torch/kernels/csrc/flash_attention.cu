@@ -5,6 +5,9 @@
 //   q    [B, S, KVp, gp, hd]   -- gp query heads share each kv head
 //   k, v [B, S, KVp, hd]
 //   out  [B, S, KVp, gp, hd]
+//   lse  [B, KVp, S*gp] f32, optional (null on the serving path): the natural
+//        log-sum-exp of each packed query row's scaled scores, which the
+//        backward (flash_attention_bwd.cu) reads to rebuild P
 // bf16 or f32 in (q, k, v and out alike), f32 inside: scores q.k / sqrt(hd),
 // query s sees keys 0..s, online softmax, out = acc / max(l, 1e-30).
 //
@@ -144,8 +147,8 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const __nv_bfloat16* __restrict__ k,
                 const __nv_bfloat16* __restrict__ v,
-                __nv_bfloat16* __restrict__ out, int seq, int kvp, int gp,
-                int hd, float scale_log2, int vec) {
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                int seq, int kvp, int gp, int hd, float scale_log2, int vec) {
   constexpr int CH = HDP / 8;        // 16-byte chunks per row
   constexpr int KS = HDP / 16;       // k16 steps of Q.K^T
   constexpr int NT = HDP / 8;        // n8 tiles of O
@@ -325,6 +328,16 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv_a = 1.f / fmaxf(l_a, 1e-30f);
   const float inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && tig == 0) {
+    // lse = m / sqrt(hd) + ln(l) = (m * c + log2(l)) * ln 2
+    float* row_lse = lse + ((long long)b * kvp + h) * rows;
+    if (wr0 + gid < rows)
+      row_lse[wr0 + gid] = (m_a * scale_log2 + log2f(l_a)) *
+                           0.6931471805599453f;
+    if (wr0 + gid + 8 < rows)
+      row_lse[wr0 + gid + 8] = (m_b * scale_log2 + log2f(l_b)) *
+                               0.6931471805599453f;
+  }
   // stage the warp's 16 output rows in its own rows of qs, then write
   // whole 16-byte chunks
   const int ra = warp * 16 + gid, rb = ra + 8;
@@ -352,8 +365,9 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HDP>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
-              int S, int kvp, int gp, int hd, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int kvp, int gp, int hd,
+              cudaStream_t stream) {
   const size_t smem =
       (size_t)(TC_ROWS + 2 * tc_stages(HDP) * TC_BK) * HDP * 2;
   cudaError_t e = cudaFuncSetAttribute(
@@ -366,7 +380,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((S * gp + TC_ROWS - 1) / TC_ROWS, kvp, B);
   flash_tc_kernel<HDP><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, kvp, gp, hd,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, kvp, gp, hd,
       scale_log2, vec);
   return (int)cudaGetLastError();
 }
@@ -387,7 +401,7 @@ template <int HDC>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 int seq, int kvp, int gp, int hd) {
+                 float* __restrict__ lse, int seq, int kvp, int gp, int hd) {
   extern __shared__ float4 smem4[];
   const int QS = q_stride(hd), KS = k_stride(hd);
   float* qs = reinterpret_cast<float*>(smem4);  // [ROWS, QS]  q / sqrt(hd)
@@ -510,6 +524,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int s = r / gp, g = r - s * gp;
     float* o = out + q_base + s * q_stride_s + (long long)g * hd;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * kvp + h) * rows + r] = m[i] + logf(l[i]);
 #pragma unroll
     for (int c = 0; c < HDC; ++c) {
       const int d = lane + 32 * c;
@@ -519,8 +535,9 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HDC>
-int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
-               int S, int kvp, int gp, int hd, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, int B, int S, int kvp, int gp, int hd,
+               cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)ROWS * q_stride(hd) +
                                        (size_t)BK * k_stride(hd) +
                                        (size_t)BK * hd);
@@ -530,32 +547,36 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B,
   if (e != cudaSuccess) return (int)e;
   dim3 grid((S * gp + ROWS - 1) / ROWS, kvp, B);
   flash_f32_kernel<HDC><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)out, S, kvp,
-      gp, hd);
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, lse, S,
+      kvp, gp, hd);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int S,
-                                    int kvp, int gp, int hd, void* stream) {
+                                    const void* v, void* out, void* lse,
+                                    int B, int S, int kvp, int gp, int hd,
+                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 16) return launch_tc<16>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 32) return launch_tc<32>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 64) return launch_tc<64>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 128) return launch_tc<128>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 256) return launch_tc<256>(q, k, v, out, B, S, kvp, gp, hd, s);
+  float* l = (float*)lse;
+  if (hd <= 16) return launch_tc<16>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 32) return launch_tc<32>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 64) return launch_tc<64>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 128) return launch_tc<128>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 256) return launch_tc<256>(q, k, v, out, l, B, S, kvp, gp, hd, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int B, int S,
-                                   int kvp, int gp, int hd, void* stream) {
+                                   const void* v, void* out, void* lse,
+                                   int B, int S, int kvp, int gp, int hd,
+                                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (hd <= 32) return launch_f32<1>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 64) return launch_f32<2>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 128) return launch_f32<4>(q, k, v, out, B, S, kvp, gp, hd, s);
-  if (hd <= 256) return launch_f32<8>(q, k, v, out, B, S, kvp, gp, hd, s);
+  float* l = (float*)lse;
+  if (hd <= 32) return launch_f32<1>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 64) return launch_f32<2>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 128) return launch_f32<4>(q, k, v, out, l, B, S, kvp, gp, hd, s);
+  if (hd <= 256) return launch_f32<8>(q, k, v, out, l, B, S, kvp, gp, hd, s);
   return (int)cudaErrorInvalidValue;
 }

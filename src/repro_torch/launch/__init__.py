@@ -6,9 +6,11 @@
 * ``route`` — the vision fleet under a fault and failover, the LM
   cost-model fleet, and real decode through an engine pool;
 * ``orbit`` — the vision fleet through an eclipse, controller on or off;
-* ``top`` — the same orbit as a text dashboard over the SLO engine.
+* ``top`` — the same orbit as a text dashboard over the SLO engine;
+* ``train`` — an LM trained through the fault-tolerant runner, under the
+  bf16 or the ``"mpai"`` (fake-quantized backbone) plan.
 
-A launcher that decodes runs its engines on ``--device``: the card unless
+A launcher that decodes or trains runs on ``--device``: the card unless
 the caller asks for ``cpu``; without a card it stops, it never falls back.
 """
 

@@ -9,13 +9,19 @@ and every parameter carries a leading super-block axis, as in the
 reference.  A :class:`~repro_torch.core.partition.PartitionPlan` splits
 the stack into contiguous segments; each runs its super-blocks under its
 own precision policy.
+
+Training (``loss_fn`` under autograd) recomputes each super-block in the
+backward pass when ``cfg.remat``, as the reference's ``jax.checkpoint``
+does (``torch.utils.checkpoint``; ``remat_group`` adds the outer groups).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import PartitionPlan
@@ -291,19 +297,88 @@ class LMOutput(NamedTuple):
     aux_loss: torch.Tensor        # [] f32: the MoE load-balancing losses
 
 
+def _block_apply(params: Dict, cfg: ModelConfig, pat, x: torch.Tensor,
+                 i: int, positions: torch.Tensor,
+                 policy: PrecisionPolicy, tp: int, cache, decode: bool,
+                 chunk: Optional[Tuple[int, int]]):
+    """Super-block ``i``: every sublayer of the pattern in turn.  Returns
+    ``(x, aux)``, aux the sum of the block's MoE losses (None without
+    MoE)."""
+    aux_total = None
+    blk = tree_map(lambda a: a[i], params["layers"])
+    for j, (kind, is_moe) in enumerate(pat):
+        key = f"sub_{j}"
+        c = None if cache is None else cache[key]
+        if kind == "rwkv6":
+            x, new = _rwkv_sublayer_apply(
+                blk[key], cfg, x, policy, tp,
+                None if c is None else c[i], decode)
+            if c is not None:
+                c[i] = new
+            continue
+        if kind == "mamba":
+            view = None if c is None else c[i]
+        else:
+            view = None if c is None else tree_map(lambda a: a[i], c)
+        x, new, aux = _sublayer_apply(blk[key], cfg, kind, is_moe, x,
+                                      positions, policy, view, decode, chunk)
+        if kind == "mamba" and c is not None:
+            c[i] = new
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+    return x, aux_total
+
+
+def _remat_blocks(block, lo: int, hi: int, x: torch.Tensor, group: int):
+    """Super-blocks ``lo .. hi-1`` with each one's activations recomputed
+    in the backward pass (the reference's ``jax.checkpoint``); with
+    ``group`` dividing their count, groups of ``group`` blocks are
+    checkpointed again on top (sqrt remat).  Returns ``(x, aux)``."""
+    def run(x, i):
+        return checkpoint(block, x, i, use_reentrant=False)
+
+    def run_group(x, g0):
+        return _sum_blocks(run, range(g0, g0 + group), x)
+
+    n = hi - lo
+    if group and n % group == 0 and n >= group:
+        return _sum_blocks(
+            lambda x, g0: checkpoint(run_group, x, g0, use_reentrant=False),
+            range(lo, hi, group), x)
+    return _sum_blocks(run, range(lo, hi), x)
+
+
+def _sum_blocks(run, indices, x: torch.Tensor):
+    """``x`` through ``run(x, i)`` for each ``i`` in turn; returns ``(x,
+    the sum of the auxiliary losses, None if there were none)``."""
+    aux = None
+    for i in indices:
+        x, a = run(x, i)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             plan: Optional[PartitionPlan] = None, tp: int = 1,
             cache=None, decode: bool = False,
+            frontend_embeds: Optional[torch.Tensor] = None,
             chunk: Optional[Tuple[int, int]] = None) -> LMOutput:
     """Unified forward; caches are updated in place and returned.
 
-    * prefill: tokens [B, S], cache None or a prefill-target cache
-      (:func:`init_cache`)
+    * train/prefill: tokens [B, S], cache None or a prefill-target cache
+      (:func:`init_cache`); ``frontend_embeds`` [B, F, D] (a vision or
+      audio frontend's output) go before the token embeddings
     * decode: tokens [B, 1]; a paged cache (attention-only stacks, the
       engine) or the prefilled :func:`init_cache` (the windowed loop)
     * chunked paged prefill: tokens [1, C], paged cache, ``chunk`` =
       ``(seq, start)`` — one chunk of sequence ``seq`` at absolute
       positions ``start .. start+C-1`` (see :func:`prefill_paged_chunk`)
+
+    Under autograd without a cache, ``cfg.remat`` recomputes each
+    super-block in the backward pass.  The reference's ``remat_policy=
+    "dots"`` (keep the matmul outputs) is not copied: it changes no value,
+    only what is kept, and here every super-block is recomputed whole.
     """
     pat = sublayer_pattern(cfg)
     period = len(pat)
@@ -313,6 +388,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 
     x = embed(params["embed"], tokens,
               plan.embed_policy.precision.compute_dtype)
+    if frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     dev = tokens.device
     if decode:
         if cache is None:
@@ -334,32 +411,20 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=dev).expand(x.shape[:2])
 
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for seg in plan.segments:
-        for i in range(seg.start // period, seg.end // period):
-            blk = tree_map(lambda a: a[i], params["layers"])
-            for j, (kind, is_moe) in enumerate(pat):
-                key = f"sub_{j}"
-                c = None if cache is None else cache[key]
-                if kind == "rwkv6":
-                    x, new = _rwkv_sublayer_apply(
-                        blk[key], cfg, x, seg.policy, tp,
-                        None if c is None else c[i], decode)
-                    if c is not None:
-                        c[i] = new
-                    continue
-                if kind == "mamba":
-                    view = None if c is None else c[i]
-                else:
-                    view = (None if c is None
-                            else tree_map(lambda a: a[i], c))
-                x, new, aux = _sublayer_apply(blk[key], cfg, kind, is_moe, x,
-                                              positions, seg.policy, view,
-                                              decode, chunk)
-                if kind == "mamba" and c is not None:
-                    c[i] = new
-                if aux is not None:
-                    aux_total = aux_total + aux
+        lo, hi = seg.start // period, seg.end // period
+        block = functools.partial(_block_apply, params, cfg, pat,
+                                  positions=positions, policy=seg.policy,
+                                  tp=tp, cache=cache, decode=decode,
+                                  chunk=chunk)
+        if remat:
+            x, aux = _remat_blocks(block, lo, hi, x, cfg.remat_group)
+        else:
+            x, aux = _sum_blocks(block, range(lo, hi), x)
+        if aux is not None:
+            aux_total = aux_total + aux
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     table = params["embed"] if cfg.tie_embeddings else params["lm_head"]
@@ -371,15 +436,13 @@ def loss_fn(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             tp: int = 1,
             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
-    load-balancing losses.  Differentiable on CPU tensors; on the card the
-    attention and recurrence kernels have no backward and refuse a
-    gradient."""
-    if frontend_embeds is not None:
-        raise NotImplementedError("frontend_embeds: the vision and audio "
-                                  "frontends are not ported yet (ROADMAP.md, "
-                                  "port queue item 10)")
-    out = forward(params, cfg, tokens, plan, tp)
-    logits = out.logits[:, -tokens.shape[1]:]
+    load-balancing losses; the frontend positions carry no loss.
+    Differentiable on CPU tensors and, through the flash kernel's
+    backward, on the card for attention stacks (the wkv and scan kernels
+    have no backward yet and refuse a gradient)."""
+    out = forward(params, cfg, tokens, plan, tp,
+                  frontend_embeds=frontend_embeds)
+    logits = out.logits[:, -tokens.shape[1]:]   # skip frontend positions
     return cross_entropy(logits, labels) + AUX_LOSS_COEF * out.aux_loss
 
 
@@ -389,8 +452,10 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
 
 
 def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, cache,
-            plan: Optional[PartitionPlan] = None, tp: int = 1) -> LMOutput:
-    return forward(params, cfg, tokens, plan, tp, cache=cache)
+            plan: Optional[PartitionPlan] = None, tp: int = 1,
+            frontend_embeds: Optional[torch.Tensor] = None) -> LMOutput:
+    return forward(params, cfg, tokens, plan, tp, cache=cache,
+                   frontend_embeds=frontend_embeds)
 
 
 def prefill_paged_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,

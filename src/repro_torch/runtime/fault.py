@@ -1,4 +1,12 @@
-"""Scheduled faults (the port of ``repro.runtime.fault``, serving side).
+"""Fault-tolerant training and scheduled serving faults (the port of
+``repro.runtime.fault``).
+
+The training contract: any step may raise (device loss, preemption).
+``FaultTolerantRunner`` restores the last committed checkpoint,
+optionally rebuilds the trainer (``rebuild``), and replays — the
+deterministic data pipeline and the deterministic step (no atomics on the
+card) make the replayed steps bit-identical.  ``FaultInjector`` raises at
+scheduled steps to prove that recovery reproduces the uninterrupted run.
 
 Serving-side faults (router subsystem): onboard accelerators in space see
 SEU-style transient upsets — a device drops out, then (usually) comes back
@@ -6,17 +14,16 @@ after a scrub/reset.  ``PoolFault`` / ``PoolFaultInjector`` model this at
 pool granularity on the router's clock: at ``at_s`` the named pool loses
 ``lost_profiles`` (or all of them), and recovers after ``duration_s``
 unless the fault is permanent (``duration_s=inf``).
-
-``FaultInjector`` raises at scheduled training steps.  The reference's
-``FaultTolerantRunner`` (checkpoint/restart of a training run) belongs to
-the training slice of the port (ROADMAP.md, port queue item 11).
 """
 from __future__ import annotations
 
 import heapq
 import math
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.runtime.train_loop import Trainer, TrainState
 
 
 class FaultInjector:
@@ -99,3 +106,59 @@ class PoolFaultInjector:
     @property
     def pending(self) -> int:
         return len(self._heap)
+
+
+class FaultTolerantRunner:
+    def __init__(self, trainer: Trainer, ckpt: CheckpointManager,
+                 max_restarts: int = 3,
+                 rebuild: Optional[Callable[[], Trainer]] = None):
+        self.trainer = trainer
+        self.ckpt = ckpt
+        self.max_restarts = max_restarts
+        self.rebuild = rebuild
+        self.restarts = 0
+
+    def _restore(self) -> TrainState:
+        if self.rebuild is not None:            # elastic path: new trainer
+            self.trainer = self.rebuild()
+        state, _ = self.ckpt.restore(self.trainer.state_like(),
+                                     device=self.trainer.device)
+        return state
+
+    def run(self, state: TrainState, data_fn, num_steps: int,
+            on_step=None, log_every: int = 10):
+        target = int(state.step) + num_steps
+        # Per-step metric records, keyed by step so a restarted segment's
+        # replay overwrites (bit-identically, by determinism) instead of
+        # duplicating; a mid-segment fault loses none of the steps that
+        # segment logged before it.
+        records: dict = {}
+
+        def _observe(s, st, metrics):
+            records[s + 1] = {"step": s + 1,
+                              "loss": float(metrics["loss"]),
+                              "grad_norm": float(metrics["grad_norm"])}
+            if on_step is not None:
+                on_step(s, st, metrics)
+
+        # always have a step-0 baseline to restart from
+        if self.ckpt.latest_step() is None:
+            self.ckpt.save(int(state.step), state, blocking=True)
+        while int(state.step) < target:
+            # hand the state over without keeping it: the trainer frees
+            # each step's old state as it goes (the reference donates its
+            # buffers), and a 1.6 B-parameter state with AdamW's moments is
+            # 19.7 GB
+            todo, handed = target - int(state.step), [state]
+            del state
+            try:
+                state, _ = self.trainer.run(
+                    handed.pop(), data_fn, todo,
+                    ckpt=self.ckpt, on_step=_observe, log_every=log_every)
+            except Exception as e:              # noqa: BLE001 — any step fault
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise RuntimeError(
+                        f"exceeded {self.max_restarts} restarts") from e
+                state = self._restore()
+        return state, [records[k] for k in sorted(records)]

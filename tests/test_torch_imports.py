@@ -82,6 +82,10 @@ ENTRY_POINTS = [
     ("repro_torch.pose", "train_ursonet"),
     ("repro_torch.pose", "eval_ursonet"),
     ("repro_torch.pose", "run_condition"),
+    ("repro_torch.data.pipeline", "lm_batch"),
+    ("repro_torch.models.frontends", "synthetic_frontend_embeds"),
+    ("repro_torch.runtime.train_loop", "Trainer"),
+    ("repro_torch.checkpoint.manager", "CheckpointManager.restore"),
 ]
 
 

@@ -343,11 +343,16 @@ def test_kernels_refuse_a_gradient():
 
 
 def test_loss_fn_refuses_frontend_embeds():
+    """Frontends are ported: ``loss_fn`` no longer refuses embeddings, it
+    skips their positions (``tests/test_torch_frontends.py`` holds it to
+    the reference)."""
     params = TT.model_init(TINY, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="frontend"):
-        TT.loss_fn(params, TINY, torch.zeros(1, 4, dtype=torch.long),
-                   torch.zeros(1, 4, dtype=torch.long),
-                   frontend_embeds=torch.zeros(1, 2, TINY.d_model))
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    fe = torch.zeros(1, 2, TINY.d_model)
+    loss = TT.loss_fn(params, TINY, toks, toks, frontend_embeds=fe)
+    logits = TT.forward(params, TINY, toks, frontend_embeds=fe).logits
+    assert logits.shape[1] == 6
+    assert torch.equal(loss, TL.cross_entropy(logits[:, -4:], toks))
 
 
 # ---------------------------------------------------------------------------
