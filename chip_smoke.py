@@ -1321,9 +1321,13 @@ class Int8Shapes:
 
 
 def zero_counts() -> None:
-    """Every kernel wrapper's launch count to 0."""
+    """Every kernel wrapper's launch count to 0 (and the backward's count
+    of each route)."""
     for wrapper in kernel_wrappers().values():
         wrapper.launches = 0
+        by_route = getattr(wrapper, "launches_by_route", None)
+        if by_route is not None:
+            by_route.update(dict.fromkeys(by_route, 0))
 
 
 def drive_windowed(server, trace, request_cls, logits=None) -> dict:
@@ -3036,39 +3040,61 @@ FLASH_BWD_SRC = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/models/attention.py:115"
 # (B, S, KVp, gp, hd, dtype): Qwen3's layout at the admission round and a
 # 2048-token prefill, StableLM-2's at S 4096 (B 1 and the training batch of
-# 4, the main path's shape and the row's), a ragged S in f32
+# 4, the main path's shape and the row's), a ragged S at hd 64 and gp 1, an
+# hd 128 layout with gp 4 (Jamba's, LLaVA-NeXT's), all on the wgmma route;
+# the tiny configs' hd 16 on the mma.sync route, a ragged S in f32
 FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (1, 2048, 8, 5, 128, "bfloat16"),
                    (1, 4096, 32, 1, 64, "bfloat16"),
                    (4, 4096, 32, 1, 64, "bfloat16"),
+                   (2, 300, 4, 1, 64, "bfloat16"),
+                   (2, 256, 2, 4, 128, "bfloat16"),
+                   (2, 37, 2, 2, 16, "bfloat16"),
                    (2, 37, 2, 3, 64, "float32"))
 # per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
 # (bf16: P and dS enter their products as bf16)
 FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
+# the ``kernels`` line's row of each bf16 route of the backward, and the
+# case whose numbers it carries: the main path's shape (one StableLM-2
+# layer of the training step) for wgmma, the tiny configs' hd 16 for
+# mma.sync
+FLASH_BWD_ROWS = {"wgmma": ("flash_attention_bwd", (4, 4096, 1, 64)),
+                  "mma_sync": ("flash_attention_bwd_mma_sync",
+                               (2, 37, 2, 16))}
 
 
-def flash_backward_phase(timer, fa, dev) -> dict:
+def flash_backward_phase(timer, fa, dev) -> list:
     """The backward kernel against its plain version (autograd of
-    ``flash_attention_plain``) at ``FLASH_BWD_CASES``: ``dq``, ``dk`` and
-    ``dv`` within ``FLASH_BWD_TOL``, two launches bit-equal, the forward's
-    ``lse`` consistent (the autograd path gives the kernel's own
-    gradients); times beside one ``scaled_dot_product_attention`` backward
-    at the same shapes (timed only here: the port never calls it)."""
+    ``flash_attention_plain``) at ``FLASH_BWD_CASES``, on every route:
+    ``dq``, ``dk`` and ``dv`` within ``FLASH_BWD_TOL``, two launches
+    bit-equal, the forward's ``lse`` consistent (the autograd path gives
+    the kernel's own gradients); ``ms`` around the wrapper and
+    ``device_ms`` of one wrapper call replayed from a CUDA graph, beside one
+    ``scaled_dot_product_attention`` backward at the same shapes (timed
+    only here: the port never calls it), and the forward kernel beside
+    SDPA's forward and its bound.  Returns the ``kernels`` line's rows of
+    the two bf16 routes."""
     g = torch.Generator(device=dev).manual_seed(9)
     rows = {}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for b, s, kvp, gp, hd, dtype in FLASH_BWD_CASES:
         dt = getattr(torch, dtype)
+        route = fa.bwd_route(dt, hd)
         mk = lambda *shape: torch.randn(shape, generator=g,
                                         device=dev).to(dt)
         q, do = mk(b, s, kvp, gp, hd), mk(b, s, kvp, gp, hd)
         k, v = mk(b, s, kvp, hd), mk(b, s, kvp, hd)
         out, lse = fa._forward(q, k, v, True)
+        before = fa.flash_attention_bwd.launches_by_route[route]
         grads = fa.flash_attention_bwd(do, q, k, v, out, lse)
         again = fa.flash_attention_bwd(do, q, k, v, out, lse)
         torch.cuda.synchronize()
+        if fa.flash_attention_bwd.launches_by_route[route] != before + 2:
+            raise AssertionError(f"flash_attention_bwd: the {route} route "
+                                 f"did not launch at hd {hd} {dtype}")
         if not all(torch.equal(a, c) for a, c in zip(grads, again)):
             raise AssertionError(f"flash_attention_bwd: two launches differ "
-                                 f"at B={b} S={s}")
+                                 f"at B={b} S={s} hd={hd}")
         qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
         fa.flash_attention(qq, kk, vv).backward(do)
         if not all(torch.equal(a, c) for a, c in
@@ -3089,41 +3115,49 @@ def flash_backward_phase(timer, fa, dev) -> dict:
             if not ok:
                 raise AssertionError(f"flash_attention_bwd {name} disagrees "
                                      f"with its plain version at B={b} "
-                                     f"S={s} gp={gp} {dtype}: max |err| "
-                                     f"{errs[name]}")
+                                     f"S={s} gp={gp} hd={hd} {dtype}: max "
+                                     f"|err| {errs[name]}")
         del plain, again
-        # the library yardstick: SDPA's backward on [B, H, S, hd]
+        # the library yardstick: SDPA's forward and backward on [B, H, S, hd]
         ql = q.reshape(b, s, kvp * gp, hd).transpose(1, 2).contiguous() \
             .requires_grad_(True)
         kl, vl = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (k, v))
         dol = do.reshape(b, s, kvp * gp, hd).transpose(1, 2).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         try:
+            lib_fwd_ms = timer.ms(lambda: sdpa(ql, kl, vl, is_causal=True,
+                                               enable_gqa=True), reps=10)
             ol = sdpa(ql, kl, vl, is_causal=True, enable_gqa=True)
             lib_ms = timer.ms(lambda: torch.autograd.grad(
                 ol, (ql, kl, vl), dol, retain_graph=True), reps=10)
         except (RuntimeError, TypeError) as e:
-            lib_ms, lib_note = None, str(e).splitlines()[0]
+            lib_ms = lib_fwd_ms = None
+            lib_note = str(e).splitlines()[0]
         else:
             lib_note = None
         del ql, kl, vl, dol
         size = 2 if dt == torch.bfloat16 else 4
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
         # do, q, out and dq [B,S,KVp,gp,hd]; k, v, dk, dv; lse read
         nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-        flops = 2.5 * 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        fwd_flops = 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / peak * 1e3
-        rows[(b, s, gp, dtype)] = row = {
-            "ms": timer.ms(lambda: fa.flash_attention_bwd(do, q, k, v, out,
-                                                          lse), reps=10),
+        t_ops = 2.5 * fwd_flops / peak * 1e3
+        # the forward: q, k, v read, out written
+        fwd_bound = max(size * (2 * q.numel() + 2 * k.numel()) / PEAK_BYTES,
+                        fwd_flops / peak) * 1e3
+        call = lambda: fa.flash_attention_bwd(do, q, k, v, out, lse)
+        rows[(b, s, gp, hd, dtype)] = row = {
+            "route": route,
+            "ms": timer.ms(call, reps=10),
+            "device_ms": timer.device_ms(call, reps=10),
             "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(
                 do, q, k, v), reps=3),
             "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "forward_ms": timer.ms(lambda: fa._forward(q, k, v, False),
                                    reps=10),
+            "forward_library_ms": lib_fwd_ms, "forward_bound_ms": fwd_bound,
             "max_abs_err": max(errs.values())}
         emit("kernel_flash_backward", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
              dtype=dtype, **row, errs=errs, bit_equal=True,
@@ -3135,18 +3169,25 @@ def flash_backward_phase(timer, fa, dev) -> dict:
                          else "f32 CUDA cores, 67 TFLOP/s"))
         del q, k, v, do, out, lse, grads
         torch.cuda.empty_cache()
-    main = rows[(4, 4096, 1, "bfloat16")]
-    return {"name": "flash_attention_bwd", "route": "cuda",
+    out_rows = []
+    for route, (name, (b, s, gp, hd)) in FLASH_BWD_ROWS.items():
+        main = rows[(b, s, gp, hd, "bfloat16")]
+        out_rows.append({
+            "name": name, "route": "cuda", "design": route,
             "source": FLASH_BWD_SRC, "replaces": FLASH_BWD_REPLACES,
-            "launches": 0, "max_abs_err": max(r["max_abs_err"]
-                                              for r in rows.values()),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
+            "launches": 0, "max_abs_err": max(
+                r["max_abs_err"] for r in rows.values()
+                if r["route"] == route),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
             "replaces_note": "no TPU counterpart: the reference trains "
                              "through XLA's autodiff of full_attention",
-            "shapes": "one StableLM-2 1.6B layer of the training step: B=4 "
-                      "S=4096 KVp=32 gp=1 hd=64; bound on bf16 tensor "
-                      "cores at 2.5x the forward's operations"}
+            "shapes": (f"B={b} S={s} gp={gp} hd={hd}" + (
+                "; one StableLM-2 1.6B layer of the training step, KVp=32"
+                if route == "wgmma" else "; the tiny configs' head dim"))
+            + "; bound on bf16 tensor cores at 2.5x the forward's "
+              "operations"})
+    return out_rows
 
 
 class StepClock:
@@ -3169,8 +3210,20 @@ class StepClock:
 
 
 def train_launches(fa) -> dict:
+    """The forward's launches and each bf16 backward route's, by their
+    rows in the ``kernels`` line."""
+    by_route = fa.flash_attention_bwd.launches_by_route
     return {"flash_attention": fa.flash_attention.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+            **{name: by_route[route]
+               for route, (name, _) in FLASH_BWD_ROWS.items()}}
+
+
+def train_idle(fa, cfg, n: dict) -> list:
+    """The kernels of a bf16 training run of ``cfg`` that did not launch:
+    the forward and the backward route of its head dim."""
+    hd = cfg.resolved_head_dim()
+    row = FLASH_BWD_ROWS[fa.bwd_route(torch.bfloat16, hd)][0]
+    return [k for k in ("flash_attention", row) if not n[k]]
 
 
 TINY_TRAIN_STEPS = 4
@@ -3204,7 +3257,7 @@ def tiny_train_phase(dev, fa) -> None:
             TINY_TRAIN_STEPS, log_every=1)
         if where.type == "cuda":
             n = train_launches(fa)
-    idle = [k for k, v in n.items() if not v]
+    idle = train_idle(fa, TINY, n)
     if idle:
         raise AssertionError(f"tiny_train: no launch of {idle}")
     for c, g in zip(hist["cpu"], hist["cuda"]):
@@ -3275,7 +3328,7 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
                                        and np.isfinite(h["grad_norm"]))]
         if bad or int(state.step) != TRAIN_STEPS:
             raise AssertionError(f"train_full_width {name}: {hist}")
-        idle = [k for k, v in n.items() if not v]
+        idle = train_idle(fa, FULL, n)
         if idle:
             raise AssertionError(f"train_full_width {name}: no launch of "
                                  f"{idle}")
@@ -3348,6 +3401,7 @@ def launch_train_phase(card: str, fa) -> dict:
     kernels launched.  Returns their launches, counted from 0."""
     import shutil
     import tempfile
+    from repro_torch.configs import get_config
     from repro_torch.launch import train
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="launch_train_", dir=ROOT / "build")
@@ -3364,7 +3418,7 @@ def launch_train_phase(card: str, fa) -> dict:
     if [h["step"] for h in hist] != [1, 2] or not all(
             np.isfinite(h["loss"]) for h in hist):
         raise AssertionError(f"launch_train: {hist}")
-    idle = [k for k, v in n.items() if not v]
+    idle = train_idle(fa, get_config(LAUNCH_TRAIN[1], smoke=True), n)
     if idle:
         raise AssertionError(f"launch_train: no launch of {idle}")
     emit("launch_train", card=card, argv=LAUNCH_TRAIN, wall_s=wall,
@@ -3421,7 +3475,7 @@ def main() -> int:
             wkv_phase(timer, wk, dev),
             selective_scan_phase(timer, ss, dev, sm_mhz),
             rowwise_quant_phase(timer, rq, dev),
-            flash_backward_phase(timer, fa, dev)]
+            *flash_backward_phase(timer, fa, dev)]
     sampling_phase(timer, dev)
     del timer
     tiny_phase(dev)
@@ -3462,7 +3516,9 @@ def main() -> int:
         row["launches_by_plan"] = launches[row["name"]]
         row["launches"] = sum(launches[row["name"]].values())
         if row["name"] in ("selective_scan", "rowwise_quant",
-                           "flash_attention_bwd") and not row["launches"]:
+                           "flash_attention_bwd",
+                           "flash_attention_bwd_mma_sync") \
+                and not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on the main path")
     emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the paged decode attention, wkv, causal flash-attention, int8
-GEMM, selective-scan and row-wise quant kernels, and the int8 KV cache
-write, at the shapes the serving paths give them, for one checkout of the
-port.
+"""Time the paged decode attention, wkv, causal flash-attention (forward
+and backward), int8 GEMM, selective-scan and row-wise quant kernels, and the
+int8 KV cache write, at the shapes the serving and training paths give
+them, for one checkout of the port.
 
     python3 scripts/kernel_bench.py [--src DIR] [--label NAME]
 
@@ -18,7 +18,10 @@ it evicts), and ``ms_clean_l2`` with the L2 scrubbed by reading 128 MB
 (cold and clean); paged attention, wkv, the selective scan, the row-wise
 quant and the KV write also get ``device_ms``, one wrapper call captured in
 a CUDA graph and replayed after the write scrub (the kernel without the
-wrapper's host time).  The int8 KV write is the fused
+wrapper's host time); so does the flash-attention backward
+(``flash_attention_bwd`` itself, not autograd), at the bf16 shapes of
+``chip_smoke.FLASH_BWD_CASES``, with the route where the checkout names
+one.  The int8 KV write is the fused
 ``rowwise_quant_into`` where the checkout has it, else the checkout's own
 sequence of two row-wise quant launches and four slot copies
 (``"fused": false``), so that two checkouts compare like with like.  The
@@ -36,10 +39,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
-from chip_smoke import (KV_WRITE_CASES, PAGED_CASES,  # noqa: E402
-                        QUANT_SHAPES, SCAN_SHAPES, Timer, kv_write_case,
-                        kv_write_sequence, paged_case, quant_rows,
-                        scan_case)
+from chip_smoke import (FLASH_BWD_CASES, KV_WRITE_CASES,  # noqa: E402
+                        PAGED_CASES, QUANT_SHAPES, SCAN_SHAPES, Timer,
+                        kv_write_case, kv_write_sequence, paged_case,
+                        quant_rows, scan_case)
 
 # (B, S, gp) with KVp 8, hd 128: the Qwen3-14B admission round, Jamba's
 # attention prefill window, a 2048-token Qwen3 prefill
@@ -88,8 +91,8 @@ def main() -> int:
         return row
 
     result = {"paged_attention": [], "wkv": [], "flash_attention": [],
-              "int8_matmul": [], "selective_scan": [], "rowwise_quant": [],
-              "int8_kv_write": []}
+              "flash_attention_bwd": [], "int8_matmul": [],
+              "selective_scan": [], "rowwise_quant": [], "int8_kv_write": []}
     for seed, (label, lengths, num_blocks) in enumerate(PAGED_CASES):
         a = paged_case(dev, lengths, seed, num_blocks)
         row = {"shape": label,
@@ -112,6 +115,22 @@ def main() -> int:
         result["flash_attention"].append(
             {"B": b, "S": s, "gp": gp,
              **times(lambda: fa.flash_attention(q, k, v))})
+    for b, s, kvp, gp, hd, dtype in FLASH_BWD_CASES:
+        if dtype != "bfloat16":
+            continue
+        mk = lambda *shape: torch.randn(shape, generator=g,
+                                        device=dev).bfloat16()
+        q, do = mk(b, s, kvp, gp, hd), mk(b, s, kvp, gp, hd)
+        k, v = mk(b, s, kvp, hd), mk(b, s, kvp, hd)
+        out, lse = fa._forward(q, k, v, True)
+        row = {"B": b, "S": s, "KVp": kvp, "gp": gp, "hd": hd,
+               **times(lambda: fa.flash_attention_bwd(do, q, k, v, out, lse),
+                       device_ms=True)}
+        if hasattr(fa, "bwd_route"):
+            row["route"] = fa.bwd_route(torch.bfloat16, hd)
+        result["flash_attention_bwd"].append(row)
+        del q, do, k, v, out, lse
+        torch.cuda.empty_cache()
     for m, k, n in INT8_SHAPES:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
                           dtype=torch.int8)

@@ -13,14 +13,55 @@
 // With P = exp(q.k / sqrt(hd) - lse) on and below the diagonal (0 above):
 //   D = rowsum(do * out),  dV = P^T do,  dS = P * (do v^T - D),
 //   dQ = dS k / sqrt(hd),  dK = dS^T q / sqrt(hd).
-// Three launches, no floating-point atomics (every output element is summed
-// by one thread in a fixed order), so two runs on the same inputs are
-// bit-equal, which the fault-tolerant replay of a training run relies on.
+// Three launches (four for wgmma at hd 128), no floating-point atomics and no
+// waits between blocks (every output element is summed by one thread in a
+// fixed order), so two runs on the same inputs are bit-equal, which the
+// fault-tolerant replay of a training run relies on.
 //
-// bf16 (every plan that trains on the card), on the bf16 tensor cores with
-// mma.sync m16n8k16 and f32 accumulators.  What bounds it: the 2.5x of the
-// forward's tensor-core operations (five S^2/2 x hd products instead of
-// two), and the shared-memory reads that feed them.  Design (FA2's):
+// Routes, chosen by the wrapper from dtype and head dim, never on a failure
+// (flash_attention.bwd_route):
+//
+// bf16 at hd 64 and 128 (every full-size config; entry
+// flash_attention_bwd_bf16_wgmma), on wgmma with f32 accumulators.  What
+// bounds it: the tensor-core operations (seven S^2/2 x hd tile products:
+// the dK/dV pass forms S^T, dP^T, P^T dO, dS^T Q and the dQ pass S, dP,
+// dS K, against the five of a fused pass), then the L2 -> shared-memory
+// traffic of re-reading the other side's tiles, then the exponentials
+// (each pass forms P).  Design (FA3's shape, kept free of atomics):
+//   * row_dot: D, as below;
+//   * dkdv_wg_kernel: a block of three warpgroups per 128 keys of one
+//     (batch, kv head).  Warpgroup 0 is the producer: setmaxnreg moves its
+//     registers to the consumers (24 and 240 a thread) and one warp works.
+//     Its lane 0 loads the block's K and V
+//     once and each query tile's Q and dO by TMA (128-byte swizzle, 5-D maps
+//     over (hd, gp, KVp, S, B) whose box is npos = 64/gp whole positions)
+//     into a ring of stages guarded by mbarriers; its 32 lanes copy the
+//     tile's lse and D rows with cp.async, arriving on the same barrier.
+//     Warpgroups 1 and 2 own 64 keys each and walk the query tiles on or
+//     below the diagonal: S^T = K Q^T and dP^T = V dO^T as wgmma from shared
+//     memory, P^T and dS^T on the accumulators, dV += P^T dO and dK += dS^T Q
+//     as wgmma with A from registers (the accumulators as bf16 fragments)
+//     and Q, dO as MN-major B.  The gp query heads of a kv head are rows of
+//     the same tiles, so dK and dV are summed in the block.  Named barriers
+//     pass a turn between the two warpgroups (ping-pong), so one's
+//     exponentials run while the other's products do.  At hd 128 the dK and
+//     dV accumulators (128 registers a thread) leave too few for S^T and
+//     dP^T, so the kernel runs twice, dV then dK, each forming S^T again;
+//   * dq_wg_kernel: the same block shape per 2*npos positions (two tiles of
+//     npos*gp <= 64 packed rows, one a warpgroup); the producer loads both Q
+//     and dO tiles once and streams the K and V tiles at or below the last
+//     row; each warpgroup forms S and dP, dS in registers, and dQ += dS K
+//     with K an MN-major B operand.
+//   Blocks of one (batch, kv head) are adjacent in the grid, longest first,
+//   so the tiles they share are read from L2.  Only tiles that cross the
+//   diagonal are masked: a row past a tile's packed rows (npos*gp < 64) or
+//   past the sequence has zero Q and dO rows (TMA's out-of-range fill, or
+//   zeroed once at the start) and zero lse and D, so it adds exactly 0.
+//
+// bf16 at any other hd up to 256 (entry flash_attention_bwd_bf16), on the
+// bf16 tensor cores with mma.sync m16n8k16 and f32 accumulators.  What
+// bounds it: the same operations, and the shared-memory reads that feed
+// them.  Design (FA2's):
 //   * row_dot: one warp a packed row, D in f32 from the bf16 do and out;
 //   * dkdv: a block of 4 warps owns 64 keys of one (batch, kv head), 16 a
 //     warp, keeps its K and V tile in shared memory and walks the query
@@ -41,6 +82,7 @@
 // f32 (the f32 plans), on CUDA cores, simple: blocks of 256 threads, 16
 // keys (dK, dV) or 16 query rows (dQ) a block, S, dP, P and dS for a tile
 // in shared memory, each output element summed by one thread.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -820,6 +862,867 @@ int launch_bwd_f32(const void* dout, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+// ============================================================ bf16 at hd 64
+// and 128: wgmma tiles fed by TMA, warp-specialized
+namespace wg {
+
+constexpr int ROWS = 64;         // rows of a wgmma tile (m64)
+constexpr int NWG = 2;           // consumer warpgroups a block (a third
+                                 // leaves them too few registers)
+constexpr int KEYS = 64 * NWG;   // keys a dK/dV block: 64 a consumer warpgroup
+constexpr int BK = 64;           // keys a K/V tile of the dQ pass
+constexpr int THREADS = 128 * (1 + NWG);   // and one producer warpgroup
+// registers a thread after setmaxnreg: the producer's go to the consumers
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int PANEL = 64 * 128;  // bytes of a 64-row, 64-column (128 B) panel
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(unsigned bar, unsigned parity) {
+  unsigned ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.b32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+  return ok != 0;
+}
+
+// Wait for the phase of `parity` to complete.  A wait of 2**34 cycles
+// (about 10 s: a deadlock, never a slow tile) traps, so a fault ends the
+// launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) asm volatile("trap;\n");
+}
+
+__device__ __forceinline__ unsigned long long map_addr(const CUtensorMap* m) {
+  return reinterpret_cast<unsigned long long>(m);
+}
+
+__device__ __forceinline__ void tma_4d(unsigned dst, const CUtensorMap* m,
+                                       unsigned bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(map_addr(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void tma_5d(unsigned dst, const CUtensorMap* m,
+                                       unsigned bar, int c0, int c1, int c2,
+                                       int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(map_addr(m)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(c4) : "memory");
+}
+
+// Shared-memory descriptor of a 128-byte-swizzled operand (the layout TMA's
+// SWIZZLE_128B writes: 128-byte rows, 8-row groups 1024 bytes apart).
+// K-major (the reduction runs along the row): lbo unused (16).  MN-major
+// (the reduction runs down the rows): lbo is the stride between 64-column
+// panels.  sbo is the 1024 bytes between 8-row groups in both.
+__device__ __forceinline__ unsigned long long desc(unsigned addr,
+                                                   unsigned lbo) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)(lbo >> 4) << 16) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// Named barriers 1 .. NWG pass a turn around the consumer warpgroups: each
+// issues its tensor-core products only in its turn, so one warpgroup's
+// exponentials run while the others' products do (FA3's ping-pong)
+__device__ __forceinline__ void turn_wait(int w) {
+  asm volatile("bar.sync %0, 256;\n" :: "r"(1 + w) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int w) {
+  asm volatile("bar.arrive %0, 256;\n" :: "r"(1 + (w + 1) % NWG) : "memory");
+}
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// tile addresses made opaque once a tile, so the compiler builds each
+// descriptor where it is used instead of holding them all in registers
+__device__ __forceinline__ void opaque(unsigned& a, unsigned& b, unsigned& c,
+                                       unsigned& d) {
+  asm volatile("" : "+r"(a), "+r"(b), "+r"(c), "+r"(d));
+}
+
+// registers a wgmma writes: kept out of the compiler's reordering
+template <int R>
+__device__ __forceinline__ void keep(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// m64n64k16 with A and B from shared memory, both K-major; scale_d 0
+// overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32],
+                                             unsigned long long da,
+                                             unsigned long long db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64nNk16 with A from registers (bf16 fragments) and B from shared memory,
+// MN-major (tnspB = 1); accumulates into d
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const unsigned (&a)[4],
+                                              unsigned long long db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int HD> struct RsOp;
+template <> struct RsOp<64> {
+  static __device__ __forceinline__ void run(float (&d)[32],
+                                             const unsigned (&a)[4],
+                                             unsigned long long b) {
+    wgmma_rs_n64(d, a, b);
+  }
+};
+template <> struct RsOp<128> {
+  static __device__ __forceinline__ void run(float (&d)[64],
+                                             const unsigned (&a)[4],
+                                             unsigned long long b) {
+    wgmma_rs_n128(d, a, b);
+  }
+};
+
+// the A fragments of k-step kk (accumulator columns 16kk .. 16kk + 15) of a
+// 64 x 64 f32 accumulator, as bf16 (FA3's conversion: the accumulator's
+// layout is the register-A layout, two columns to a register)
+__device__ __forceinline__ void frag(unsigned (&a)[4], const float (&d)[32],
+                                     int kk) {
+  a[0] = pack(d[8 * kk + 0], d[8 * kk + 1]);
+  a[1] = pack(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack(d[8 * kk + 6], d[8 * kk + 7]);
+}
+
+// rows past npos*gp of every Q and dO tile stay zero: TMA never writes
+// them, and a zero row adds nothing to the products
+__device__ __forceinline__ void zero_tails(unsigned char* tiles, int panels,
+                                           int tile_rows) {
+  const int tail = (ROWS - tile_rows) * 8;    // 16-byte chunks a panel
+  for (int i = threadIdx.x; i < panels * tail; i += THREADS) {
+    const int p = i / tail, c = i - p * tail;
+    *reinterpret_cast<uint4*>(tiles + p * PANEL + tile_rows * 128 + c * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// lse and D of one tile's packed rows r0 .. r0 + 63 into shared memory by
+// the producer warp, two rows a lane, with cp.async (a row's f32 offset need
+// not be 16-byte aligned, as a TMA box's start would have to be); rows past
+// the tile or the sequence read 0.
+__device__ __forceinline__ void copy_rows(unsigned ls, unsigned ds,
+                                          const float* __restrict__ lse,
+                                          const float* __restrict__ D,
+                                          long long st_base, int r0,
+                                          int tile_rows, int rows, int lane) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int rr = lane + 32 * u, r = r0 + rr;
+    const bool ok = rr < tile_rows && r < rows;
+    const long long off = ok ? st_base + r : 0;
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(ls + 4 * rr), "l"(lse + off), "r"(ok ? 4 : 0)
+                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(ds + 4 * rr), "l"(D + off), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+// the lane's arrival on `bar`, made once its cp.async copies have landed:
+// the producer never waits on them
+__device__ __forceinline__ void arrive_on_copies(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+template <int HD>
+struct KvLayout {                 // dK/dV block, offsets from a 1024-byte base
+  static constexpr int NP = HD / 64;              // 64-column panels
+  static constexpr int KT = NP * NWG * PANEL;     // K (or V) tile: KEYS keys
+  static constexpr int QT = NP * PANEL;           // Q (or dO) tile: 64 rows
+  static constexpr int NST = 4;                   // ring stages
+  static constexpr int K_OFF = 0, V_OFF = KT;
+  static constexpr int Q_OFF = 2 * KT;            // [NST] Q
+  static constexpr int O_OFF = Q_OFF + NST * QT;  // [NST] dO
+  static constexpr int L_OFF = O_OFF + NST * QT;  // [NST][64] lse
+  static constexpr int D_OFF = L_OFF + NST * ROWS * 4;     // [NST][64] D
+  static constexpr int BAR_OFF = D_OFF + NST * ROWS * 4;   // kv, full, empty
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * NST) + 1024;
+  static_assert(BYTES <= 232448, "dK/dV block over 227 KB of shared memory");
+};
+
+template <int HD>
+struct QLayout {                  // dQ block
+  static constexpr int NP = HD / 64;
+  static constexpr int QT = NP * PANEL;           // Q (or dO) tile: 64 rows
+  static constexpr int KT = NP * PANEL;           // K (or V) tile: 64 keys
+  static constexpr int NST = 4;                   // ring stages
+  static constexpr int Q_OFF = 0;                 // [NWG] Q, a warpgroup each
+  static constexpr int O_OFF = NWG * QT;          // [NWG] dO
+  static constexpr int K_OFF = 2 * NWG * QT;      // [NST] K
+  static constexpr int V_OFF = K_OFF + NST * KT;  // [NST] V
+  static constexpr int L_OFF = V_OFF + NST * KT;  // [NWG][64] lse
+  static constexpr int D_OFF = L_OFF + NWG * ROWS * 4;     // [NWG][64] D
+  static constexpr int BAR_OFF = D_OFF + NWG * ROWS * 4;   // q, full, empty
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * NST) + 1024;
+  static_assert(BYTES <= 232448, "dQ block over 227 KB of shared memory");
+};
+
+// dK, dV (either or both): one block per KEYS keys of one (batch, kv head);
+// warpgroup 0 is the producer (lane 0 of its first warp issues every TMA
+// load, its 32 lanes copy lse and D), each consumer warpgroup owns 64 of
+// the keys.  K and V stay in shared memory; Q, dO, lse and D come through a
+// ring of NST stages, one query tile (npos positions, all gp heads:
+// npos*gp <= 64 packed rows) a stage, for every tile on or below the
+// diagonal.
+template <int HD, bool DK, bool DV>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const float* __restrict__ lse, const float* __restrict__ D,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+               int seq, int kvp, int gp, int npos, float scale_log2,
+               float scale) {
+  using L = KvLayout<HD>;
+  constexpr int NP = L::NP, NST = L::NST;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const unsigned bar_kv = base + L::BAR_OFF;
+  const unsigned bar_full = bar_kv + 8, bar_empty = bar_kv + 8 * (1 + NST);
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * KEYS;
+  const int tile_rows = npos * gp;
+  const int t_first = k0 / npos, t_end = (seq + npos - 1) / npos;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full + 8 * s, 33);        // TMA and 32 lanes' copies
+      mbar_init(bar_empty + 8 * s, 4 * NWG);  // every consumer warp
+    }
+  }
+  if (tile_rows < ROWS) zero_tails(sm + L::Q_OFF, 2 * NST * NP, tile_rows);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  if (wgi == 0) {                             // producer: warp 0
+    producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int rows = seq * gp;
+    const long long st_base = (long long)(b * kvp + h) * rows;
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::KT);
+      for (int p = 0; p < NP; ++p)
+        for (int c = 0; c < NWG; ++c) {
+          const unsigned off = (p * NWG + c) * PANEL;
+          tma_4d(base + L::K_OFF + off, &tk, bar_kv, 64 * p, h, k0 + 64 * c,
+                 b);
+          tma_4d(base + L::V_OFF + off, &tv, bar_kv, 64 * p, h, k0 + 64 * c,
+                 b);
+        }
+    }
+    for (int t = t_first, i = 0; t < t_end; ++t, ++i) {
+      const int s = i % NST;
+      mbar_wait(bar_empty + 8 * s, ((i / NST) & 1) ^ 1);
+      const unsigned full = bar_full + 8 * s;
+      if (lane == 0) {
+        mbar_expect_tx(full, 2 * NP * tile_rows * 128);
+        for (int p = 0; p < NP; ++p) {
+          tma_5d(base + L::Q_OFF + s * L::QT + p * PANEL, &tq, full, 64 * p,
+                 0, h, t * npos, b);
+          tma_5d(base + L::O_OFF + s * L::QT + p * PANEL, &tdo, full, 64 * p,
+                 0, h, t * npos, b);
+        }
+      }
+      copy_rows(base + L::L_OFF + s * ROWS * 4, base + L::D_OFF + s * ROWS * 4,
+                lse, D, st_base, t * tile_rows, tile_rows, rows, lane);
+      arrive_on_copies(full);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  consumer_regs();
+  const int w = wgi - 1;
+  const int tid = threadIdx.x - 128 * wgi;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int kw0 = k0 + 64 * w;                // the warpgroup's first key
+  const int key_a = kw0 + 16 * warp + gid, key_b = key_a + 8;
+  const unsigned k_base = base + L::K_OFF + w * PANEL;
+  const unsigned v_base = base + L::V_OFF + w * PANEL;
+  float dka[DK ? HD / 2 : 1], dva[DV ? HD / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) {
+    if constexpr (DK) dka[i] = 0.f;
+    if constexpr (DV) dva[i] = 0.f;
+  }
+  mbar_wait(bar_kv, 0);
+  // one lane of each consumer warp releases a stage once the warp's
+  // products on it have retired and its reads of lse and D are done
+  auto release = [&](int st_) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st_);
+  };
+
+  if (w == NWG - 1) turn_pass(w);  // warpgroup 0 goes first
+  for (int t = t_first, i = 0; t < t_end; ++t, ++i) {
+    const int s = i % NST;
+    mbar_wait(bar_full + 8 * s, (i / NST) & 1);
+    const int p_lo = t * npos;
+    if (kw0 >= seq || p_lo + npos - 1 < kw0) {   // no row sees these keys
+      turn_wait(w);               // the turns go on, two a tile
+      turn_pass(w);
+      turn_wait(w);
+      turn_pass(w);
+      release(s);
+      continue;
+    }
+    unsigned q_sm = base + L::Q_OFF + s * L::QT;
+    unsigned o_sm = base + L::O_OFF + s * L::QT;
+    unsigned k_sm = k_base, v_sm = v_base;
+    opaque(q_sm, o_sm, k_sm, v_sm);
+    const float* ls = reinterpret_cast<const float*>(sm + L::L_OFF) +
+                      s * ROWS;
+    const float* ds = reinterpret_cast<const float*>(sm + L::D_OFF) +
+                      s * ROWS;
+    // S^T = K Q^T (and for dK, dP^T = V dO^T): 64 keys x 64 packed rows
+    float st[32], dpt[DK ? 32 : 1];
+    turn_wait(w);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const unsigned a = (kk >> 2) * NWG * PANEL + (kk & 3) * 32;
+      const unsigned bq = (kk >> 2) * PANEL + (kk & 3) * 32;
+      wgmma_ss_n64(st, desc(k_sm + a, 16), desc(q_sm + bq, 16), kk > 0);
+    }
+    wg_commit();
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const unsigned a = (kk >> 2) * NWG * PANEL + (kk & 3) * 32;
+        const unsigned bq = (kk >> 2) * PANEL + (kk & 3) * 32;
+        wgmma_ss_n64(dpt, desc(v_sm + a, 16), desc(o_sm + bq, 16), kk > 0);
+      }
+      wg_commit();
+      turn_pass(w);
+      wg_wait<1>();               // S^T done; dP^T runs on
+    } else {
+      turn_pass(w);
+      wg_wait<0>();
+    }
+    keep(st);
+    // P^T from lse; element (key_a | key_b, row 8j + 2tig + e).  Only tiles
+    // that cross the diagonal are masked: a row past the tile's packed rows
+    // or past the sequence has zero Q and dO rows and a zero lse and D, so
+    // its P is 1 and its products add exactly 0
+    // (one branch for the tile, none inside the loops, so the exponentials
+    // of all 32 elements can be in flight together)
+    if (p_lo < kw0 + 63) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * tig + e;
+          const float l2 = ls[col] * LOG2E;
+          const int pos = p_lo + col / gp;
+          const float pa = ex2(fmaf(st[4 * j + e], scale_log2, -l2));
+          const float pb = ex2(fmaf(st[4 * j + 2 + e], scale_log2, -l2));
+          st[4 * j + e] = key_a > pos ? 0.f : pa;    // set to 0, never
+          st[4 * j + 2 + e] = key_b > pos ? 0.f : pb;  // multiplied
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float l2 = ls[8 * j + 2 * tig + e] * LOG2E;
+          st[4 * j + e] = ex2(fmaf(st[4 * j + e], scale_log2, -l2));
+          st[4 * j + 2 + e] = ex2(fmaf(st[4 * j + 2 + e], scale_log2, -l2));
+        }
+    }
+    if constexpr (DK) {           // dS^T = P^T (dP^T - D)
+      wg_wait<0>();
+      keep(dpt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dd = ds[8 * j + 2 * tig + e];
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dd);
+          dpt[4 * j + 2 + e] = st[4 * j + 2 + e] * (dpt[4 * j + 2 + e] - dd);
+        }
+    }
+    // dV += P^T dO and dK += dS^T Q, 16 packed rows a k-step, P^T and dS^T
+    // as bf16 A fragments; dO and Q are MN-major B operands (the head dim
+    // runs along their rows)
+    unsigned pf[4][4], sf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (DV) frag(pf[kk], st, kk);
+      if constexpr (DK) frag(sf[kk], dpt, kk);
+    }
+    turn_wait(w);
+    wg_fence();
+    if constexpr (DV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        RsOp<HD>::run(dva, pf[kk], desc(o_sm + kk * 2048, PANEL));
+    }
+    if constexpr (DK) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        RsOp<HD>::run(dka, sf[kk], desc(q_sm + kk * 2048, PANEL));
+    }
+    wg_commit();
+    turn_pass(w);
+    wg_wait<0>();
+    if constexpr (DV) keep(dva);
+    if constexpr (DK) keep(dka);
+    release(s);
+  }
+  if (w == 0) turn_wait(w);       // the turn passed after the last tile
+
+  // element (key_a | key_b, dim 8j + 2tig + e) is dka[4j + 2*half + e]
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = key_a + 8 * half;
+    if (key >= seq) continue;
+    const long long off = ((long long)(b * seq + key) * kvp + h) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int dim = 8 * j + 2 * tig;
+      if constexpr (DK)
+        *reinterpret_cast<unsigned*>(dk + off + dim) =
+            pack(dka[4 * j + 2 * half] * scale,
+                 dka[4 * j + 2 * half + 1] * scale);
+      if constexpr (DV)
+        *reinterpret_cast<unsigned*>(dv + off + dim) =
+            pack(dva[4 * j + 2 * half], dva[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// dQ: one block per NWG*npos positions (a tile of npos*gp <= 64 packed rows
+// a consumer warpgroup) of one (batch, kv head); the producer loads the Q
+// and dO tiles with their lse and D once, then streams the K and V tiles at
+// or below the block's last position through the ring.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_wg_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tdo,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             const float* __restrict__ lse, const float* __restrict__ D,
+             __nv_bfloat16* __restrict__ dq, int seq, int kvp, int gp,
+             int npos, float scale_log2, float scale) {
+  using L = QLayout<HD>;
+  constexpr int NP = L::NP, NST = L::NST;
+  extern __shared__ unsigned char smem_raw[];
+  const unsigned raw = smem_u32(smem_raw);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const unsigned bar_q = base + L::BAR_OFF;
+  const unsigned bar_full = bar_q + 8, bar_empty = bar_q + 8 * (1 + NST);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int p0 = (gridDim.x - 1 - blockIdx.x) * NWG * npos;   // long first
+  const int tile_rows = npos * gp;
+  const int p_hi = min(p0 + NWG * npos, seq) - 1;  // the block's last row
+  const int ntiles = p_hi / BK + 1;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 33);                     // TMA and 32 lanes' copies
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 4 * NWG);
+    }
+  }
+  if (tile_rows < ROWS) zero_tails(sm + L::Q_OFF, 2 * NWG * NP, tile_rows);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+
+  if (wgi == 0) {                             // producer: warp 0
+    producer_regs();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    const int rows = seq * gp;
+    const long long st_base = (long long)(b * kvp + h) * rows;
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, 2 * NWG * NP * tile_rows * 128);
+      for (int w = 0; w < NWG; ++w)
+        for (int p = 0; p < NP; ++p) {
+          tma_5d(base + L::Q_OFF + w * L::QT + p * PANEL, &tq, bar_q, 64 * p,
+                 0, h, p0 + w * npos, b);
+          tma_5d(base + L::O_OFF + w * L::QT + p * PANEL, &tdo, bar_q,
+                 64 * p, 0, h, p0 + w * npos, b);
+        }
+    }
+    for (int w = 0; w < NWG; ++w)
+      copy_rows(base + L::L_OFF + w * ROWS * 4, base + L::D_OFF + w * ROWS * 4,
+                lse, D, st_base, (p0 + w * npos) * gp, tile_rows, rows, lane);
+    arrive_on_copies(bar_q);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    if (lane != 0) return;
+    for (int t = 0; t < ntiles; ++t) {
+      const int s = t % NST;
+      mbar_wait(bar_empty + 8 * s, ((t / NST) & 1) ^ 1);
+      const unsigned full = bar_full + 8 * s;
+      mbar_expect_tx(full, 2 * L::KT);
+      for (int p = 0; p < NP; ++p) {
+        tma_4d(base + L::K_OFF + s * L::KT + p * PANEL, &tk, full, 64 * p, h,
+               t * BK, b);
+        tma_4d(base + L::V_OFF + s * L::KT + p * PANEL, &tv, full, 64 * p, h,
+               t * BK, b);
+      }
+    }
+    return;
+  }
+
+  consumer_regs();
+  const int w = wgi - 1;
+  const int tid = threadIdx.x - 128 * wgi;
+  const int warp = tid / 32, lane = tid % 32, gid = lane / 4, tig = lane % 4;
+  const int pw = p0 + w * npos;               // the warpgroup's first position
+  const int p_hi_w = min(pw + npos, seq) - 1;
+  const int ra = 16 * warp + gid, rb = ra + 8;   // rows in the tile
+  // a row past the tile's packed rows or the sequence gets position seq
+  // (never stored; the causal mask needs only valid rows)
+  const int pos_a = ra < tile_rows ? pw + (gp == 1 ? ra : ra / gp) : seq;
+  const int pos_b = rb < tile_rows ? pw + (gp == 1 ? rb : rb / gp) : seq;
+  const unsigned q_base = base + L::Q_OFF + w * L::QT;
+  const unsigned o_base = base + L::O_OFF + w * L::QT;
+  float dqa[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dqa[i] = 0.f;
+  mbar_wait(bar_q, 0);
+  const float* ls = reinterpret_cast<const float*>(sm + L::L_OFF) + w * ROWS;
+  const float* ds = reinterpret_cast<const float*>(sm + L::D_OFF) + w * ROWS;
+  const float l2a = ls[ra] * LOG2E, l2b = ls[rb] * LOG2E;
+  const float da = ds[ra], db = ds[rb];
+
+  auto release = [&](int st_) {   // as in the dK/dV pass
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * st_);
+  };
+
+  if (w == NWG - 1) turn_pass(w);  // as in the dK/dV pass
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % NST;
+    mbar_wait(bar_full + 8 * s, (t / NST) & 1);
+    const int kt0 = t * BK;
+    if (pw >= seq || kt0 > p_hi_w) {           // keys no row here sees
+      turn_wait(w);
+      turn_pass(w);
+      turn_wait(w);
+      turn_pass(w);
+      release(s);
+      continue;
+    }
+    unsigned k_sm = base + L::K_OFF + s * L::KT;
+    unsigned v_sm = base + L::V_OFF + s * L::KT;
+    unsigned q_sm = q_base, o_sm = o_base;
+    opaque(q_sm, o_sm, k_sm, v_sm);
+    // S = Q K^T and dP = dO V^T: 64 packed rows x 64 keys
+    float sc[32], dp[32];
+    turn_wait(w);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const unsigned o = (kk >> 2) * PANEL + (kk & 3) * 32;
+      wgmma_ss_n64(sc, desc(q_sm + o, 16), desc(k_sm + o, 16), kk > 0);
+    }
+    wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const unsigned o = (kk >> 2) * PANEL + (kk & 3) * 32;
+      wgmma_ss_n64(dp, desc(o_sm + o, 16), desc(v_sm + o, 16), kk > 0);
+    }
+    wg_commit();
+    turn_pass(w);
+    wg_wait<1>();                 // S done; dP runs on
+    keep(sc);
+    if (kt0 + BK - 1 > pw) {      // a key past the first row: masked
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt0 + 8 * j + 2 * tig + e;
+          const float pa = ex2(fmaf(sc[4 * j + e], scale_log2, -l2a));
+          const float pb = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -l2b));
+          sc[4 * j + e] = key > pos_a ? 0.f : pa;
+          sc[4 * j + 2 + e] = key > pos_b ? 0.f : pb;
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -l2a));
+          sc[4 * j + 2 + e] = ex2(fmaf(sc[4 * j + 2 + e], scale_log2, -l2b));
+        }
+    }
+    wg_wait<0>();
+    keep(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - da);
+        dp[4 * j + 2 + e] = sc[4 * j + 2 + e] * (dp[4 * j + 2 + e] - db);
+      }
+    // dQ += dS K, 16 keys a k-step; K is an MN-major B operand
+    unsigned sf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag(sf[kk], dp, kk);
+    turn_wait(w);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      RsOp<HD>::run(dqa, sf[kk], desc(k_sm + kk * 2048, PANEL));
+    wg_commit();
+    turn_pass(w);
+    wg_wait<0>();
+    keep(dqa);
+    release(s);
+  }
+  if (w == 0) turn_wait(w);
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    const int pos = half ? pos_b : pos_a;
+    if (pos >= seq) continue;
+    const int g = r - (pos - pw) * gp;
+    __nv_bfloat16* row =
+        dq + (((long long)(b * seq + pos) * kvp + h) * gp + g) * HD;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int dim = 8 * j + 2 * tig;
+      *reinterpret_cast<unsigned*>(row + dim) =
+          pack(dqa[4 * j + 2 * half] * scale,
+               dqa[4 * j + 2 * half + 1] * scale);
+    }
+  }
+}
+
+// ------------------------------------------------------------ host side
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// libcuda at link time)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map over `rank` dims (innermost first, strides in bytes of dims
+// 1..rank-1); out-of-range elements of a box read as zeros
+bool tensor_map(CUtensorMap* m, CUtensorMapDataType type, int rank,
+                const void* ptr, const cuuint64_t* dims,
+                const cuuint64_t* strides, const cuuint32_t* box,
+                CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn != nullptr &&
+         fn(m, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides,
+            box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool DK, bool DV>
+int launch_kv(const CUtensorMap& tq, const CUtensorMap& tdo,
+              const CUtensorMap& tk, const CUtensorMap& tv, const float* lse,
+              const float* D, void* dk, void* dv, int B, int S, int kvp, int gp,
+              int npos, float scale_log2, float scale, cudaStream_t stream) {
+  const int err = set_smem(dkdv_wg_kernel<HD, DK, DV>, KvLayout<HD>::BYTES);
+  if (err) return err;
+  dim3 grid((S + KEYS - 1) / KEYS, kvp, B);
+  dkdv_wg_kernel<HD, DK, DV><<<grid, THREADS, KvLayout<HD>::BYTES, stream>>>(
+      tq, tdo, tk, tv, lse, D, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, S, kvp,
+      gp, npos, scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_bwd(const void* dout, const void* q, const void* k, const void* v,
+               const float* lse, const float* D, void* dq, void* dk, void* dv,
+               int B, int S, int kvp, int gp, cudaStream_t stream) {
+  if (gp < 1 || gp > ROWS) return (int)cudaErrorInvalidValue;
+  const int npos = ROWS / gp;
+  const cuuint64_t e = 2;                      // bytes of a bf16
+  // q, do [B, S, KVp, gp, hd] as (hd, gp, KVp, S, B); a box is npos whole
+  // positions of one kv head: npos*gp packed rows of 64 dims
+  const cuuint64_t qdims[5] = {(cuuint64_t)HD, (cuuint64_t)gp,
+                               (cuuint64_t)kvp, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t qstr[4] = {HD * e, gp * HD * e, kvp * gp * HD * e,
+                              (cuuint64_t)S * kvp * gp * HD * e};
+  const cuuint32_t qbox[5] = {64, (cuuint32_t)gp, 1, (cuuint32_t)npos, 1};
+  // k, v [B, S, KVp, hd] as (hd, KVp, S, B); a box is 64 keys of 64 dims
+  const cuuint64_t kdims[4] = {(cuuint64_t)HD, (cuuint64_t)kvp,
+                               (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {HD * e, kvp * HD * e,
+                              (cuuint64_t)S * kvp * HD * e};
+  const cuuint32_t kbox[4] = {64, 1, 64, 1};
+  CUtensorMap tq, tdo, tk, tv;
+  const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  if (!tensor_map(&tq, bf, 5, q, qdims, qstr, qbox, sw) ||
+      !tensor_map(&tdo, bf, 5, dout, qdims, qstr, qbox, sw) ||
+      !tensor_map(&tk, bf, 4, k, kdims, kstr, kbox, sw) ||
+      !tensor_map(&tv, bf, 4, v, kdims, kstr, kbox, sw))
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)HD);
+  const float scale_log2 = LOG2E * scale;
+  int err;
+  if constexpr (HD == 64) {
+    err = launch_kv<HD, true, true>(tq, tdo, tk, tv, lse, D, dk, dv, B, S,
+                                    kvp, gp, npos, scale_log2, scale, stream);
+  } else {
+    // at hd 128 a warpgroup's dK and dV accumulators (64 + 64 registers a
+    // thread) leave too few for S^T and dP^T: dV, then dK, each forming S^T
+    err = launch_kv<HD, false, true>(tq, tdo, tk, tv, lse, D, dk, dv, B, S,
+                                     kvp, gp, npos, scale_log2, scale, stream);
+    if (err) return err;
+    err = launch_kv<HD, true, false>(tq, tdo, tk, tv, lse, D, dk, dv, B, S,
+                                     kvp, gp, npos, scale_log2, scale, stream);
+  }
+  if (err) return err;
+  err = set_smem(dq_wg_kernel<HD>, QLayout<HD>::BYTES);
+  if (err) return err;
+  dim3 q_grid((S + NWG * npos - 1) / (NWG * npos), kvp, B);
+  dq_wg_kernel<HD><<<q_grid, THREADS, QLayout<HD>::BYTES, stream>>>(
+      tq, tdo, tk, tv, lse, D, (__nv_bfloat16*)dq, S, kvp, gp, npos,
+      scale_log2, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wg
+
 }  // namespace
 
 extern "C" int flash_attention_bwd_bf16(const void* dout, const void* q,
@@ -840,6 +1743,23 @@ extern "C" int flash_attention_bwd_bf16(const void* dout, const void* q,
   if (hd <= 256) return BWD_TC(256);
 #undef BWD_TC
   return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_attention_bwd_bf16_wgmma(
+    const void* dout, const void* q, const void* k, const void* v,
+    const void* out, const void* lse, void* D, void* dq, void* dk, void* dv,
+    int B, int S, int kvp, int gp, int hd, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* l = (const float*)lse;
+  float* d = (float*)D;
+  if (hd != 64 && hd != 128) return (int)cudaErrorInvalidValue;
+  int e = launch_row_dot<__nv_bfloat16>(dout, out, d, B, S, kvp, gp, hd, st);
+  if (e) return e;
+  if (hd == 64)
+    return wg::launch_bwd<64>(dout, q, k, v, l, d, dq, dk, dv, B, S, kvp, gp,
+                              st);
+  return wg::launch_bwd<128>(dout, q, k, v, l, d, dq, dk, dv, B, S, kvp, gp,
+                             st);
 }
 
 extern "C" int flash_attention_bwd_f32(const void* dout, const void* q,

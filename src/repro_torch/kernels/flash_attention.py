@@ -27,7 +27,16 @@ gradient is wanted: the serving path passes a null pointer), its backward
 launches ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`).
 The TPU side has no backward kernel (the reference trains through XLA's
 autodiff of ``full_attention``); the plain backward is autograd of the
-plain version (:func:`flash_attention_bwd_plain`).  The backward uses no
+plain version (:func:`flash_attention_bwd_plain`).  The backward's route
+is a function of dtype and head dim (:func:`bwd_route`), never of a
+failure.  bf16 at hd 64 and 128, the widths of every full-size config,
+takes the ``wgmma`` kernels: a dK/dV pass and a dQ pass, each with a TMA
+producer warp feeding two consumer warpgroups through an mbarrier ring,
+bound by the tensor-core operations (seven tile products where a fused
+pass would do five) and then by the L2 traffic of re-reading the other
+side's tiles.  Any other bf16 head dim up to 256 takes the ``mma.sync``
+kernels (bound by the same operations and the shared-memory reads that
+feed them); f32 keeps the CUDA-core kernels.  No route uses
 floating-point atomics, so a training step on the card repeats bit for
 bit.
 """
@@ -44,8 +53,12 @@ MAX_HD = 256
 NEG_INF = -1e30
 _ENTRIES = {torch.bfloat16: "flash_attention_bf16",
             torch.float32: "flash_attention_f32"}
-_BWD_ENTRIES = {torch.bfloat16: "flash_attention_bwd_bf16",
-                torch.float32: "flash_attention_bwd_f32"}
+# the backward's routes (see :func:`bwd_route`) and their C entries
+_BWD_ENTRIES = {"wgmma": "flash_attention_bwd_bf16_wgmma",
+                "mma_sync": "flash_attention_bwd_bf16",
+                "f32": "flash_attention_bwd_f32"}
+WGMMA_HDS = (64, 128)
+MAX_WGMMA_GP = 64       # a wgmma tile holds at least one whole position
 # q, k, v, out, lse (or null), B, S, KVp, gp, hd, stream
 # (csrc/flash_attention.cu)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -114,13 +127,25 @@ def _forward(q, k, v, want_lse: bool):
     return out, lse
 
 
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The backward kernel that a CUDA call of ``dtype`` at head dim ``hd``
+    launches: ``"wgmma"`` (bf16 at hd 64 or 128, the widths of every
+    full-size config), ``"mma_sync"`` (bf16 at any other hd up to 256) or
+    ``"f32"`` (the CUDA-core kernels).  Chosen by shape, never on a
+    failure."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if hd in WGMMA_HDS else "mma_sync"
+
+
 def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor):
     """``(dq, dk, dv)`` of the causal attention ``out`` of q, k, v, from the
     upstream gradient ``do`` and the forward's ``lse`` ([B, KVp, S*gp]
-    f32), by the backward kernel (CUDA tensors, bf16 or f32, hd <= 256);
-    CPU tensors take :func:`flash_attention_bwd_plain`."""
+    f32), by the backward kernel of :func:`bwd_route` (CUDA tensors, bf16
+    or f32, hd <= 256); CPU tensors take
+    :func:`flash_attention_bwd_plain`."""
     _check(q, k, v, "flash_attention_bwd")
     b, s, kvp, gp, hd = q.shape
     if do.shape != q.shape or out.shape != q.shape:
@@ -134,13 +159,19 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
     if lse.shape != (b, kvp, s * gp) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    do, q, k, v, out, lse = (t.contiguous()
+    route = bwd_route(q.dtype, hd)
+    if route == "wgmma" and gp > MAX_WGMMA_GP:
+        raise ValueError(f"flash_attention_bwd: {gp} query heads a kv head "
+                         f"(the bf16 kernel at hd {hd} takes at most "
+                         f"{MAX_WGMMA_GP})")
+    # TMA reads q, do, k and v from 16-byte-aligned bases
+    do, q, k, v, out, lse = (build.aligned(t)
                              for t in (do, q, k, v, out, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
     scratch = torch.empty_like(lse)
-    fn = build.entry("flash_attention_bwd", _BWD_ENTRIES[q.dtype],
+    fn = build.entry("flash_attention_bwd", _BWD_ENTRIES[route],
                      _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     build.check(fn(do.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -148,10 +179,12 @@ def flash_attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, s, kvp, gp,
                    hd, stream), "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(_BWD_ENTRIES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):

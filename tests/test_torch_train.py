@@ -517,10 +517,29 @@ class TestElastic:
 
 
 # ---------------------------------------------------------------------------
-# on the card
+# the backward's route, and the kernels on the card
 # ---------------------------------------------------------------------------
-BWD_CASES = [(gp, s, dt) for gp in (1, 5) for s in (37, 256)
-             for dt in ("bfloat16", "float32")]
+ROUTE_CASES = [(dt, hd) for dt in ("bfloat16", "float32")
+               for hd in (8, 16, 32, 64, 96, 128, 256)]
+
+
+@pytest.mark.parametrize("dtype,hd", ROUTE_CASES,
+                         ids=[f"{d}-hd{h}" for d, h in ROUTE_CASES])
+def test_backward_route_is_chosen_by_dtype_and_head_dim(dtype, hd):
+    """bf16 at hd 64 and 128 (every full-size config) takes the wgmma
+    kernels, any other bf16 hd the mma.sync ones, f32 the CUDA-core ones."""
+    want = ("f32" if dtype == "float32"
+            else "wgmma" if hd in (64, 128) else "mma_sync")
+    assert tfa.bwd_route(getattr(torch, dtype), hd) == want
+
+
+# (hd, gp, S, dtype): the wgmma route at hd 64 and 128 over gp 1, 4, 5 and
+# 16 (tiles of 64, 64, 60 and 64 packed rows) and ragged and whole tiles;
+# the mma.sync route at hd 16; the f32 route at hd 64
+BWD_CASES = ([(hd, gp, s, "bfloat16") for hd in (64, 128)
+              for gp in (1, 4, 5, 16) for s in (37, 256, 300)]
+             + [(16, gp, s, "bfloat16") for gp in (1, 5) for s in (37, 256)]
+             + [(64, gp, s, "float32") for gp in (1, 5) for s in (37, 256)])
 # stated tolerances of the backward kernel against its plain version, per
 # gradient: bf16 (P and dS enter their products as bf16) max |err| within
 # 2**-6 of max |ref| and the Frobenius error within 2**-7; f32 within 2**-16
@@ -537,19 +556,22 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("gp,s,dtype", BWD_CASES,
-                         ids=[f"gp{g}-S{s}-{d}" for g, s, d in BWD_CASES])
-def test_backward_kernel_equals_its_plain_version(card, gp, s, dtype):
+@pytest.mark.parametrize("hd,gp,s,dtype", BWD_CASES,
+                         ids=[f"hd{h}-gp{g}-S{s}-{d}"
+                              for h, g, s, d in BWD_CASES])
+def test_backward_kernel_equals_its_plain_version(card, hd, gp, s, dtype):
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=card).manual_seed(gp * 1000 + s)
-    b, kvp, hd = 2, 2, 64
+    g = torch.Generator(device=card).manual_seed(hd * 100000 + gp * 1000 + s)
+    b, kvp = 2, 2
     mk = lambda *shape: torch.randn(shape, generator=g, device=card).to(dt)
     q, do = mk(b, s, kvp, gp, hd), mk(b, s, kvp, gp, hd)
     k, v = mk(b, s, kvp, hd), mk(b, s, kvp, hd)
     qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
+    route = tfa.bwd_route(dt, hd)
+    before = tfa.flash_attention_bwd.launches_by_route[route]
     out = tfa.flash_attention(qq, kk, vv)
     out.backward(do)
-    assert tfa.flash_attention_bwd.launches > 0
+    assert tfa.flash_attention_bwd.launches_by_route[route] == before + 1
     want = tfa.flash_attention_bwd_plain(do, q, k, v)
     max_tol, fro_tol = BWD_TOL[dtype]
     for got, w in zip((qq.grad, kk.grad, vv.grad), want):
@@ -561,12 +583,14 @@ def test_backward_kernel_equals_its_plain_version(card, gp, s, dtype):
 
 
 @pytest.mark.cuda
-def test_backward_kernel_is_deterministic(card):
+@pytest.mark.parametrize("hd,gp", [(128, 5), (64, 1)],
+                         ids=["hd128-gp5", "hd64-gp1"])
+def test_backward_kernel_is_deterministic(card, hd, gp):
     g = torch.Generator(device=card).manual_seed(3)
     mk = lambda *shape: torch.randn(shape, generator=g,
                                     device=card).bfloat16()
-    q, do, k, v = mk(1, 300, 2, 5, 128), mk(1, 300, 2, 5, 128), \
-        mk(1, 300, 2, 128), mk(1, 300, 2, 128)
+    q, do, k, v = mk(1, 300, 2, gp, hd), mk(1, 300, 2, gp, hd), \
+        mk(1, 300, 2, hd), mk(1, 300, 2, hd)
     runs = []
     for _ in range(2):
         qq, kk, vv = (t.clone().requires_grad_(True) for t in (q, k, v))
