@@ -97,6 +97,17 @@ the flash kernels' launches, then a fault-tolerant run (a fault at step
 2, a checkpoint every step, 2 layers deep) bit-equal to the
 uninterrupted one; ``launch_train`` runs ``python -m
 repro_torch.launch.train --arch musicgen-medium --smoke --steps 2``.
+The MPAI stage axis: ``staged_full_width`` serves the Qwen3-14B weights
+through ``StageAxisEngine``, the fake-quantized int8 backbone and the bf16
+tail as two pipeline stages on the one card, each on its own stream (6
+greedy requests, two held to the monolithic forward's argmax, flash launched
+once a layer, slot and step, the int8 GEMM never, the engine's stage
+parameters views of the weights), then times one step's
+``pipeline_apply`` on two streams against its stages on one stream
+(bit-equal); ``fleet_staged`` serves a ``pipeline_stages=2`` pool through
+``FleetSpec.build``; ``compression`` runs ``compressed_grad_mean`` over a
+one-rank NCCL group on a 64 M-element leaf (its own round trip, bit for
+bit).
 Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
@@ -2411,7 +2422,280 @@ def full_width_phase(dev, card: str, pa, im, fa) -> dict:
             dev, card, cfg, params, (pa, im, fa), batch_s).items():
         for name, n in by_kernel.items():
             launches[name][f"{cfg.name}/{run}"] = n
+    for run, by_kernel in (
+            ("staged", staged_full_width_phase(dev, card, cfg, params,
+                                               (pa, im, fa))),
+            ("fleet_staged", fleet_staged_phase(dev, card, cfg, params,
+                                                (pa, im, fa)))):
+        for name, n in by_kernel.items():
+            launches[name][f"{cfg.name}/{run}"] = n
     return launches
+
+
+# The stage-axis pool's shape: one slot a microbatch, each slot's tokens
+# right-padded to max_len (the flash kernel's S)
+STAGED_SERVE = dict(max_slots=4, prompt_len=16, max_len=32)
+STAGED_REQUESTS = 6
+STAGED_MONO = 2             # requests held to the monolithic forward
+
+
+def staged_check_launches(what: str, cfg, eng, n: dict) -> None:
+    """A stage-axis step runs every attention layer of both stages once a
+    slot (full-sequence recompute): flash attention ``num_layers *
+    max_slots`` times a decode step; paged attention never (no KV), the
+    int8 GEMM never (the backbone is fake-quantized in float)."""
+    steps = eng.stats()["decode_steps"]
+    want = cfg.num_layers * eng.max_slots * steps
+    if n["flash_attention"] != want or not steps:
+        raise AssertionError(f"{what}: {n['flash_attention']} flash "
+                             f"launches for {steps} decode steps (want "
+                             f"{want})")
+    if n["int8_matmul"] or n["paged_attention"]:
+        raise AssertionError(f"{what}: int8 {n['int8_matmul']}, paged "
+                             f"{n['paged_attention']} launches")
+
+
+def staged_full_width_phase(dev, card: str, cfg, params, kernels) -> dict:
+    """Qwen3-14B at full width through ``StageAxisEngine``: the
+    fake-quantized int8 backbone (20 layers) and the bf16 tail and head
+    (20 layers) as two pipeline stages on the one card, each on its own
+    stream.  The engine's stage parameters are views (it allocates under
+    0.5 GB); 6 greedy requests (2-16 token prompts, ``max_new`` 1-12) after
+    a warm-up return ``max_new`` in-vocab tokens; the two shortest streams
+    of more than one token equal the greedy argmax of the port's
+    monolithic ``forward`` under the engine's plan at ``[1, max_len]`` (or
+    part at a near-tie); the launches are ``staged_check_launches``'.
+    Then one ``pipeline_apply`` over the 4 microbatches of a step on two
+    streams against the same stage functions one after the other on one
+    stream: bit-equal, and each timed in device ms (CUDA events, median of
+    2 in turns).  Returns the run's launches, counted from 0."""
+    from repro_torch.core.pipeline import (lm_two_stage_fns, pipeline_apply,
+                                           split_lm_params_for_stages)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import embed
+    from repro_torch.runtime.serve import Request
+    from repro_torch.serving.stage_executor import StageAxisEngine
+
+    pa, im, fa = kernels
+    gc.collect()                      # the earlier phases' engines, in cycles
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    eng = StageAxisEngine(params, cfg, num_stages=2, device=dev,
+                          **STAGED_SERVE)
+    torch.cuda.synchronize()
+    built_gb = (torch.cuda.memory_allocated(dev) - before) / 1e9
+    if built_gb >= 0.5:
+        raise AssertionError(f"staged: the engine allocated {built_gb} GB "
+                             f"(its stage parameters must be views)")
+    if eng.devices != [dev, dev]:
+        raise AssertionError(f"staged: stages on {eng.devices}")
+    rng = np.random.default_rng(5)
+    trace = [(rid, rng.integers(0, cfg.vocab_size, int(rng.integers(2, 17))
+                                ).astype(np.int32), int(rng.integers(1, 13)))
+             for rid in range(STAGED_REQUESTS)]
+    serve(eng, [(-1, np.array([1, 2, 3], np.int32), 2)], Request)
+    eng.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()                     # the main path's counts start here
+    t0 = time.perf_counter()
+    out = serve(eng, trace, Request)
+    wall = time.perf_counter() - t0
+    n = launches_now(pa, im, fa)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for rid, _, max_new in trace:
+        if len(out[rid]) != max_new or not all(0 <= t < cfg.vocab_size
+                                               for t in out[rid]):
+            raise AssertionError(f"staged: request {rid} returned "
+                                 f"{out[rid]} for max_new={max_new}")
+    staged_check_launches("staged", cfg, eng, n)
+    st = eng.stats()
+    steps = st["decode_steps"]
+
+    # the monolithic forward's greedy stream, token by token, for the
+    # STAGED_MONO shortest streams of more than one token (a forward at
+    # full width takes ~0.25 s)
+    S = eng.max_len
+    ties = 0
+    mono = sorted((r for r in trace if r[2] > 1), key=lambda r: r[2])
+    for rid, prompt, _ in mono[:STAGED_MONO]:
+        seq = list(map(int, prompt))
+        for t, tok in enumerate(out[rid]):
+            toks = torch.zeros((1, S), dtype=torch.int32, device=dev)
+            toks[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+            row = T.forward(params, cfg, toks, plan=eng.plan).logits[
+                0, len(seq) - 1].float()
+            if int(torch.argmax(row)) != tok:
+                top2 = torch.topk(row, 2).values.cpu()
+                margin = float(top2[0] - top2[1])
+                if margin > 2 ** -5 * abs(float(top2[0])):
+                    raise AssertionError(
+                        f"staged: request {rid} parts from the monolithic "
+                        f"forward at token {t} with top-2 margin {margin}")
+                ties += 1
+                break
+            seq.append(tok)
+
+    # one step's pipeline on two streams vs the stages on one stream
+    period = T.pattern_period(cfg)
+    fns = lm_two_stage_fns(cfg, eng.plan)[:2]
+    stage_params = split_lm_params_for_stages(params, cfg, eng.plan, period)
+    toks = torch.tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (eng.max_slots, S)), dtype=torch.int32,
+        device=dev)
+    x = embed(params["embed"], toks, torch.bfloat16)[:, None]
+
+    def piped():
+        return pipeline_apply(eng.devices, fns, stage_params, x,
+                              hidden_shape=(1, S, cfg.d_model),
+                              out_shape=(1, S, cfg.vocab_size))
+
+    def sequential():
+        return torch.stack([fns[1](fns[0](x[m].to(torch.bfloat16),
+                                          stage_params[0]), stage_params[1])
+                            for m in range(x.shape[0])])
+    a, b = piped(), sequential()      # also the warm-up of each
+    torch.cuda.synchronize()
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        raise AssertionError("staged: the pipeline on two streams is not "
+                             "bit-equal to its stages on one")
+    del a, b
+    times = {piped: [], sequential: []}
+    for _ in range(2):                # in turns: piped, sequential
+        for fn, ts in times.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+    pipe_ms, seq_ms = (float(np.median(ts)) for ts in times.values())
+    emit("staged_serve", config=cfg.name, card=card, stages=2,
+         stage_devices=[str(d) for d in eng.devices],
+         requests=len(trace), tokens=st["total_tokens"], decode_steps=steps,
+         decode_tok_s=st["decode_tokens"] / st["decode_s"],
+         mean_step_ms=st["decode_s"] / steps * 1e3, admit_s=st["admit_s"],
+         wall_s=wall, mean_occupancy=st["mean_occupancy"], peak_gb=peak_gb,
+         engine_alloc_gb=built_gb, mono_checked=STAGED_MONO,
+         mono_near_ties=ties, flash_attention_launches=n["flash_attention"],
+         int8_matmul_launches=n["int8_matmul"],
+         paged_attention_launches=n["paged_attention"])
+    emit("staged_overlap", config=cfg.name, card=card,
+         microbatches=eng.max_slots, seq=S, pipeline_ms=pipe_ms,
+         sequential_ms=seq_ms, ratio=seq_ms / pipe_ms, bit_equal=True)
+    del eng
+    return n
+
+
+FLEET_STAGED = {
+    "pools": [{"name": "qwen-staged", "profiles": ["tpu_v5e_int8"],
+               "backend": "engine", "capacity": 1, "max_window": 4,
+               "max_wait_s": 0.0, "max_slots": STAGED_SERVE["max_slots"],
+               "prompt_len": STAGED_SERVE["prompt_len"], "max_new": 8,
+               "pipeline_stages": 2}],
+    "workload": "transformer",
+}
+FLEET_STAGED_REQUESTS = 4
+
+
+def fleet_staged_phase(dev, card: str, cfg, params, kernels) -> dict:
+    """The same weights through the facade: ``FLEET_STAGED`` (one
+    ``pipeline_stages=2`` pool) built with ``FleetSpec.build`` on the
+    card, 4 greedy requests submitted at once and drained.  Invariants
+    only (ROADMAP, "Wall time on the virtual clock"): the pool is a
+    ``StageAxisEngine``, every request completes with its ``max_new``
+    in-vocab tokens, and the launches are ``staged_check_launches'``.
+    Returns them, counted from 0 after the build (its warm-up aside)."""
+    from repro_torch.serving import FleetSpec
+    from repro_torch.serving.stage_executor import StageAxisEngine
+
+    pa, im, fa = kernels
+    client = FleetSpec.from_dict(FLEET_STAGED).build(model=(cfg, params),
+                                                     device=dev)
+    eng = client.engines["qwen-staged"]
+    if not isinstance(eng, StageAxisEngine):
+        raise AssertionError(f"fleet_staged: pool serves through "
+                             f"{type(eng).__name__}")
+    rng = np.random.default_rng(8)
+    zero_counts()
+    t0 = time.perf_counter()
+    hs = []
+    for _ in range(FLEET_STAGED_REQUESTS):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(2, 17))
+                              ).astype(np.int32)
+        max_new = int(rng.integers(1, 7))
+        hs.append((client.submit(prompt, slo="offline", max_new=max_new),
+                   max_new))
+    client.drain()
+    wall = time.perf_counter() - t0
+    n = launches_now(pa, im, fa)
+    for i, (h, max_new) in enumerate(hs):
+        toks = [int(t) for t in h.result().tokens]
+        if len(toks) != max_new or not all(0 <= t < cfg.vocab_size
+                                           for t in toks):
+            raise AssertionError(f"fleet_staged: request {i} returned "
+                                 f"{toks} for max_new={max_new}")
+    snap = client.telemetry
+    if snap["completed"] != snap["admitted"] or \
+            snap["admitted"] != FLEET_STAGED_REQUESTS:
+        raise AssertionError(f"fleet_staged: admitted {snap['admitted']}, "
+                             f"completed {snap['completed']}")
+    staged_check_launches("fleet_staged", cfg, eng, n)
+    st = eng.stats()
+    emit("fleet_staged", config=cfg.name, card=card,
+         requests=FLEET_STAGED_REQUESTS, tokens=st["total_tokens"],
+         decode_steps=st["decode_steps"],
+         decode_tok_s=st["decode_tokens"] / st["decode_s"], wall_s=wall,
+         flash_attention_launches=n["flash_attention"],
+         int8_matmul_launches=n["int8_matmul"],
+         paged_attention_launches=n["paged_attention"])
+    del client, eng
+    return n
+
+
+COMPRESSION_ELEMENTS = 64 * 2 ** 20
+
+
+def compression_phase(dev, card: str) -> None:
+    """``compressed_grad_mean`` over a one-rank NCCL group on a 64 M-element
+    f32 leaf and a small one: the large leaf's mean is its own
+    quantize-dequantize round trip bit for bit, the small leaf comes back
+    unchanged; timed in ms (CUDA events around the call)."""
+    import torch.distributed as dist
+
+    from repro_torch.optim.compression import (CHUNK, _chunk_dequant,
+                                               _chunk_quant,
+                                               compressed_grad_mean)
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        g = torch.Generator(device=dev).manual_seed(11)
+        grads = {"w": torch.randn(COMPRESSION_ELEMENTS, generator=g,
+                                  device=dev),
+                 "b": torch.randn(100, generator=g, device=dev)}
+        got = compressed_grad_mean(grads)
+        want = _chunk_dequant(*_chunk_quant(grads["w"]), grads["w"].shape)
+        torch.cuda.synchronize()
+        if not torch.equal(got["w"].view(torch.int32),
+                           want.view(torch.int32)):
+            raise AssertionError("compression: the one-rank mean is not the "
+                                 "round trip")
+        if not torch.equal(got["b"].view(torch.int32),
+                           grads["b"].view(torch.int32)):
+            raise AssertionError("compression: the small leaf changed")
+        del got, want
+        timer = Timer(dev)
+        ms = timer.ms(lambda: compressed_grad_mean(grads), reps=5)
+        del timer
+        chunks = COMPRESSION_ELEMENTS // CHUNK
+        emit("compression", card=card, world=1, backend="nccl",
+             elements=COMPRESSION_ELEMENTS, ms=ms,
+             wire_bytes=COMPRESSION_ELEMENTS + 4 * chunks,
+             f32_bytes=4 * COMPRESSION_ELEMENTS, bit_equal=True)
+    finally:
+        dist.destroy_process_group()
 
 
 COPROC_SLOTS = 4            # decode slots per shard of the split
@@ -3478,6 +3762,7 @@ def main() -> int:
             *flash_backward_phase(timer, fa, dev)]
     sampling_phase(timer, dev)
     del timer
+    compression_phase(dev, card)
     tiny_phase(dev)
     tiny_windowed_phase(dev)
     tiny_fleet_phase(dev)

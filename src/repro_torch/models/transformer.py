@@ -26,7 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
@@ -297,15 +297,15 @@ class LMOutput(NamedTuple):
     aux_loss: torch.Tensor        # [] f32: the MoE load-balancing losses
 
 
-def _block_apply(params: Dict, cfg: ModelConfig, pat, x: torch.Tensor,
+def _block_apply(layers: Dict, cfg: ModelConfig, pat, x: torch.Tensor,
                  i: int, positions: torch.Tensor,
                  policy: PrecisionPolicy, tp: int, cache, decode: bool,
                  chunk: Optional[Tuple[int, int]]):
-    """Super-block ``i``: every sublayer of the pattern in turn.  Returns
-    ``(x, aux)``, aux the sum of the block's MoE losses (None without
-    MoE)."""
+    """Super-block ``i`` of the stacked ``layers``: every sublayer of the
+    pattern in turn.  Returns ``(x, aux)``, aux the sum of the block's MoE
+    losses (None without MoE)."""
     aux_total = None
-    blk = tree_map(lambda a: a[i], params["layers"])
+    blk = tree_map(lambda a: a[i], layers)
     for j, (kind, is_moe) in enumerate(pat):
         key = f"sub_{j}"
         c = None if cache is None else cache[key]
@@ -357,6 +357,34 @@ def _sum_blocks(run, indices, x: torch.Tensor):
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
+
+
+def slice_stack(tree, lo: int, hi: int):
+    """Super-blocks ``lo .. hi-1`` of a stacked tree, as views of its
+    storage (the reference's ``_slice_stack`` copies)."""
+    return tree_map(lambda a: a[lo:hi], tree)
+
+
+def segment_apply(layers: Dict, cfg: ModelConfig, x: torch.Tensor,
+                  positions: Optional[torch.Tensor],
+                  policy: PrecisionPolicy, tp: int = 1,
+                  span: Optional[Tuple[int, int]] = None, cache=None,
+                  decode: bool = False,
+                  chunk: Optional[Tuple[int, int]] = None,
+                  remat: bool = False):
+    """``x`` through super-blocks ``span = (lo, hi)`` of the stacked
+    ``layers`` (all of them when None) under ``policy``: one segment of a
+    :class:`PartitionPlan`, the reference's ``_segment_scan``.  ``cache``
+    is indexed by absolute super-block.  Returns ``(x, aux)``, aux the sum
+    of the MoE losses (None without MoE)."""
+    pat = sublayer_pattern(cfg)
+    lo, hi = span or (0, tree_leaves(layers)[0].shape[0])
+    block = functools.partial(_block_apply, layers, cfg, pat,
+                              positions=positions, policy=policy, tp=tp,
+                              cache=cache, decode=decode, chunk=chunk)
+    if remat:
+        return _remat_blocks(block, lo, hi, x, cfg.remat_group)
+    return _sum_blocks(block, range(lo, hi), x)
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -414,15 +442,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for seg in plan.segments:
-        lo, hi = seg.start // period, seg.end // period
-        block = functools.partial(_block_apply, params, cfg, pat,
-                                  positions=positions, policy=seg.policy,
-                                  tp=tp, cache=cache, decode=decode,
-                                  chunk=chunk)
-        if remat:
-            x, aux = _remat_blocks(block, lo, hi, x, cfg.remat_group)
-        else:
-            x, aux = _sum_blocks(block, range(lo, hi), x)
+        x, aux = segment_apply(params["layers"], cfg, x, positions,
+                               seg.policy, tp,
+                               (seg.start // period, seg.end // period),
+                               cache, decode, chunk, remat)
         if aux is not None:
             aux_total = aux_total + aux
 

@@ -43,9 +43,10 @@ hardened (``PoolSpec(harden=True)``, or the target of a ``kv_bitflip`` /
 "engine"`` splits into MPAI's co-processing stages (a prefill engine under
 ``prefill_plan`` feeding ``decode_shards`` decode engines through
 ``runtime.serve.CoProcServer``, its prefill stage charged to the
-``<pool>.prefill`` pool), and a ``handoff_loss`` fault cuts its seam.  Not
-ported yet, and refused with ``NotImplementedError``: stage-axis pools
-(``pipeline_stages``).
+``<pool>.prefill`` pool), and a ``handoff_loss`` fault cuts its seam.  A
+pool with ``pipeline_stages=2`` serves through the ``StageAxisEngine`` of
+``serving/stage_executor.py``: the fake-quantized int8 backbone and the
+bf16 tail as two stages of ``core.pipeline.pipeline_apply``.
 """
 from repro_torch.router.slo import SLO_CLASSES, SLOClass
 from repro_torch.runtime.sampling import GREEDY, SamplingParams

@@ -21,9 +21,9 @@ default), sampled requests, hardened engine pools (``harden=True``, which
 a data-plane :class:`FaultSpec` turns on) and the co-processing split
 (``prefill_backend="engine"``: a prefill engine feeding
 ``decode_shards`` decode engines through a ``CoProcServer``, the target
-of ``handoff_loss`` faults) included.  What the port does not serve yet
-refuses loudly, before any weights are touched: stage-axis pools
-(``pipeline_stages``).
+of ``handoff_loss`` faults) and stage-axis pools (``pipeline_stages=2``: a
+``StageAxisEngine`` running the fake-quantized int8 backbone and the bf16
+tail as two pipeline stages) included.
 """
 from __future__ import annotations
 
@@ -450,8 +450,6 @@ class FleetSpec:
         specs = [replace(ps, harden=True)
                  if ps.name in hardened_targets and not ps.harden else ps
                  for ps in self.pools]
-        for ps in specs:
-            _refuse_unported(ps)
         cfg = params = None
         if any(p.backend != "costmodel" for p in specs):
             cfg = model[0] if model is not None else self._config()
@@ -567,9 +565,10 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
     ``repro_torch.serving`` touches the engine classes directly.
     ``backend="engine"`` falls back to the windowed loop (with a warning)
     for stacks paged decode cannot serve (a hardened one too: the
-    windowed loop takes no hardening, as in the reference).  Stage-axis
-    pools are not ported yet and raise ``NotImplementedError`` before any
-    server is built.
+    windowed loop takes no hardening, as in the reference).
+    ``pipeline_stages`` builds a ``StageAxisEngine``
+    (``serving/stage_executor.py``) with its own ``"mpai"`` split:
+    ``plan`` does not apply, and there is no windowed fallback.
     """
     import numpy as np
 
@@ -578,7 +577,6 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
                                            CoProcServer, Request,
                                            WindowedBaselineServer,
                                            engine_or_windowed)
-    _refuse_unported(spec)
     plan = _resolve_plan(spec, cfg, spec.plan)
     hkw = dict(harden=spec.harden, watchdog_steps=spec.watchdog_steps,
                scrub_blocks=spec.scrub_blocks, device=device)
@@ -601,6 +599,15 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
             block_size=spec.block_size, num_blocks=spec.num_blocks, **hkw)
             for _ in range(spec.decode_shards)]
         srv = CoProcServer(prefill, decodes)
+    elif spec.backend == "engine" and spec.pipeline_stages is not None:
+        # stage-axis pool: decode runs the GPipe schedule of
+        # core.pipeline (no windowed fallback: a staged pool that cannot
+        # build fails loudly, it does not degrade)
+        from repro_torch.serving.stage_executor import StageAxisEngine
+        srv = StageAxisEngine(
+            params, cfg, num_stages=spec.pipeline_stages,
+            max_slots=spec.max_slots, prompt_len=spec.prompt_len,
+            max_len=spec.max_len, block_size=spec.block_size, device=device)
     elif spec.backend == "engine":
         srv = engine_or_windowed(
             params, cfg, plan=plan, max_slots=spec.max_slots,
@@ -639,19 +646,6 @@ def make_server(cfg, params, spec: PoolSpec, warm: bool = True,
             srv.flush()
         srv.reset_stats()
     return srv
-
-
-def _refuse_unported(spec: PoolSpec) -> None:
-    """Raise ``NotImplementedError`` for a pool the port cannot serve yet
-    (each names its item in ROADMAP.md's port queue), before any weights
-    or servers are touched."""
-    if spec.backend == "costmodel":
-        return
-    if spec.pipeline_stages is not None:
-        raise NotImplementedError(
-            f"pool {spec.name!r}: stage-axis pools (pipeline_stages, "
-            f"StageAxisEngine) are not ported yet (ROADMAP.md, port queue "
-            f"item 12)")
 
 
 def _resolve_plan(spec: PoolSpec, cfg, name: Optional[str]):

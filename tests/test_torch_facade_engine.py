@@ -26,9 +26,9 @@ fleets of ``tests/test_serving.py`` (a hardened pool with no fault, a
 allocator's books), sampled submits, and a co-processing split pool (an
 "mpai" prefill stage feeding two bf16 decode shards, under a
 ``handoff_loss`` fault, traced: handles, the snapshot with its
-``lm.prefill`` stage pool, and the flight recorder's spans).  What the
-port does not serve yet (stage-axis pools) raises ``NotImplementedError``
-before any weights are touched."""
+``lm.prefill`` stage pool, and the flight recorder's spans).  Stage-axis
+pools (``pipeline_stages``) are held to the reference in
+``tests/test_torch_stage_executor.py``."""
 import json
 import os
 import subprocess
@@ -43,7 +43,6 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs.rwkv6_3b import SMOKE as RWKV
 from repro_torch.configs.tiny import TINY
-from repro_torch.models import transformer as T
 from repro_torch.runtime.serve import (ContinuousBatchingEngine,
                                        WindowedBaselineServer)
 from repro_torch.serving import (FaultSpec, FleetSpec, LMWork, PoolSpec,
@@ -462,33 +461,6 @@ def test_rwkv_engine_pool_falls_back_as_the_reference(ref, harden):
     assert [str(w.message) for w in seen] == want["warnings"]
     assert len(want["warnings"]) == 1
     assert rwkv_serve(client, RWKV.vocab_size) == want["tokens"]
-
-
-def _refused_specs():
-    """Fleets the port refuses, and whether ``make_server`` refuses their
-    pool on its own."""
-    engine = dict(profiles=("tpu_v5e_bf16",), backend="engine", max_slots=2,
-                  prompt_len=8, max_new=4)
-    return {
-        "pipeline_stages": (FleetSpec(pools=[PoolSpec(
-            "p", pipeline_stages=2, **engine)], workload="transformer"),
-            True),
-    }
-
-
-@pytest.mark.parametrize("case", sorted(_refused_specs()))
-def test_unported_paths_refuse_before_weights(case, monkeypatch):
-    def no_init(*a, **k):
-        raise AssertionError("weights were initialised before the refusal")
-    monkeypatch.setattr(T, "model_init", no_init)
-    spec, pool_refuses = _refused_specs()[case]
-    spec.arch = "qwen3-14b"
-    spec.smoke = False                   # a full-width init would show
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        spec.build(device="cpu")
-    if pool_refuses:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_server(TINY, None, spec.pools[0], device="cpu")
 
 
 @pytest.fixture(scope="module")
