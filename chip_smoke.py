@@ -96,7 +96,18 @@ under bf16 and 4 under "mpai", with step ms, tokens/s, peak memory and
 the flash kernels' launches, then a fault-tolerant run (a fault at step
 2, a checkpoint every step, 2 layers deep) bit-equal to the
 uninterrupted one; ``launch_train`` runs ``python -m
-repro_torch.launch.train --arch musicgen-medium --smoke --steps 2``.
+repro_torch.launch.train --steps 2 --smoke`` at ``musicgen-medium``,
+``jamba-v0.1-52b`` (the scan, flash and their backwards, the MoE
+gradients) and ``rwkv6-3b``.
+Recurrent training: ``kernel_wkv_backward`` and
+``kernel_selective_scan_backward`` hold the two backward kernels to their
+plain versions (the wkv at one RWKV-6 3B training layer, B 4 x S 4096 x 40
+heads of 64; the scan at Jamba's full-width layer, d_inner 8192, N 16, at
+the forward's shapes), twice bit-equal; ``rwkv_train_full_width`` trains
+RWKV-6 3B at full width and depth (32 layers, remat) on ``RWKV_TRAIN_SHAPE``
+3 steps under bf16 and 3 under "mpai", the wkv forward and its backward in
+every layer, then repeats one step from the same state two layers deep,
+bit-equal (``rwkv_train_repeat``).
 The MPAI stage axis: ``staged_full_width`` serves the Qwen3-14B weights
 through ``StageAxisEngine``, the fake-quantized int8 backbone and the bf16
 tail as two pipeline stages on the one card, each on its own stream (6
@@ -152,6 +163,11 @@ FLASH_ATTENTION_TPU = "src/repro/kernels/flash_attention.py:74"
 WKV_TPU = "src/repro/kernels/wkv.py:49"
 SELECTIVE_SCAN_TPU = "src/repro/kernels/selective_scan.py:63"
 ROWWISE_QUANT_TPU = "src/repro/kernels/quant.py:33"
+WKV_BWD_SRC = "src/repro_torch/kernels/csrc/wkv_bwd.cu"
+SELECTIVE_SCAN_BWD_SRC = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+# no TPU counterpart: the reference differentiates XLA's scans
+WKV_BWD_REPLACES = "src/repro/models/rwkv.py:115"
+SELECTIVE_SCAN_BWD_REPLACES = "src/repro/models/mamba.py:72"
 
 # The RWKV-6 3B serving shape: windows of 8 requests, prompts left-padded
 # to 128 tokens (the wkv kernel's S), room for 32 new tokens.
@@ -160,6 +176,9 @@ RWKV_SERVE = dict(max_slots=8, prompt_len=128, max_len=160)
 # selective scan and the flash kernel, decode against a 160-slot KV cache.
 JAMBA_SERVE = RWKV_SERVE
 JAMBA_LAYERS = 8          # one super-block: 1 attention + 7 Mamba layers
+# RWKV-6 3B training: train_4k's 4096-token sequences, its batch of 256
+# cut to what one card holds with f32 masters, AdamW moments and gradients
+RWKV_TRAIN_SHAPE = (4096, 4)     # seq, batch
 # The Qwen3-14B engine shape (the flash kernel's S is prompt_len).
 QWEN_SERVE = dict(max_slots=8, prompt_len=32, max_len=128, block_size=16)
 
@@ -614,6 +633,179 @@ def selective_scan_phase(timer, ss, dev, sm_mhz: int) -> dict:
             "shapes": f"one Jamba Mamba prefill layer: B=8 S=128 D={dim} "
                       f"N={n}; the exps bound on the special-function "
                       f"unit at {sm_mhz} MHz"}
+
+
+# per gradient of a backward kernel: ||err|| <= BWD_FRO * ||ref|| and max
+# |err| <= BWD_MAX * max |ref| (f32 recurrences walked in the same order;
+# the scan's exps are ex2.approx against exp)
+BWD_FRO, BWD_MAX = 1e-5, 1e-4
+
+
+def plain_ms(fn):
+    """(result, device ms) of one call of a plain version, by CUDA events
+    (the plain walks run thousands of small launches: one call is timed)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def grads_agree(what: str, names, got, want) -> float:
+    """Max |err| over the gradients ``got`` against ``want``; raises where
+    one is not finite or outside ``BWD_FRO`` / ``BWD_MAX``."""
+    worst = 0.0
+    for name, g, w in zip(names, got, want):
+        err = g.float() - w.float()
+        ok = (bool(torch.isfinite(g).all())
+              and torch.linalg.norm(err) <= BWD_FRO * torch.linalg.norm(w)
+              and err.abs().max() <= BWD_MAX * w.abs().max())
+        if not ok:
+            raise AssertionError(f"{what} {name} disagrees with its plain "
+                                 f"version: max |err| {err.abs().max()}")
+        worst = max(worst, err.abs().max().item())
+    return worst
+
+
+def wkv_backward_phase(timer, wk, dev) -> dict:
+    """The wkv backward kernel against its plain version at one RWKV-6 3B
+    training layer (``RWKV_TRAIN_SHAPE``, 40 heads of 64) and at a ragged S
+    with the final state's gradient; two launches bit-equal.  ``ms`` around
+    the wrapper, ``device_ms`` a graph replay of one call; the plain
+    version timed once (it walks S steps of small launches);
+    ``forward_ms`` the forward kernel writing the checkpoints, as training
+    launches it."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    h, n = 40, 64
+    seq, batch = RWKV_TRAIN_SHAPE
+    rows, errs = {}, []
+    for b, s, with_ds in ((batch, seq, False), (2, 37, True)):
+        mk = lambda: torch.randn((b, s, h, n), generator=g, device=dev)
+        r, k, v, dy = mk(), mk(), mk(), mk()
+        w = torch.exp(-torch.exp(mk() - 1))
+        u = torch.randn((h, n), generator=g, device=dev)
+        ds = (torch.randn((b, h, n, n), generator=g, device=dev)
+              if with_ds else None)
+        _, _, ckpt = wk._launch(r, k, v, w, u, checkpoints=True)
+        call = lambda: wk.wkv_bwd(r, k, v, w, u, ckpt, dy, ds)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"wkv_bwd: two launches differ at B={b} "
+                                 f"S={s}")
+        del again
+        want, p_ms = plain_ms(lambda: wk.wkv_bwd_plain(r, k, v, w, u, dy,
+                                                       ds))
+        errs.append(grads_agree(f"wkv_bwd B={b} S={s}",
+                                ("dr", "dk", "dv", "dw", "du"), got, want))
+        del got, want
+        # r, k, v, w, dy, u and the checkpoints read; dr, dk, dv, dw, du
+        # written (ds_fin, where given, read)
+        nbytes = 4 * (9 * r.numel() + 2 * u.numel() + ckpt.numel()
+                      + (ds.numel() if with_ds else 0))
+        # per (b, t, h): G (2 N^2), dr (4 N^2), dk, dw (2 N^2 each), dv's
+        # product (N^2), dS's update (3 N^2); the bonus terms are O(N)
+        flops = 14 * n * n * b * s * h
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        rows[(b, s)] = {
+            "ms": timer.ms(call, reps=5 if s > 512 else 15),
+            "device_ms": timer.device_ms(call, reps=5 if s > 512 else 15),
+            "forward_ms": timer.ms(lambda: wk._launch(
+                r, k, v, w, u, checkpoints=True)),
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "max_abs_err": errs[-1], "bit_identical": True}
+        emit("kernel_wkv_backward", B=b, S=s, H=h, N=n, ds_fin=with_ds,
+             **rows[(b, s)], library_ms=None,
+             tolerance=f"per gradient ||err|| <= {BWD_FRO} ||ref||, max "
+                       f"|err| <= {BWD_MAX} max |ref|")
+        del r, k, v, w, dy, ckpt
+    torch.cuda.empty_cache()
+    main = rows[(batch, seq)]
+    return {"name": "wkv_bwd", "route": "cuda", "source": WKV_BWD_SRC,
+            "replaces": WKV_BWD_REPLACES, "launches": 0,
+            "max_abs_err": max(errs),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None,
+            "replaces_note": "no TPU counterpart: the reference trains "
+                             "through XLA's autodiff of _wkv_chunk_scan",
+            "shapes": f"one RWKV-6 3B training layer: B={batch} S={seq} "
+                      f"H={h} N={n}"}
+
+
+def selective_scan_backward_phase(timer, ss, dev, sm_mhz: int) -> dict:
+    """The selective-scan backward kernel against its plain version at
+    Jamba's full-width layer (d_inner 8192, N 16) at ``SCAN_SHAPES`` (the
+    forward's rows), the ragged one with the final state's gradient; two
+    launches bit-equal; timed as the wkv backward (``forward_ms`` the
+    forward writing the checkpoints)."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    dim, n = 8192, 16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, errs = {}, []
+    for b, s in SCAN_SHAPES:
+        args = scan_case(dev, b, s, g, dim, n)
+        x, bm, a = args[0], args[2], args[4]
+        dy = torch.randn((b, s, dim), generator=g, device=dev)
+        dh = (torch.randn((b, dim, n), generator=g, device=dev)
+              if (b, s) == (3, 37) else None)
+        _, _, ckpt = ss._launch(*args, checkpoints=True)
+        call = lambda: ss.selective_scan_bwd(*args, ckpt, dy, dh)
+        got, again = call(), call()
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"selective_scan_bwd: two launches differ "
+                                 f"at B={b} S={s}")
+        del again
+        want, p_ms = plain_ms(lambda: ss.selective_scan_bwd_plain(
+            *args, dy, dh))
+        errs.append(grads_agree(f"selective_scan_bwd B={b} S={s}",
+                                ("dx", "ddt", "dB", "dC", "dA", "dD"), got,
+                                want))
+        del got, want
+        # x, dt, dy, B, C, A, D and the checkpoints read; dx, ddt, dB, dC,
+        # dA, dD written (dh_fin, where given, read)
+        nbytes = 4 * (5 * x.numel() + 4 * bm.numel() + 2 * a.numel()
+                      + 2 * dim + ckpt.numel()
+                      + (dh.numel() if dh is not None else 0))
+        # per (b, t, d, n): one exp on the special-function unit, and dh's
+        # fma, dB and dC's products, dx's and ddt's sums, dA's update and
+        # dh's decay on the f32 units (16 flops)
+        cells = b * s * dim * n
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        t_ops = max(cells / (16 * sms * sm_mhz * 1e6),
+                    16 * cells / PEAK_F32_FLOPS) * 1e3
+        rows[(b, s)] = {
+            "ms": timer.ms(call), "device_ms": timer.device_ms(call),
+            "forward_ms": timer.ms(lambda: ss._launch(
+                *args, checkpoints=True)),
+            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "max_abs_err": errs[-1], "bit_identical": True}
+        emit("kernel_selective_scan_backward", B=b, S=s, D=dim, N=n,
+             dh_fin=dh is not None, **rows[(b, s)], library_ms=None,
+             tolerance=f"per gradient ||err|| <= {BWD_FRO} ||ref||, max "
+                       f"|err| <= {BWD_MAX} max |ref|")
+        del args, dy, ckpt
+    main = rows[(JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"])]
+    return {"name": "selective_scan_bwd", "route": "cuda",
+            "source": SELECTIVE_SCAN_BWD_SRC,
+            "replaces": SELECTIVE_SCAN_BWD_REPLACES, "launches": 0,
+            "max_abs_err": max(errs),
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None,
+            "replaces_note": "no TPU counterpart: the reference trains "
+                             "through XLA's autodiff of _chunk_scan",
+            "shapes": f"one Jamba Mamba layer at full width: B=8 S=128 "
+                      f"D={dim} N={n}; the exps bound on the "
+                      f"special-function unit at {sm_mhz} MHz"}
 
 
 # (M, K) of the row-wise quant at the int8 KV cache's rows of the Jamba
@@ -1300,7 +1492,9 @@ def kernel_wrappers() -> dict:
             "flash_attention": flash_attention.flash_attention,
             "flash_attention_bwd": flash_attention.flash_attention_bwd,
             "wkv": wkv.wkv,
+            "wkv_bwd": wkv.wkv_bwd,
             "selective_scan": selective_scan.selective_scan,
+            "selective_scan_bwd": selective_scan.selective_scan_bwd,
             "rowwise_quant": quant.rowwise_quant}
 
 
@@ -1339,6 +1533,15 @@ def zero_counts() -> None:
         by_route = getattr(wrapper, "launches_by_route", None)
         if by_route is not None:
             by_route.update(dict.fromkeys(by_route, 0))
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches by its row in the ``kernels`` line (the
+    flash backward's by route)."""
+    from repro_torch.kernels import flash_attention as fa
+    n = {name: w.launches for name, w in kernel_wrappers().items()
+         if name != "flash_attention_bwd"}
+    return {**n, **train_launches(fa)}
 
 
 def drive_windowed(server, trace, request_cls, logits=None) -> dict:
@@ -3558,6 +3761,67 @@ def tiny_train_phase(dev, fa) -> None:
          **{f"{k}_launches": v for k, v in n.items()})
 
 
+def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
+                reduced: list, counts, check) -> dict:
+    """``cfg`` trained ``steps`` steps of ``shape`` under bf16 and under
+    "mpai" (``qat.train_plan``: a fake-quantized backbone) by the
+    ``Trainer`` from its seeded init: loss and grad norm finite, step ms
+    (median, each step ending in a synchronize), tokens/s, peak memory and
+    ``counts()`` (kernel launches by row name), counted from 0 for each
+    plan's run; ``check(counts)`` lists what is wrong with them.  Frees
+    each state.  Returns ``{plan: counts}``."""
+    from repro_torch.configs.base import MeshConfig, TrainConfig
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.train_loop import Trainer
+
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    out = {}
+    for name, plan in (("bf16", None),
+                       ("mpai", qat.train_plan(PartitionPlan.mpai(
+                           cfg.num_layers)))):
+        tc = TrainConfig(total_steps=steps)
+        tr = Trainer(cfg, shape, mesh, tc, plan=plan, device=dev)
+        t0 = time.perf_counter()
+        handed = [tr.init_state()]    # not kept: each old state is freed
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        clock = StepClock()
+        zero_counts()                 # the main path's counts start here
+        clock.start()
+        state, hist = tr.run(handed.pop(),
+                             lambda s: lm_batch(cfg, shape, s, device=dev),
+                             steps, log_every=1, on_step=clock)
+        n = counts()
+        bad = [h for h in hist if not (np.isfinite(h["loss"])
+                                       and np.isfinite(h["grad_norm"]))]
+        if bad or int(state.step) != steps:
+            raise AssertionError(f"{phase} {name}: {hist}")
+        wrong = check(n)
+        if wrong:
+            raise AssertionError(f"{phase} {name}: {wrong}")
+        step_ms = float(np.median(clock.times)) * 1e3
+        emit(phase, card=card, config=cfg.name, plan=name,
+             shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+             reduced=reduced,
+             params=sum(p.numel() for p in tree_leaves(state.params)),
+             init_s=init_s, step_ms=step_ms,
+             step_ms_each=[t * 1e3 for t in clock.times],
+             tokens_per_s=shape.tokens / (step_ms / 1e3),
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+             loss=[h["loss"] for h in hist],
+             grad_norm=[h["grad_norm"] for h in hist],
+             **{f"{k}_launches": v for k, v in n.items()})
+        out[name] = n
+        del state, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 TRAIN_SHAPE = (4096, 4)          # train_4k's sequence, its batch 256 cut to 4
 TRAIN_STEPS = 4
 FT_LAYERS = 2                    # the restart check's depth (checkpoint I/O)
@@ -3581,8 +3845,6 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.configs.stablelm_1_6b import FULL
-    from repro_torch.core import qat
-    from repro_torch.core.partition import PartitionPlan
     from repro_torch.core.tree import tree_leaves
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.runtime.fault import FaultInjector, FaultTolerantRunner
@@ -3591,47 +3853,11 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     shape = ShapeConfig("train_4k_cut", *TRAIN_SHAPE, "train")
     mesh = MeshConfig((1, 1), ("data", "model"))
     data = lambda cfg: (lambda s: lm_batch(cfg, shape, s, device=dev))
-    out = {}
-    for name, plan in (("bf16", None),
-                       ("mpai", qat.train_plan(PartitionPlan.mpai(
-                           FULL.num_layers)))):
-        tc = TrainConfig(total_steps=TRAIN_STEPS)
-        tr = Trainer(FULL, shape, mesh, tc, plan=plan, device=dev)
-        t0 = time.perf_counter()
-        handed = [tr.init_state()]    # not kept: each old state is freed
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        torch.cuda.reset_peak_memory_stats()
-        clock = StepClock()
-        zero_counts()                 # the main path's counts start here
-        clock.start()
-        state, hist = tr.run(handed.pop(), data(FULL), TRAIN_STEPS,
-                             log_every=1, on_step=clock)
-        n = train_launches(fa)
-        bad = [h for h in hist if not (np.isfinite(h["loss"])
-                                       and np.isfinite(h["grad_norm"]))]
-        if bad or int(state.step) != TRAIN_STEPS:
-            raise AssertionError(f"train_full_width {name}: {hist}")
-        idle = train_idle(fa, FULL, n)
-        if idle:
-            raise AssertionError(f"train_full_width {name}: no launch of "
-                                 f"{idle}")
-        step_ms = float(np.median(clock.times)) * 1e3
-        emit("train_full_width", card=card, config=FULL.name, plan=name,
-             shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
-             reduced=["global batch 256 -> 4 (one card)"],
-             params=sum(p.numel() for p in tree_leaves(state.params)),
-             init_s=init_s, step_ms=step_ms,
-             step_ms_each=[t * 1e3 for t in clock.times],
-             tokens_per_s=shape.tokens / (step_ms / 1e3),
-             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
-             loss=[h["loss"] for h in hist],
-             grad_norm=[h["grad_norm"] for h in hist],
-             **{f"{k}_launches": v for k, v in n.items()})
-        out[name] = n
-        del state, tr
-        gc.collect()
-        torch.cuda.empty_cache()
+    out = train_plans(dev, card, FULL, shape, TRAIN_STEPS,
+                      "train_full_width", ["global batch 256 -> 4 (one card)"],
+                      lambda: train_launches(fa),
+                      lambda n: [f"no launch of {k}"
+                                 for k in train_idle(fa, FULL, n)])
 
     # fault-tolerant restart at full width, FT_LAYERS deep
     cfg = FULL.with_(num_layers=FT_LAYERS)
@@ -3675,42 +3901,115 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     return out
 
 
-LAUNCH_TRAIN = ["--arch", "musicgen-medium", "--smoke", "--steps", "2"]
+RWKV_TRAIN_STEPS = 3
+RWKV_REPEAT_LAYERS = 2           # the repeated step's depth (two states)
 
 
-def launch_train_phase(card: str, fa) -> dict:
-    """``python -m repro_torch.launch.train --arch musicgen-medium --smoke
-    --steps 2`` on the card, as ``main(argv)`` (the audio frontend's
-    synthetic embeddings made on the card): two finite steps, both flash
-    kernels launched.  Returns their launches, counted from 0."""
+def rwkv_train_full_width_phase(dev, card: str, wk) -> dict:
+    """RWKV-6 3B at full width and depth (32 layers, d 2560, 40 heads of
+    64, vocab 65536, remat) trained ``RWKV_TRAIN_STEPS`` steps of
+    ``RWKV_TRAIN_SHAPE`` under bf16 and "mpai" by ``train_plans``: every
+    layer's wkv launched twice a step (the forward and remat's recompute,
+    which writes the checkpoints) and its backward once.  Then one step
+    from the same state run twice, ``RWKV_REPEAT_LAYERS`` deep at the same
+    widths (two 3 B states and their moments do not fit one card): the
+    parameters bit-equal."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.rwkv6_3b import FULL
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.train_loop import Trainer
+
+    shape = ShapeConfig("train_4k_cut", *RWKV_TRAIN_SHAPE, "train")
+    layers = FULL.num_layers
+
+    def check(n):
+        want = {"wkv": 2 * layers * RWKV_TRAIN_STEPS,
+                "wkv_bwd": layers * RWKV_TRAIN_STEPS}
+        return [f"{k} launched {n[k]} times, not {v}"
+                for k, v in want.items() if n[k] != v]
+    out = train_plans(
+        dev, card, FULL, shape, RWKV_TRAIN_STEPS, "rwkv_train_full_width",
+        [f"global batch 256 -> {RWKV_TRAIN_SHAPE[1]} (one card)"],
+        lambda: {"wkv": wk.wkv.launches, "wkv_bwd": wk.wkv_bwd.launches},
+        check)
+
+    cfg = FULL.with_(num_layers=RWKV_REPEAT_LAYERS)
+    tr = Trainer(cfg, shape, MeshConfig((1, 1), ("data", "model")),
+                 TrainConfig(total_steps=1), device=dev)
+    batch = lm_batch(cfg, shape, 0, device=dev)
+    runs = []
+    for _ in range(2):
+        state, m = tr.step_fn(tr.init_state(), batch)
+        runs.append((tree_leaves(state.params), float(m["loss"]),
+                     float(m["grad_norm"])))
+        del state
+    equal = all(torch.equal(a, b) for a, b in zip(runs[0][0], runs[1][0]))
+    if not equal or runs[0][1:] != runs[1][1:]:
+        raise AssertionError(f"rwkv_train_repeat: parameters equal {equal}, "
+                             f"loss and grad norm {runs[0][1:]} against "
+                             f"{runs[1][1:]}")
+    emit("rwkv_train_repeat", card=card, config=cfg.name,
+         layers=RWKV_REPEAT_LAYERS,
+         reduced=[f"global batch 256 -> {RWKV_TRAIN_SHAPE[1]}",
+                  f"layers 32 -> {RWKV_REPEAT_LAYERS}"],
+         params_bit_equal=True, loss=runs[0][1], grad_norm=runs[0][2])
+    del runs, tr, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the train launcher on the card, each a main path of its own: the audio
+# frontend (flash), Jamba's smoke config (the scan and its backward, flash
+# and its backward, the MoE dispatch), RWKV-6's (wkv and its backward)
+LAUNCH_TRAINS = {
+    "musicgen-smoke": (["--arch", "musicgen-medium", "--smoke", "--steps",
+                        "2"], ("flash_attention",
+                               "flash_attention_bwd_mma_sync")),
+    "jamba-smoke": (["--arch", "jamba-v0.1-52b", "--smoke", "--steps", "2"],
+                    ("flash_attention", "flash_attention_bwd_mma_sync",
+                     "selective_scan", "selective_scan_bwd")),
+    "rwkv6-smoke": (["--arch", "rwkv6-3b", "--smoke", "--steps", "2"],
+                    ("wkv", "wkv_bwd"))}
+
+
+def launch_train_phase(card: str) -> dict:
+    """``python -m repro_torch.launch.train`` at each of ``LAUNCH_TRAINS``
+    on the card, as ``main(argv)``: two finite steps, each named kernel
+    launched.  Returns ``{config: launches by row name}``, each run counted
+    from 0."""
     import shutil
     import tempfile
-    from repro_torch.configs import get_config
     from repro_torch.launch import train
     (ROOT / "build").mkdir(exist_ok=True)
-    ckpt_dir = tempfile.mkdtemp(prefix="launch_train_", dir=ROOT / "build")
-    try:
-        zero_counts()                 # the main path's counts start here
-        t0 = time.perf_counter()
-        out = train.main(LAUNCH_TRAIN + ["--ckpt-dir", ckpt_dir])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        n = train_launches(fa)
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    hist = out["history"]
-    if [h["step"] for h in hist] != [1, 2] or not all(
-            np.isfinite(h["loss"]) for h in hist):
-        raise AssertionError(f"launch_train: {hist}")
-    idle = train_idle(fa, get_config(LAUNCH_TRAIN[1], smoke=True), n)
-    if idle:
-        raise AssertionError(f"launch_train: no launch of {idle}")
-    emit("launch_train", card=card, argv=LAUNCH_TRAIN, wall_s=wall,
-         arch=out["arch"], shape=out["shape"],
-         loss=[h["loss"] for h in hist],
-         **{f"{k}_launches": v for k, v in n.items()})
-    return n
-
+    out = {}
+    for config, (argv, kernels) in LAUNCH_TRAINS.items():
+        ckpt_dir = tempfile.mkdtemp(prefix="launch_train_",
+                                    dir=ROOT / "build")
+        try:
+            zero_counts()             # the main path's counts start here
+            t0 = time.perf_counter()
+            res = train.main(argv + ["--ckpt-dir", ckpt_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = launch_counts()
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        hist = res["history"]
+        if [h["step"] for h in hist] != [1, 2] or not all(
+                np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"launch_train {config}: {hist}")
+        idle = [k for k in kernels if not n[k]]
+        if idle:
+            raise AssertionError(f"launch_train {config}: no launch of "
+                                 f"{idle}")
+        emit("launch_train", card=card, argv=argv, wall_s=wall,
+             arch=res["arch"], shape=res["shape"],
+             loss=[h["loss"] for h in hist],
+             **{f"{k}_launches": n[k] for k in kernels})
+        out[config] = {k: n[k] for k in kernels}
+    return out
 
 
 def main() -> int:
@@ -3757,7 +4056,9 @@ def main() -> int:
             int8_matmul_phase(timer, im, dev),
             flash_attention_phase(timer, fa, dev),
             wkv_phase(timer, wk, dev),
+            wkv_backward_phase(timer, wk, dev),
             selective_scan_phase(timer, ss, dev, sm_mhz),
+            selective_scan_backward_phase(timer, ss, dev, sm_mhz),
             rowwise_quant_phase(timer, rq, dev),
             *flash_backward_phase(timer, fa, dev)]
     sampling_phase(timer, dev)
@@ -3784,8 +4085,13 @@ def main() -> int:
     for plan, by_kernel in train_full_width_phase(dev, card, fa).items():
         for name, n in by_kernel.items():
             launches[name][f"stablelm-1.6b/train/{plan}"] = n
-    for name, n in launch_train_phase(card, fa).items():
-        launches[name]["musicgen-smoke/launch_train"] = n
+    for plan, by_kernel in rwkv_train_full_width_phase(dev, card,
+                                                       wk).items():
+        for name, n in by_kernel.items():
+            launches[name][f"rwkv6-3b/train/{plan}"] = n
+    for config, by_kernel in launch_train_phase(card).items():
+        for name, n in by_kernel.items():
+            launches[name][f"{config}/launch_train"] = n
     # the pose phases: cuDNN's deterministic convolutions, so an evaluation
     # repeats bit for bit (TF32 stays off, above)
     torch.backends.cudnn.deterministic = True
@@ -3802,7 +4108,8 @@ def main() -> int:
         row["launches"] = sum(launches[row["name"]].values())
         if row["name"] in ("selective_scan", "rowwise_quant",
                            "flash_attention_bwd",
-                           "flash_attention_bwd_mma_sync") \
+                           "flash_attention_bwd_mma_sync", "wkv_bwd",
+                           "selective_scan_bwd") \
                 and not row["launches"]:
             raise AssertionError(f"{row['name']}: no launch on the main path")
     emit("total", seconds=time.perf_counter() - started)

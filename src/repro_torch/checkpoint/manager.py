@@ -70,7 +70,8 @@ def _rebuild(tree, fn, prefix=()):
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    # a copy, also of a CPU tensor: the trainer updates its state in place
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view("V2")
     return t.numpy()

@@ -107,15 +107,16 @@ def check(status: int, what: str) -> None:
                            f"{status}")
 
 
-def refuse_grad(what: str, *tensors) -> None:
-    """The wkv and selective-scan kernels have no backward (nor have the
-    reference's): a CUDA call whose output a gradient would need raises,
-    rather than leave the inputs out of the autograd graph.  (Flash
-    attention differentiates through its backward kernel.)"""
+def check_inputs(what: str, tensors, size: int, sizes) -> None:
+    """Raise unless ``tensors`` are all f32 on one device and ``size`` (the
+    head or state size) is one of the ``sizes`` the kernel compiles."""
     import torch
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(f"{what}: the CUDA kernel has no backward; "
-                                  f"call it under torch.no_grad()")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{what} kernel takes f32 inputs")
+    if size not in sizes:
+        raise ValueError(f"{what} kernel: size {size} (compiled: {sizes})")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{what}: tensors on different devices")
 
 
 def aligned(t):

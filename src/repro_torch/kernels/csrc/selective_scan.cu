@@ -10,6 +10,10 @@
 //   y     [B, S, D]    h_fin [B, D, N]   (h after the last step)
 // The TPU kernel drops the final state; the Mamba prefill hands it to the
 // decode cache, so this kernel writes it.  S and D are any size: no padding.
+// For training, given a ckpt pointer, it also writes h before every
+// CKPT_EVERY-th step, ckpt [B, D, ceil(S / CKPT_EVERY), N], from which
+// csrc/selective_scan_bwd.cu recomputes the states it walks back through;
+// inference passes null.
 //
 // What bounds it: x, dt and y move once (12 bytes per (b, t, d)), and each
 // (b, t, d, n) takes one exp, so at N = 16 the special-function unit (16
@@ -40,6 +44,7 @@ constexpr int kThreads = 128;        // 4 warps, each on its own channels
 constexpr int kStages = 3;           // chunks in a warp's ring
 constexpr int kWarpFloats = 3072;    // a warp's ring: 12 KB
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int CKPT_EVERY = 64;       // kernels/selective_scan.py CKPT_EVERY
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -85,6 +90,7 @@ struct Tile {
   static constexpr int SMEM = 4 * (kThreads / 32) * kStages * STAGE;
   static_assert(NPT >= 1 && NPT <= 8, "1..8 states a thread");
   static_assert(CW % 4 == 0, "a warp's row is whole 16-byte pieces");
+  static_assert(CKPT_EVERY % T == 0, "checkpoints on chunk starts");
 };
 
 // At 4 or more lanes a channel, a register budget for 6 blocks an SM makes
@@ -96,7 +102,7 @@ selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
                       const float* __restrict__ bm, const float* __restrict__ cm,
                       const float* __restrict__ a, const float* __restrict__ dd,
                       float* __restrict__ y, float* __restrict__ h_fin,
-                      int seq, int dim) {
+                      float* __restrict__ ckpt, int seq, int dim) {
   using S = Tile<N, L>;
   constexpr int NPT = S::NPT, CW = S::CW, T = S::T;
   extern __shared__ __align__(16) float smem[];
@@ -164,6 +170,13 @@ selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
     const float* bs = st + 2 * T * CW + part * NPT;
     const float* cs = bs + T * N;
     const int t0 = ci * T, len = min(T, seq - t0);
+    if (ckpt != nullptr && live && t0 % CKPT_EVERY == 0) {  // h before t0
+      float* out = ckpt + (((long long)blockIdx.y * dim + d) *
+                           ((seq + CKPT_EVERY - 1) / CKPT_EVERY) +
+                           t0 / CKPT_EVERY) * N + part * NPT;
+#pragma unroll
+      for (int i = 0; i < NPT; ++i) out[i] = h[i];
+    }
     // one step: the states advance, and y_t (in every lane of the channel)
     auto step = [&](int c) -> float {
       const float dtc = dts[c * CW], xc = xs[c * CW], dtx = dtc * xc;
@@ -226,32 +239,33 @@ selective_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 template <int N, int L>
 int launch(const float* x, const float* dt, const float* b, const float* c,
-           const float* a, const float* d, float* y, float* h_fin, int B,
-           int S, int D, cudaStream_t stream) {
+           const float* a, const float* d, float* y, float* h_fin,
+           float* ckpt, int B, int S, int D, cudaStream_t stream) {
   using Tl = Tile<N, L>;
   dim3 grid((D + Tl::CH - 1) / Tl::CH, B);
   selective_scan_kernel<N, L><<<grid, kThreads, Tl::SMEM, stream>>>(
-      x, dt, b, c, a, d, y, h_fin, S, D);
+      x, dt, b, c, a, d, y, h_fin, ckpt, S, D);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // lanes: threads a channel (kernels/selective_scan.py plan); every (N,
-// lanes) below is compiled, others return cudaErrorInvalidValue.
+// lanes) below is compiled, others return cudaErrorInvalidValue.  ckpt:
+// null, or the [B, D, ceil(S / CKPT_EVERY), N] checkpoints.
 extern "C" int selective_scan_f32(const void* x, const void* dt,
                                   const void* b, const void* c, const void* a,
-                                  const void* d, void* y, void* h_fin, int B,
-                                  int S, int D, int N, int lanes,
-                                  void* stream) {
+                                  const void* d, void* y, void* h_fin,
+                                  void* ckpt, int B, int S, int D, int N,
+                                  int lanes, void* stream) {
   const float *xf = (const float*)x, *dtf = (const float*)dt,
               *bf = (const float*)b, *cf = (const float*)c,
               *af = (const float*)a, *df = (const float*)d;
-  float *yf = (float*)y, *hf = (float*)h_fin;
+  float *yf = (float*)y, *hf = (float*)h_fin, *kf = (float*)ckpt;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_N(NN, LL)                                                    \
   if (N == NN && lanes == LL)                                              \
-    return launch<NN, LL>(xf, dtf, bf, cf, af, df, yf, hf, B, S, D, s);
+    return launch<NN, LL>(xf, dtf, bf, cf, af, df, yf, hf, kf, B, S, D, s);
   REPRO_N(4, 1) REPRO_N(4, 2) REPRO_N(4, 4)
   REPRO_N(8, 1) REPRO_N(8, 2) REPRO_N(8, 4) REPRO_N(8, 8)
   REPRO_N(16, 2) REPRO_N(16, 4) REPRO_N(16, 8)

@@ -9,7 +9,10 @@
 //   y           [B, S, H, N]      s_fin  [B, H, N, N]  (S after the last step)
 // The TPU kernel drops the final state; the prefill of the RWKV time mix
 // needs it for the decode cache, so this kernel writes it.  S is any length:
-// no padding is needed.
+// no padding is needed.  For training, given a ckpt pointer, it also writes
+// the state before every CKPT_EVERY-th step, ckpt [B, H, ceil(S /
+// CKPT_EVERY), N, N], from which csrc/wkv_bwd.cu recomputes the states it
+// walks back through; inference passes null.
 //
 // What bounds it: each input element is read once and each output written
 // once (5*4*N bytes per (b, t, h)) against 3 f32 instructions per (n, m) of
@@ -48,6 +51,7 @@
 namespace {
 
 constexpr int MAX_THREADS = 512;     // kernels/wkv.py MAX_THREADS
+constexpr int CKPT_EVERY = 64;       // kernels/wkv.py CKPT_EVERY
 
 __device__ inline void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
@@ -70,6 +74,7 @@ template <int N>
 __host__ __device__ constexpr int chunk() {
   return 512 / N;                    // timesteps a chunk: 8 KB a stage
 }
+static_assert(CKPT_EVERY % chunk<8>() == 0, "checkpoints on chunk starts");
 
 // dynamic shared memory: the ring, u, the chunk's bonus, partial y
 template <int N>
@@ -83,7 +88,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, float* __restrict__ y,
-           float* __restrict__ s_fin, int seq, int heads, int cpb) {
+           float* __restrict__ s_fin, float* __restrict__ ckpt, int seq,
+           int heads, int cpb) {
   constexpr int PARTS = N / NPT;
   constexpr int C = chunk<N>();
   constexpr int Q = NPT / 4;         // float4 groups a thread reads a row
@@ -114,6 +120,16 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int i = 0; i < NPT; ++i)
 #pragma unroll
     for (int j = 0; j < COLS; ++j) s[i][j] = 0.f;
+  // the thread's tile of the state into an [N, N] matrix at dst
+  auto store_state = [&](float* dst) {
+    float* out = dst + m0;
+#pragma unroll
+    for (int i = 0; i < NPT; ++i)
+#pragma unroll
+      for (int j = 0; j < COLS; j += 4)
+        *reinterpret_cast<float4*>(out + (part * NPT + i) * N + j) =
+            make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
+  };
 
   auto issue = [&](int ci) {          // chunk ci into its ring slot
     if (ci < chunks) {
@@ -141,6 +157,10 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
     __syncthreads();     // chunk ci landed; chunk ci-1 is fully consumed
     issue(ci + STAGES - 1);
     const int cur = ci % STAGES, t0 = ci * C, len = min(C, seq - t0);
+    if (ckpt != nullptr && t0 % CKPT_EVERY == 0)    // the state before t0
+      store_state(ckpt + (((long long)b * heads + h) *
+                          ((seq + CKPT_EVERY - 1) / CKPT_EVERY) +
+                          t0 / CKPT_EVERY) * N * N);
     for (int c0 = 0; c0 < C; c0 += groups) {           // bonus_t, t in chunk
       const int c = c0 + bc;
       float a = 0.f;
@@ -199,19 +219,13 @@ wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
       y[base + (t0 + c) * step + mm] = fmaf(row(cur, 2, c)[mm], bon[c], a);
     }
   }
-  float* out = s_fin + ((long long)b * heads + h) * N * N + m0;
-#pragma unroll
-  for (int i = 0; i < NPT; ++i)
-#pragma unroll
-    for (int j = 0; j < COLS; j += 4)
-      *reinterpret_cast<float4*>(out + (part * NPT + i) * N + j) =
-          make_float4(s[i][j], s[i][j + 1], s[i][j + 2], s[i][j + 3]);
+  store_state(s_fin + ((long long)b * heads + h) * N * N);
 }
 
 template <int N, int NPT>
 int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, float* y, float* s_fin, int B, int S, int H,
-           int msplit, cudaStream_t stream) {
+           const float* u, float* y, float* s_fin, float* ckpt, int B, int S,
+           int H, int msplit, cudaStream_t stream) {
   if (msplit < 1 || N % (msplit * COLS) ||
       (N / msplit / COLS) * (N / NPT) > MAX_THREADS)
     return (int)cudaErrorInvalidValue;
@@ -222,26 +236,28 @@ int launch(const float* r, const float* k, const float* v, const float* w,
   if (e != cudaSuccess) return (int)e;
   dim3 grid(H, B, msplit);
   wkv_kernel<N, NPT><<<grid, threads, smem, stream>>>(r, k, v, w, u, y,
-                                                      s_fin, S, H, cpb);
+                                                      s_fin, ckpt, S, H, cpb);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // npt: state rows per thread (4 or 8, at most N); msplit: blocks per
-// (b, h), each with N / msplit columns (kernels/wkv.py plan).
+// (b, h), each with N / msplit columns (kernels/wkv.py plan); ckpt: null,
+// or the [B, H, ceil(S / CKPT_EVERY), N, N] checkpoints.
 extern "C" int wkv_f32(const void* r, const void* k, const void* v,
                        const void* w, const void* u, void* y, void* s_fin,
-                       int B, int S, int H, int N, int npt, int msplit,
-                       void* stream) {
+                       void* ckpt, int B, int S, int H, int N, int npt,
+                       int msplit, void* stream) {
   const float *rf = (const float*)r, *kf = (const float*)k,
               *vf = (const float*)v, *wf = (const float*)w,
               *uf = (const float*)u;
-  float *yf = (float*)y, *sf = (float*)s_fin;
+  float *yf = (float*)y, *sf = (float*)s_fin, *cf = (float*)ckpt;
   cudaStream_t s = (cudaStream_t)stream;
 #define REPRO_N(NN, PT)                                                  \
   if (N == NN && npt == PT)                                              \
-    return launch<NN, PT>(rf, kf, vf, wf, uf, yf, sf, B, S, H, msplit, s);
+    return launch<NN, PT>(rf, kf, vf, wf, uf, yf, sf, cf, B, S, H, msplit, \
+                          s);
   REPRO_N(8, 4) REPRO_N(8, 8) REPRO_N(16, 4) REPRO_N(16, 8)
   REPRO_N(32, 4) REPRO_N(32, 8) REPRO_N(64, 4) REPRO_N(64, 8)
   REPRO_N(128, 4) REPRO_N(128, 8)

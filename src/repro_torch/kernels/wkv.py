@@ -19,6 +19,12 @@ and how many blocks share a (batch, head) from the shape and the SM count.
 It takes any sequence length, so the ``ops.wkv`` padding of the reference
 (identity decay, zero r/k/v: it changes neither y nor the state) is not
 needed.
+
+Training differentiates through ``WKVFn``: on the card its forward is the
+same kernel, also writing the state every ``CKPT_EVERY`` steps
+(``checkpoints=True``), and its backward is ``csrc/wkv_bwd.cu`` (``wkv_bwd``),
+which replays each chunk from its checkpoint and walks it back; on the CPU
+it runs ``wkv_bwd_plain``, the same reverse recurrence step by step.
 """
 from __future__ import annotations
 
@@ -36,8 +42,14 @@ MIN_THREADS = 128                     # a block splits columns down to this
 COLS = 4                              # csrc COLS: state columns a thread
 ROWS_PER_THREAD = (8, 4)              # npt values compiled in (<= N)
 WARPS_PER_SM = 8                      # below this, columns split finer
-# r, k, v, w, u, y, s_fin, B, S, H, N, npt, msplit, stream (csrc/wkv.cu)
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+CKPT_EVERY = 64                       # csrc CKPT_EVERY: steps a checkpoint
+BWD_HEAD_SIZES = (8, 16, 32, 64)      # N values csrc/wkv_bwd.cu compiles
+# r, k, v, w, u, y, s_fin, ckpt (or null), B, S, H, N, npt, msplit, stream
+# (csrc/wkv.cu)
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# r, k, v, w, u, dy, ckpt, ds_fin, dr, dk, dv, dw, du_part, B, S, H, N,
+# stream (csrc/wkv_bwd.cu)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
@@ -96,42 +108,179 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, state
 
 
-def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
-        u: torch.Tensor):
-    """Fused wkv (shapes as the plain version; ragged S is fine).
+def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, dy: torch.Tensor,
+                  ds_fin=None):
+    """The gradient of ``wkv_plain``, walked backward step by step in f32
+    as the kernel walks it: the states replayed from a checkpoint every
+    ``CKPT_EVERY`` steps, then, with ``dS`` the gradient of ``S_t`` (from
+    ``ds_fin``, or zero),
 
-    CUDA tensors launch the kernel (f32 everywhere, N in ``HEAD_SIZES``);
-    CPU tensors take the plain version."""
+        G = dS + (r_t o u) dy_t^T
+        dr_t = (S_{t-1} + diag(u) k_t v_t^T) dy_t,  dk_t = G v_t,
+        dv_t = G^T k_t,  dw_t = rowsum(dS o S_{t-1}),
+        du += r_t o k_t (dy_t . v_t),  dS <- diag(w_t) dS + r_t dy_t^T.
+
+    Shapes as ``wkv_plain``, dy [B, S, H, N], ds_fin [B, H, N, N] or None
+    -> (dr, dk, dv, dw [B, S, H, N], du [H, N]), f32."""
+    b, s, h, n = r.shape
+    r, k, v, w, dy = (t.float() for t in (r, k, v, w, dy))
+    uf = u.float()
+    kv = lambda t: k[:, t, :, :, None] * v[:, t, :, None, :]
+    ckpts, state = [], torch.zeros((b, h, n, n), dtype=torch.float32,
+                                   device=r.device)
+    for t in range(s):
+        if t % CKPT_EVERY == 0:
+            ckpts.append(state)
+        state = w[:, t, :, :, None] * state + kv(t)
+    ds = (torch.zeros_like(state) if ds_fin is None else
+          ds_fin.float().clone())
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    du = torch.zeros((h, n), dtype=torch.float32, device=r.device)
+    for j in reversed(range(len(ckpts))):
+        t0 = j * CKPT_EVERY
+        t1 = min(s, t0 + CKPT_EVERY)
+        states = [ckpts[j]]                       # S_{t-1}, t = t0 .. t1-1
+        for t in range(t0, t1 - 1):
+            states.append(w[:, t, :, :, None] * states[-1] + kv(t))
+        for t in reversed(range(t0, t1)):
+            sp, rt, kt, vt, wt, dyt = (states[t - t0], r[:, t], k[:, t],
+                                       v[:, t], w[:, t], dy[:, t])
+            g = ds + (rt * uf)[..., None] * dyt[..., None, :]
+            dr[:, t] = torch.einsum("bhnm,bhm->bhn",
+                                    sp + (uf * kt)[..., None]
+                                    * vt[..., None, :], dyt)
+            dk[:, t] = torch.einsum("bhnm,bhm->bhn", g, vt)
+            dv[:, t] = torch.einsum("bhnm,bhn->bhm", g, kt)
+            dw[:, t] = (ds * sp).sum(-1)
+            du += (rt * kt * (dyt * vt).sum(-1, keepdim=True)).sum(0)
+            ds = wt[..., None] * ds + rt[..., None] * dyt[..., None, :]
+    return dr, dk, dv, dw, du
+
+
+def _check_shapes(r, k, v, w, u) -> None:
     b, s, h, n = r.shape
     if any(t.shape != r.shape for t in (k, v, w)) or u.shape != (h, n):
         raise ValueError(f"wkv: r {tuple(r.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}, w {tuple(w.shape)}, u "
                          f"{tuple(u.shape)}")
-    if not r.is_cuda:
-        return wkv_plain(r, k, v, w, u)
-    build.refuse_grad("wkv", r, k, v, w, u)
-    if any(t.dtype != torch.float32 for t in (r, k, v, w, u)):
-        raise TypeError("wkv kernel takes f32 r, k, v, w and u")
-    if n not in HEAD_SIZES:
-        raise ValueError(f"wkv kernel: head size {n} (compiled: "
-                         f"{HEAD_SIZES})")
-    for t in (k, v, w, u):
-        if t.device != r.device:
-            raise ValueError("wkv: tensors on different devices")
+
+
+def _launch(r, k, v, w, u, checkpoints: bool):
+    """The forward kernel on CUDA tensors -> (y, s_fin, ckpt or None)."""
+    b, s, h, n = r.shape
+    build.check_inputs("wkv", (r, k, v, w, u), n, HEAD_SIZES)
     r, k, v, w = (build.aligned(t) for t in (r, k, v, w))
     u = u.contiguous()
     y = torch.empty_like(r)
     s_fin = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    ckpt = (torch.empty((b, h, -(-s // CKPT_EVERY), n, n),
+                        dtype=torch.float32, device=r.device)
+            if checkpoints else None)
     if b == 0 or h == 0:
-        return y, s_fin
+        return y, s_fin, ckpt
     p = plan(b, h, n, build.sm_count(r.device.index))
     fn = build.entry("wkv", "wkv_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-                   u.data_ptr(), y.data_ptr(), s_fin.data_ptr(), b, s, h, n,
+                   u.data_ptr(), y.data_ptr(), s_fin.data_ptr(),
+                   0 if ckpt is None else ckpt.data_ptr(), b, s, h, n,
                    p.npt, p.msplit, stream), "wkv")
     wkv.launches += 1
+    return y, s_fin, ckpt
+
+
+def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, ckpt: torch.Tensor,
+            dy: torch.Tensor, ds_fin=None):
+    """The backward kernel (``csrc/wkv_bwd.cu``) on CUDA tensors: the
+    gradient of ``wkv`` from the forward's checkpoints ``ckpt`` [B, H,
+    ceil(S / CKPT_EVERY), N, N] (``_launch(..., checkpoints=True)``) ->
+    (dr, dk, dv, dw, du),
+    as ``wkv_bwd_plain``; f32, N in ``BWD_HEAD_SIZES``.  ``du`` sums the
+    kernel's per-row partials over B in a fixed order (no atomics)."""
+    b, s, h, n = r.shape
+    _check_shapes(r, k, v, w, u)
+    if not r.is_cuda:
+        raise ValueError("wkv_bwd launches on CUDA tensors; the CPU takes "
+                         "wkv_bwd_plain")
+    extra = (dy,) if ds_fin is None else (dy, ds_fin)
+    build.check_inputs("wkv_bwd", (r, k, v, w, u, ckpt, *extra), n,
+                       BWD_HEAD_SIZES)
+    if (dy.shape != r.shape
+            or ckpt.shape != (b, h, -(-s // CKPT_EVERY), n, n)
+            or (ds_fin is not None and ds_fin.shape != (b, h, n, n))):
+        raise ValueError(f"wkv_bwd: dy {tuple(dy.shape)}, ckpt "
+                         f"{tuple(ckpt.shape)} for r {tuple(r.shape)}")
+    r, k, v, w, dy, ckpt = (build.aligned(t) for t in (r, k, v, w, dy, ckpt))
+    u = u.contiguous()
+    if ds_fin is not None:
+        ds_fin = build.aligned(ds_fin)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    if b == 0 or h == 0 or s == 0:
+        return (*(t.zero_() for t in (dr, dk, dv, dw)),
+                torch.zeros((h, n), dtype=torch.float32, device=r.device))
+    fn = build.entry("wkv_bwd", "wkv_bwd_f32", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                   u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
+                   0 if ds_fin is None else ds_fin.data_ptr(),
+                   dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
+                   du_part.data_ptr(), b, s, h, n, stream), "wkv_bwd")
+    wkv_bwd.launches += 1
+    return dr, dk, dv, dw, du_part.sum(0)
+
+
+class WKVFn(torch.autograd.Function):
+    """``wkv`` with a gradient.  On the card the forward kernel also writes
+    the chunk checkpoints, which are saved (under remat they are dropped
+    and recomputed with the rest of the block), and the backward launches
+    ``wkv_bwd``; on the CPU the forward is ``wkv_plain`` and the backward
+    ``wkv_bwd_plain``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        if r.is_cuda:
+            if r.shape[-1] not in BWD_HEAD_SIZES:
+                raise ValueError(f"wkv: no backward kernel at head size "
+                                 f"{r.shape[-1]} ({BWD_HEAD_SIZES})")
+            y, s_fin, ckpt = _launch(r, k, v, w, u, checkpoints=True)
+        else:
+            (y, s_fin), ckpt = wkv_plain(r, k, v, w, u), None
+        ctx.save_for_backward(r, k, v, w, u, ckpt)
+        return y, s_fin
+
+    @staticmethod
+    def backward(ctx, dy, ds_fin):
+        r, k, v, w, u, ckpt = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(r.shape, dtype=torch.float32, device=r.device)
+        if r.is_cuda:
+            grads = wkv_bwd(r, k, v, w, u, ckpt, dy.float(),
+                            None if ds_fin is None else ds_fin.float())
+        else:
+            grads = wkv_bwd_plain(r, k, v, w, u, dy, ds_fin)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (r, k, v, w, u)))
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor):
+    """Fused wkv (shapes as the plain version; ragged S is fine).
+
+    CUDA tensors launch the kernel (f32 everywhere, N in ``HEAD_SIZES``);
+    CPU tensors take the plain version.  Where a gradient is needed the
+    call goes through ``WKVFn`` (on the card, N in ``BWD_HEAD_SIZES``)."""
+    _check_shapes(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (r, k, v, w, u)):
+        return WKVFn.apply(r, k, v, w, u)
+    if not r.is_cuda:
+        return wkv_plain(r, k, v, w, u)
+    y, s_fin, _ = _launch(r, k, v, w, u, checkpoints=False)
     return y, s_fin
 
 
 wkv.launches = 0
+wkv_bwd.launches = 0

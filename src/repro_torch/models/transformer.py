@@ -460,9 +460,8 @@ def loss_fn(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
             frontend_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
     load-balancing losses; the frontend positions carry no loss.
-    Differentiable on CPU tensors and, through the flash kernel's
-    backward, on the card for attention stacks (the wkv and scan kernels
-    have no backward yet and refuse a gradient)."""
+    Differentiable on CPU tensors and on the card, through the backward
+    kernels of flash attention, wkv and the selective scan."""
     out = forward(params, cfg, tokens, plan, tp,
                   frontend_embeds=frontend_embeds)
     logits = out.logits[:, -tokens.shape[1]:]   # skip frontend positions

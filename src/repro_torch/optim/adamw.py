@@ -22,6 +22,9 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
+DONATE_BLOCK = 2 ** 26       # elements updated at once in place
+
+
 class AdamWState(NamedTuple):
     mu: Any
     nu: Any
@@ -57,21 +60,33 @@ def cosine_lr(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.learning_rate * warm * 0.5 * (1 + torch.cos(math.pi * prog))
 
 
+def _clip_scale(grads, max_norm: float):
+    """(the factor that clips ``grads`` to ``max_norm``, their global
+    norm)."""
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in tree_leaves(grads)))
+    return (torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0),
+            gnorm)
+
+
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
-    leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in leaves))
-    scale = torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
+    scale, gnorm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: g * scale, grads), gnorm
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: AdamWState,
-                  tc: TrainConfig) -> Tuple[Any, AdamWState, torch.Tensor]:
+def apply_updates(params, grads, state: AdamWState, tc: TrainConfig,
+                  donate: bool = False
+                  ) -> Tuple[Any, AdamWState, torch.Tensor]:
     """One AdamW step: returns (new params, new state, the global norm of
-    ``grads`` before clipping)."""
-    grads, gnorm = clip_by_global_norm(grads, tc.grad_clip)
+    ``grads`` before clipping).  Each leaf's gradient is clipped as it is
+    used, so no clipped copy of the whole tree is made.  With ``donate``
+    the results are written into ``params`` and ``state``'s moments, which
+    are returned (the reference's ``Trainer`` donates its state to the
+    jitted step): the step then holds one state and its gradients, not
+    two states."""
+    scale, gnorm = _clip_scale(grads, tc.grad_clip)
     count = state.count + 1
     lr = cosine_lr(tc, count)
     t = count.float()
@@ -79,20 +94,35 @@ def apply_updates(params, grads, state: AdamWState,
     bc1 = 1 - torch.pow(torch.full_like(t, tc.b1), t)
     bc2 = 1 - torch.pow(torch.full_like(t, tc.b2), t)
 
-    def upd(p, g, m, v):
-        g = g.float()
-        st_dtype = m.dtype                       # optimizer-state dtype
+    def upd(p, g, m, v, decay: bool):
+        g = (g * scale).float()
         mf = _fma(tc.b1, m.float(), (1 - tc.b1) * g)
         vf = _fma(tc.b2, v.float(), (1 - tc.b2) * torch.square(g))
         mhat = mf / bc1
         vhat = vf / bc2
         step = mhat / (torch.sqrt(vhat) + 1e-8)
-        if p.ndim >= 2:
+        if decay:
             step = _fma(tc.weight_decay, p.float(), step)
-        new = (p.double() - lr.double() * step.double()).float()
-        return new.to(p.dtype), mf.to(st_dtype), vf.to(st_dtype)
+        return (p.double() - lr.double() * step.double()).float(), mf, vf
 
-    out = tree_map(upd, params, grads, state.mu, state.nu)
+    def leaf(p, g, m, v):
+        decay = p.ndim >= 2
+        if not donate:
+            new, mf, vf = upd(p, g, m, v, decay)
+            return new.to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+        # in place, a block of rows at a time: the float64 temporaries of a
+        # stacked leaf (all layers' weights) stay small; elementwise, so the
+        # bits are those of the whole leaf at once
+        rows = max(1, DONATE_BLOCK // max(1, p[0].numel())) if p.ndim else 1
+        for sl in ((...,) if p.ndim == 0 else
+                   (slice(i, i + rows) for i in range(0, p.shape[0], rows))):
+            new, mf, vf = upd(p[sl], g[sl], m[sl], v[sl], decay)
+            p[sl].copy_(new)
+            m[sl].copy_(mf)
+            v[sl].copy_(vf)
+        return p, m, v
+
+    out = tree_map(leaf, params, grads, state.mu, state.nu)
     # ``out`` has params' shape with a (param, mu, nu) tuple at each leaf
     pick = lambda i: tree_map(lambda _, t3: t3[i], params, out)
     return pick(0), AdamWState(pick(1), pick(2), count), gnorm

@@ -6,8 +6,9 @@ The reference jits one sharded step over a device mesh; the port runs the
 same step eagerly on one device (a mesh of more devices is ROADMAP.md's
 queue 1 item 7, distributed execution).  Partition-aware QAT is just a
 plan argument — the same loop trains baseline and MPAI variants.  On the
-card the step differentiates through the flash-attention backward kernel
-and is deterministic, so a replayed step repeats bit for bit.
+card the step differentiates through the backward kernels of flash
+attention, wkv and the selective scan, none of which uses atomics, so a
+replayed step repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -38,11 +39,14 @@ def _grad(loss: torch.Tensor, params) -> Any:
 
 
 def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
-                 plan: Optional[PartitionPlan], tp: int):
+                 plan: Optional[PartitionPlan], tp: int,
+                 donate: bool = False):
     """(state, batch) -> (state, metrics); grad-accum aware.  ``batch``
     holds ``tokens`` and ``labels`` [B, S] (and ``frontend_embeds`` for a
     frontend arch); ``cfg.grad_accum`` microbatches of B / grad_accum rows
-    each are summed in ``tc.accum_dtype`` and averaged."""
+    each are summed in ``tc.accum_dtype`` and averaged.  With ``donate``
+    the step updates the state's tensors in place (``adamw.apply_updates``),
+    as the reference's ``Trainer`` donates its state to the jitted step."""
 
     def loss(params, tokens, labels, fe):
         return T.loss_fn(params, cfg, tokens, labels, plan, tp,
@@ -78,7 +82,7 @@ def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
             grads = _grad(l, params)
             l = l.detach()
         new, opt, gnorm = adamw.apply_updates(state.params, grads,
-                                              state.opt, tc)
+                                              state.opt, tc, donate)
         return (TrainState(new, opt, state.step + 1),
                 {"loss": l, "grad_norm": gnorm})
     return step
@@ -100,7 +104,9 @@ class Trainer:
         self.mesh_cfg = mesh_cfg
         self.device = torch.device(device)
         self.tp = mesh_cfg.tp
-        self.step_fn = make_step_fn(cfg, tc, plan, self.tp)
+        # the state is handed over each step, as the reference's jit
+        # donates it: a 3 B-parameter state and its update fit one card
+        self.step_fn = make_step_fn(cfg, tc, plan, self.tp, donate=True)
 
     def _init_state(self, device) -> TrainState:
         """The port's own seeded init (``T.model_init`` from

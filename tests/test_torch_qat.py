@@ -329,17 +329,39 @@ def test_loss_fn_and_gradients_equal_jax_grad(ref, pname):
         assert err <= 2e-2, (k, err)
 
 
-def test_kernels_refuse_a_gradient():
-    """The CUDA kernels have no backward: their wrappers call
-    ``build.refuse_grad`` on the card, which raises where autograd would
-    need the inputs, and lets inference through."""
-    from repro_torch.kernels import build
-    x = torch.ones(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        build.refuse_grad("flash_attention", torch.ones(3), x)
-    build.refuse_grad("flash_attention", torch.ones(3), x.detach())
+@pytest.mark.parametrize("kernel", ["wkv", "selective_scan"])
+def test_kernels_carry_a_gradient_through_their_autograd_functions(kernel):
+    """On CPU tensors ``wkv`` and ``selective_scan`` differentiate through
+    ``WKVFn`` / ``SelectiveScanFn`` (their plain backwards, the CPU side of
+    the backward kernels) to the gradient of autograd through the plain
+    forward; without a gradient they take the plain forward alone."""
+    from repro_torch.kernels import selective_scan as tss
+    from repro_torch.kernels import wkv as twkv
+    rng = np.random.default_rng(7)
+    mk = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    if kernel == "wkv":
+        args = [mk(2, 9, 2, 8) for _ in range(3)]
+        args += [torch.exp(-torch.exp(mk(2, 9, 2, 8) - 2)), mk(2, 8)]
+        fn, plain, cls = twkv.wkv, twkv.wkv_plain, twkv.WKVFn
+    else:
+        args = [mk(2, 9, 6), torch.nn.functional.softplus(mk(2, 9, 6) - 3),
+                mk(2, 9, 4), mk(2, 9, 4), -torch.rand(6, 4) * 4, mk(6)]
+        fn, plain, cls = (tss.selective_scan, tss.selective_scan_plain,
+                          tss.SelectiveScanFn)
+    grads = []
+    for f in (fn, plain):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        y, state = f(*leaves)
+        if f is fn:
+            assert type(y.grad_fn).__name__ == f"{cls.__name__}Backward"
+        (y.square().sum() + state.sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.linalg.norm(got - want) <= 1e-5 * torch.linalg.norm(want)
     with torch.no_grad():
-        build.refuse_grad("flash_attention", x)
+        y, _ = fn(*[t.clone().requires_grad_(True) for t in args])
+    assert y.grad_fn is None
 
 
 def test_loss_fn_refuses_frontend_embeds():
