@@ -720,7 +720,8 @@ def wkv_backward_phase(timer, wk, dev) -> dict:
             "bytes_ms": t_bytes, "operations_ms": t_ops,
             "max_abs_err": errs[-1], "bit_identical": True}
         emit("kernel_wkv_backward", B=b, S=s, H=h, N=n, ds_fin=with_ds,
-             **rows[(b, s)], library_ms=None,
+             **rows[(b, s)], plan=wk.bwd_plan(s, n)._asdict(),
+             resident_clusters=wk.bwd_clusters(b, s, h, n), library_ms=None,
              tolerance=f"per gradient ||err|| <= {BWD_FRO} ||ref||, max "
                        f"|err| <= {BWD_MAX} max |ref|")
         del r, k, v, w, dy, ckpt
@@ -789,7 +790,8 @@ def selective_scan_backward_phase(timer, ss, dev, sm_mhz: int) -> dict:
             "bytes_ms": t_bytes, "operations_ms": t_ops,
             "max_abs_err": errs[-1], "bit_identical": True}
         emit("kernel_selective_scan_backward", B=b, S=s, D=dim, N=n,
-             dh_fin=dh is not None, **rows[(b, s)], library_ms=None,
+             dh_fin=dh is not None, **rows[(b, s)],
+             plan=ss.bwd_plan(b, s, dim, n, sms)._asdict(), library_ms=None,
              tolerance=f"per gradient ||err|| <= {BWD_FRO} ||ref||, max "
                        f"|err| <= {BWD_MAX} max |ref|")
         del args, dy, ckpt
@@ -3824,7 +3826,7 @@ def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
 
 TRAIN_SHAPE = (4096, 4)          # train_4k's sequence, its batch 256 cut to 4
 TRAIN_STEPS = 4
-FT_LAYERS = 2                    # the restart check's depth (checkpoint I/O)
+FT_LAYERS = 1                    # the restart check's depth (checkpoint I/O)
 FT_FAULT_AT = 2
 
 

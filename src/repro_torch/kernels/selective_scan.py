@@ -20,13 +20,15 @@ Training differentiates through ``SelectiveScanFn``: on the card its
 forward is the same kernel, also writing ``h`` every ``CKPT_EVERY`` steps
 (``checkpoints=True``), and its backward is
 ``csrc/selective_scan_bwd.cu`` (``selective_scan_bwd``), which replays each
-chunk from its checkpoint and walks it back; on the CPU it runs
+chunk from its checkpoint and walks it back, every chunk at once where
+``bwd_plan`` splits the sequence; on the CPU it runs
 ``selective_scan_bwd_plain``, the same reverse recurrence step by step.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,12 +41,13 @@ WARPS_PER_SM = 6                     # below this, channels split finer
 CKPT_EVERY = 64                      # csrc CKPT_EVERY: steps a checkpoint
 BWD_THREADS = 256                    # csrc/selective_scan_bwd.cu kThreads
 BWD_STATES = 4                       # csrc/selective_scan_bwd.cu NPT
+BWD_BLOCKS_PER_SM = 2                # its launch bounds: blocks an SM
 # x, dt, b, c, a, d, y, h_fin, ckpt (or null), B, S, D, N, lanes, stream
 # (csrc/selective_scan.cu)
 _ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# x, dt, b, c, a, d, dy, ckpt, dh_fin, dx, ddt, db_part, dc_part, da_part,
-# dd_part, B, S, D, N, stream (csrc/selective_scan_bwd.cu)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# x, dt, b, c, a, d, dy, ckpt, dh_fin, xs, dx, ddt, db_part, dc_part,
+# da_part, dd_part, B, S, D, N, split, stream (csrc/selective_scan_bwd.cu)
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -188,6 +191,35 @@ def bwd_blocks(dim: int, n: int) -> int:
     return -(-dim // per_block)
 
 
+class BwdPlan(NamedTuple):
+    """The backward's launch: ``chunks`` chunks of ``CKPT_EVERY`` steps;
+    with ``split`` a first kernel carries dh to every chunk boundary and the
+    walk runs every (b, chunk, channel block) at once, else each (b,
+    channel block) walks its chunks in turn."""
+    chunks: int
+    split: bool
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(b: int, s: int, dim: int, n: int, sms: int) -> BwdPlan:
+    """Split the backward's sequence at the checkpoints where its (b,
+    channel block) blocks do not fill ``BWD_BLOCKS_PER_SM`` blocks on each
+    of ``sms`` SMs (B 1, S 2048 at Jamba's d_inner 8192: 128 blocks for 132
+    SMs) and there is more than one chunk; the split adds a walk of dh
+    alone (one exp an element and step), so a grid that fills the card
+    (B 8, S 128: 1024 blocks) walks its chunks in turn.  Reads shapes
+    only.  Raises on a state size the kernel does not compile."""
+    if n not in STATE_SIZES:
+        raise ValueError(f"selective_scan_bwd kernel: state size {n} "
+                         f"(compiled: {STATE_SIZES})")
+    if min(b, s, dim, sms) < 0:
+        raise ValueError(f"selective_scan_bwd: B {b}, S {s}, D {dim}")
+    chunks = -(-s // CKPT_EVERY)
+    split = (chunks > 1
+             and b * bwd_blocks(dim, n) < BWD_BLOCKS_PER_SM * sms)
+    return BwdPlan(chunks, split)
+
+
 def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
                        c: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
                        ckpt: torch.Tensor, dy: torch.Tensor, dh_fin=None):
@@ -195,9 +227,10 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     tensors: the gradient of ``selective_scan`` from the forward's
     checkpoints ``ckpt`` [B, D, ceil(S / CKPT_EVERY), N]
     (``_launch(..., checkpoints=True)``) -> (dx, ddt, dB, dC, dA, dD), as
-    ``selective_scan_bwd_plain``.  dB and dC sum the kernel's per-block
-    partials, dA and dD its per-row partials, in a fixed order (no
-    atomics)."""
+    ``selective_scan_bwd_plain``, split over the sequence where
+    ``bwd_plan`` says so.  dB and dC sum the kernel's per-block partials,
+    dA and dD its partials of each batch row (and chunk, when split), in a
+    fixed order (no atomics)."""
     bsz, s, dim = x.shape
     n = a.shape[-1]
     _check_shapes(x, dt, b, c, a, d)
@@ -221,24 +254,30 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
     if bsz == 0 or dim == 0 or s == 0:
         return (dx.zero_(), ddt.zero_(), torch.zeros_like(b),
                 torch.zeros_like(c), torch.zeros_like(a), torch.zeros_like(d))
+    p = bwd_plan(bsz, s, dim, n, build.sm_count(x.device.index))
+    groups = p.chunks if p.split else 1
     blocks = bwd_blocks(dim, n)
     db_part, dc_part = (torch.empty((blocks, bsz, s, n), dtype=torch.float32,
                                     device=x.device) for _ in range(2))
-    da_part = torch.empty((bsz, dim, n), dtype=torch.float32,
+    da_part = torch.empty((groups, bsz, dim, n), dtype=torch.float32,
                           device=x.device)
-    dd_part = torch.empty((bsz, dim), dtype=torch.float32, device=x.device)
+    dd_part = torch.empty((groups, bsz, dim), dtype=torch.float32,
+                          device=x.device)
+    # dh entering each chunk's walk, written by the carry kernel
+    xs = torch.empty_like(ckpt) if p.split else None
     fn = build.entry("selective_scan_bwd", "selective_scan_bwd_f32",
                      _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     build.check(fn(x.data_ptr(), dt.data_ptr(), b.data_ptr(), c.data_ptr(),
                    a.data_ptr(), d.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
                    0 if dh_fin is None else dh_fin.data_ptr(),
+                   0 if xs is None else xs.data_ptr(),
                    dx.data_ptr(), ddt.data_ptr(), db_part.data_ptr(),
                    dc_part.data_ptr(), da_part.data_ptr(), dd_part.data_ptr(),
-                   bsz, s, dim, n, stream), "selective_scan_bwd")
+                   bsz, s, dim, n, int(p.split), stream), "selective_scan_bwd")
     selective_scan_bwd.launches += 1
-    return (dx, ddt, db_part.sum(0), dc_part.sum(0), da_part.sum(0),
-            dd_part.sum(0))
+    return (dx, ddt, db_part.sum(0), dc_part.sum(0), da_part.sum((0, 1)),
+            dd_part.sum((0, 1)))
 
 
 class SelectiveScanFn(torch.autograd.Function):

@@ -22,9 +22,11 @@ needed.
 
 Training differentiates through ``WKVFn``: on the card its forward is the
 same kernel, also writing the state every ``CKPT_EVERY`` steps
-(``checkpoints=True``), and its backward is ``csrc/wkv_bwd.cu`` (``wkv_bwd``),
-which replays each chunk from its checkpoint and walks it back; on the CPU
-it runs ``wkv_bwd_plain``, the same reverse recurrence step by step.
+(``checkpoints=True``), and its backward is ``csrc/wkv_bwd.cu`` (``wkv_bwd``):
+a first kernel carries dS alone back to every chunk boundary, then every
+chunk, its state columns split over a thread-block cluster (``bwd_plan``),
+replays itself from its checkpoint and walks back; on the CPU it runs
+``wkv_bwd_plain``, the same reverse recurrence step by step.
 """
 from __future__ import annotations
 
@@ -44,12 +46,13 @@ ROWS_PER_THREAD = (8, 4)              # npt values compiled in (<= N)
 WARPS_PER_SM = 8                      # below this, columns split finer
 CKPT_EVERY = 64                       # csrc CKPT_EVERY: steps a checkpoint
 BWD_HEAD_SIZES = (8, 16, 32, 64)      # N values csrc/wkv_bwd.cu compiles
+BWD_CTA_COLS = {8: 8, 16: 16, 32: 16, 64: 32}  # csrc/wkv_bwd.cu Walk::MC
 # r, k, v, w, u, y, s_fin, ckpt (or null), B, S, H, N, npt, msplit, stream
 # (csrc/wkv.cu)
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-# r, k, v, w, u, dy, ckpt, ds_fin, dr, dk, dv, dw, du_part, B, S, H, N,
+# r, k, v, w, u, dy, ckpt, ds_fin, xs, dr, dk, dv, dw, du_part, B, S, H, N,
 # stream (csrc/wkv_bwd.cu)
-_BWD_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 class Plan(NamedTuple):
@@ -86,6 +89,46 @@ def plan(b: int, h: int, n: int, sms: int) -> Plan:
            and threads(npt, 2 * msplit) >= MIN_THREADS):
         msplit *= 2
     return Plan(npt, msplit)
+
+
+class BwdPlan(NamedTuple):
+    """The backward's launch: ``cluster`` CTAs share each chunk's state
+    columns (``N / cluster`` each), ``chunks`` chunks of ``CKPT_EVERY``
+    steps run at once, and ``split`` says whether the dS carry runs first
+    (more than one chunk)."""
+    cluster: int
+    chunks: int
+    split: bool
+
+
+def bwd_plan(s: int, n: int) -> BwdPlan:
+    """The backward kernels' launch for ``s`` steps at head size ``n``
+    (``csrc/wkv_bwd.cu``): ``BWD_CTA_COLS[n]`` state columns a CTA, so a
+    cluster of ``n / BWD_CTA_COLS[n]`` CTAs a chunk (2 at RWKV-6's 64: 256
+    threads and 94.6 KB of shared memory a CTA, two an SM; four CTAs of 16
+    columns took 27% longer on an H100 at the RWKV-6 3B training layer,
+    ``scripts/bwd_ablations.py``);
+    every chunk of ``CKPT_EVERY`` steps is its own cluster once a first
+    kernel has carried dS to the chunk boundaries, which it does when
+    there is more than one.  Raises on a head size the kernel does not
+    compile."""
+    if n not in BWD_HEAD_SIZES:
+        raise ValueError(f"wkv_bwd kernel: head size {n} (compiled: "
+                         f"{BWD_HEAD_SIZES})")
+    if s < 0:
+        raise ValueError(f"wkv_bwd kernel: sequence length {s}")
+    chunks = -(-s // CKPT_EVERY)
+    return BwdPlan(n // BWD_CTA_COLS[n], chunks, chunks > 1)
+
+
+def bwd_clusters(b: int, s: int, h: int, n: int) -> int:
+    """Walk clusters the card keeps resident at once for ``[b, s, h, n]``
+    (``cudaOccupancyMaxActiveClusters``; needs a card)."""
+    fn = build.entry("wkv_bwd", "wkv_bwd_clusters", [ctypes.c_int] * 4)
+    count = fn(b, s, h, n)
+    if count < 0:
+        build.check(-count, "wkv_bwd_clusters")
+    return count
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -198,7 +241,8 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ceil(S / CKPT_EVERY), N, N] (``_launch(..., checkpoints=True)``) ->
     (dr, dk, dv, dw, du),
     as ``wkv_bwd_plain``; f32, N in ``BWD_HEAD_SIZES``.  ``du`` sums the
-    kernel's per-row partials over B in a fixed order (no atomics)."""
+    kernel's partials of each batch row and chunk in a fixed order (no
+    atomics)."""
     b, s, h, n = r.shape
     _check_shapes(r, k, v, w, u)
     if not r.is_cuda:
@@ -217,19 +261,24 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if ds_fin is not None:
         ds_fin = build.aligned(ds_fin)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+    p = bwd_plan(s, n)
+    du_part = torch.empty((b, h, p.chunks, n), dtype=torch.float32,
+                          device=r.device)
     if b == 0 or h == 0 or s == 0:
         return (*(t.zero_() for t in (dr, dk, dv, dw)),
                 torch.zeros((h, n), dtype=torch.float32, device=r.device))
+    # dS entering each chunk's walk, written by the carry kernel
+    xs = torch.empty_like(ckpt) if p.split else None
     fn = build.entry("wkv_bwd", "wkv_bwd_f32", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                    u.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
                    0 if ds_fin is None else ds_fin.data_ptr(),
+                   0 if xs is None else xs.data_ptr(),
                    dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
                    du_part.data_ptr(), b, s, h, n, stream), "wkv_bwd")
     wkv_bwd.launches += 1
-    return dr, dk, dv, dw, du_part.sum(0)
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 class WKVFn(torch.autograd.Function):

@@ -72,7 +72,9 @@ def _clip_scale(grads, max_norm: float):
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
     scale, gnorm = _clip_scale(grads, max_norm)
-    return tree_map(lambda g: g * scale, grads), gnorm
+    # widened first: the reference's bf16 leaf times a 0-dim f32 array
+    # promotes to f32, and torch would keep bf16
+    return tree_map(lambda g: g.float() * scale, grads), gnorm
 
 
 @torch.no_grad()
@@ -95,7 +97,7 @@ def apply_updates(params, grads, state: AdamWState, tc: TrainConfig,
     bc2 = 1 - torch.pow(torch.full_like(t, tc.b2), t)
 
     def upd(p, g, m, v, decay: bool):
-        g = (g * scale).float()
+        g = g.float() * scale            # as clip_by_global_norm
         mf = _fma(tc.b1, m.float(), (1 - tc.b1) * g)
         vf = _fma(tc.b2, v.float(), (1 - tc.b2) * torch.square(g))
         mhat = mf / bc1
