@@ -30,7 +30,7 @@ admission round, paged attention in every decode step) under ``"mpai"`` and
 bf16, and then, on the same weights, through the serving facade: the
 fleet JSON ``FLEET_SPEC`` (an "mpai" and a bf16 engine pool at once, and
 a cost-model pool) built with ``repro_torch.serving.FleetSpec`` and
-driven by a seeded open loop of 24 greedy requests with the flight
+driven by a seeded open loop of 12 greedy requests with the flight
 recorder on, each kernel's launches held to the recorder's decode-step
 and admission spans. The tiny fleet of ``tests/test_torch_facade_engine.py``
 runs on CUDA and on the CPU before it (same admissions, equal greedy
@@ -64,7 +64,7 @@ the prefill chunks, decode steps and replays, flash never.
 UrsoNet pose (the paper's Table I workload): ``tests/test_pose_qat.py``'s
 network on CUDA against the CPU, the forward under the four serve pairs
 and three ``train_step``s (``tiny_pose``); then ``run_condition`` for each
-of the four conditions at ``configs/ursonet.FULL`` (200 steps of 16, 8 eval
+of the four conditions at ``configs/ursonet.FULL`` (50 steps of 16, 8 eval
 batches), with LOCE, ORIE, train-step ms and eval images/s per condition,
 the int8 GEMM launched 3 times an eval batch of the int8-head conditions,
 those evaluations bit-equal to the same run on ``int8_matmul_plain``, and
@@ -94,9 +94,15 @@ ragged S in f32, twice bit-equal, timed beside SDPA's backward;
 remat) on 4 x 4096 tokens (``train_4k``'s batch of 256 cut to 4), 4 steps
 under bf16 and 4 under "mpai", with step ms, tokens/s, peak memory and
 the flash kernels' launches, then a fault-tolerant run (a fault at step
-2, a checkpoint every step, 2 layers deep) bit-equal to the
-uninterrupted one; ``launch_train`` runs ``python -m
-repro_torch.launch.train --steps 2 --smoke`` at ``musicgen-medium``,
+2, a checkpoint every 2 steps, 1 layer deep) bit-equal to the
+uninterrupted one; ``train_sharded`` trains the same full-width model
+through the mesh ``Trainer`` (``fsdp=True``) in a one-rank NCCL group,
+its history and parameters bit-equal to the one-device run's, and
+``train_sharded_2rank`` trains it 2 layers deep on two gloo ranks sharing
+the card, on the (2, 1) and (1, 2) meshes, held to the one-rank run and
+restoring a (2, 1) checkpoint on (1, 1) and (1, 2); ``launch_train``
+runs ``python -m repro_torch.launch.train --steps 2 --smoke`` at
+``musicgen-medium``,
 ``jamba-v0.1-52b`` (the scan, flash and their backwards, the MoE
 gradients) and ``rwkv6-3b``.
 Recurrent training: ``kernel_wkv_backward`` and
@@ -134,6 +140,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -195,7 +202,10 @@ INT_MM_PAD_M = 32
 
 
 def emit(phase: str, **kv) -> None:
-    print(json.dumps({"phase": phase, **kv}), flush=True)
+    """One JSON line; ``clock_s`` (the host's monotonic clock) dates it, so
+    two lines' difference is the time between them."""
+    print(json.dumps({"phase": phase, **kv, "clock_s": time.perf_counter()}),
+          flush=True)
 
 
 class Timer:
@@ -1940,7 +1950,8 @@ FLEET_SPEC = {
              {"name": "exact", "max_latency_s": 600.0,
               "max_accuracy_penalty": 0.0}],
 }
-FLEET_LM, FLEET_COST = 24, 4
+FLEET_LM, FLEET_COST = 12, 4
+ORBIT_LM = 24                     # the eclipse's autoscaler needs the load
 FLEET_RATE_HZ = 8.0
 FLEET_MIX = (("lm-any", 0.5), ("lm-accurate", 0.5))
 
@@ -1948,7 +1959,7 @@ FLEET_MIX = (("lm-any", 0.5), ("lm-accurate", 0.5))
 def fleet_full_width_phase(dev, card: str, cfg, params, pa, im, fa) -> dict:
     """Qwen3-14B at full width served through the facade: the fleet JSON
     above, built with ``FleetSpec.build(model=(cfg, params))`` on the card,
-    a seeded open loop of 24 greedy requests (2-32 token prompts, two of
+    a seeded open loop of 12 greedy requests (2-32 token prompts, two of
     40-64, ``max_new`` 1-32) over both engine pools at once, and cost-model
     requests to the third pool, with the flight recorder on.  Returns each
     kernel's launches in the run, counted from 0, and the engine pools'
@@ -2408,9 +2419,9 @@ def orbit_full_width_phase(dev, card: str, cfg, params, kernels,
     kernel, counted from 0."""
     runs = {}
     for phase, spec, storm, n_lm in (
-            ("orbit_full_width", ORBIT_SPEC, False, FLEET_LM),
+            ("orbit_full_width", ORBIT_SPEC, False, ORBIT_LM),
             ("orbit_storm", {**ORBIT_SPEC, "faults": FLEET_FAULTS[:1]}, True,
-             12)):
+             8)):
         runs[phase] = fleet_run(dev, card, cfg, params, kernels, spec, phase,
                                 sampled=False, n_lm=n_lm, mix=ORBIT_MIX,
                                 orbit=OrbitRun(phase, card, batch_s,
@@ -3387,13 +3398,14 @@ def ursonet_macs(cfg) -> dict:
 def ursonet_full_width_phase(dev, card: str, timer, im) -> dict:
     """Table I on the card: ``run_condition`` for each of the four
     conditions at ``configs/ursonet.FULL`` (192 x 256, widths 32-256, 2
-    blocks a stage, fc 256) with the reference's defaults (200 steps,
-    batch 16, 8 eval batches of 16).  Every loss finite, the last below
-    the first; the int8 GEMM launched 3 times an eval batch exactly where
-    the serve head is int8 (``int8_ptq``, ``int8_qat``), and those
-    evaluations equal, bit for bit, the same evaluation with
-    ``int8_matmul_plain`` in the kernel's place; the kernel equals its
-    plain version at the heads' shapes (M 16 and 32, K 256, N 256, 3, 4).
+    blocks a stage, fc 256) with the reference's defaults but 50 steps
+    (batch 16, 8 eval batches of 16; the reference trains 200).  Every
+    loss finite, the last below the first; the int8 GEMM launched 3 times
+    an eval batch exactly where the serve head is int8 (``int8_ptq``,
+    ``int8_qat``), and those evaluations equal, bit for bit, the same
+    evaluation with ``int8_matmul_plain`` in the kernel's place; the
+    kernel equals its plain version at the heads' shapes (M 16 and 32,
+    K 256, N 256, 3, 4).
     Returns the int8 GEMM's launches by condition."""
     from repro_torch import pose
     from repro_torch.configs.ursonet import FULL
@@ -3424,7 +3436,7 @@ def ursonet_full_width_phase(dev, card: str, timer, im) -> dict:
                  library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
 
-    cfg, batch, batches, steps = FULL, 16, 8, 200
+    cfg, batch, batches, steps = FULL, 16, 8, 50
     macs = ursonet_macs(cfg)
     step_bound = 2 * macs["train"] * batch / PEAK_BF16_FLOPS * 1e3
     emit("ursonet_macs", config=cfg.name, per_image=macs,
@@ -3764,14 +3776,16 @@ def tiny_train_phase(dev, fa) -> None:
 
 
 def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
-                reduced: list, counts, check) -> dict:
+                reduced: list, counts, check, keep=None) -> dict:
     """``cfg`` trained ``steps`` steps of ``shape`` under bf16 and under
     "mpai" (``qat.train_plan``: a fake-quantized backbone) by the
     ``Trainer`` from its seeded init: loss and grad norm finite, step ms
     (median, each step ending in a synchronize), tokens/s, peak memory and
     ``counts()`` (kernel launches by row name), counted from 0 for each
     plan's run; ``check(counts)`` lists what is wrong with them.  Frees
-    each state.  Returns ``{plan: counts}``."""
+    each state, but for the bf16 run's history, step times and final
+    parameters, which go into the dict ``keep`` when one is given.
+    Returns ``{plan: counts}``."""
     from repro_torch.configs.base import MeshConfig, TrainConfig
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
@@ -3818,6 +3832,9 @@ def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
              grad_norm=[h["grad_norm"] for h in hist],
              **{f"{k}_launches": v for k, v in n.items()})
         out[name] = n
+        if keep is not None and name == "bf16":
+            keep.update(history=hist, step_ms_each=list(clock.times),
+                        params=state.params)
         del state, tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -3828,9 +3845,12 @@ TRAIN_SHAPE = (4096, 4)          # train_4k's sequence, its batch 256 cut to 4
 TRAIN_STEPS = 4
 FT_LAYERS = 1                    # the restart check's depth (checkpoint I/O)
 FT_FAULT_AT = 2
+FT_EVERY = 2                     # a checkpoint every 2 steps: the fault at
+FT_STEPS = 3                     # step 2 (the third) replays from the one
+#                                  after step 2; two saves of 5.5 GB
 
 
-def train_full_width_phase(dev, card: str, fa) -> dict:
+def train_full_width_phase(dev, card: str, fa, keep=None) -> dict:
     """StableLM-2 1.6B at full width (24 layers, d 2048, vocab 100352,
     remat) trained ``TRAIN_STEPS`` steps of 4 x 4096 tokens under bf16 and
     under "mpai" (``qat.train_plan``: a fake-quantized backbone) by the
@@ -3839,9 +3859,11 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     the flash kernels' launches, counted from 0 for each plan's run.  Then
     fault-tolerant restart at the same widths, ``FT_LAYERS`` deep (each
     checkpoint of the 24-layer state is 19.7 GB of host copy and disk): an
-    uninterrupted run of ``TRAIN_STEPS`` against a ``FaultTolerantRunner``
+    uninterrupted run of ``FT_STEPS`` against a ``FaultTolerantRunner``
     with a ``FaultInjector`` at step ``FT_FAULT_AT`` and ``checkpoint_every
-    =1``; history and final parameters bit-equal."""
+    =FT_EVERY``; history and final parameters bit-equal.  ``keep``
+    receives the bf16 run's history, step times and final parameters
+    (``train_plans``) for ``train_sharded``."""
     import shutil
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -3859,14 +3881,14 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
                       "train_full_width", ["global batch 256 -> 4 (one card)"],
                       lambda: train_launches(fa),
                       lambda n: [f"no launch of {k}"
-                                 for k in train_idle(fa, FULL, n)])
+                                 for k in train_idle(fa, FULL, n)], keep)
 
     # fault-tolerant restart at full width, FT_LAYERS deep
     cfg = FULL.with_(num_layers=FT_LAYERS)
-    tc = TrainConfig(total_steps=TRAIN_STEPS, checkpoint_every=1)
+    tc = TrainConfig(total_steps=FT_STEPS, checkpoint_every=FT_EVERY)
     ref_tr = Trainer(cfg, shape, mesh, tc, device=dev)
     ref_state, ref_hist = ref_tr.run(ref_tr.init_state(), data(cfg),
-                                     TRAIN_STEPS, log_every=1)
+                                     FT_STEPS, log_every=1)
     (ROOT / "build").mkdir(exist_ok=True)
     ckpt_dir = tempfile.mkdtemp(prefix="ft_ckpt_", dir=ROOT / "build")
     try:
@@ -3874,7 +3896,7 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
         ckpt = CheckpointManager(ckpt_dir, keep=2)
         runner = FaultTolerantRunner(tr, ckpt, max_restarts=1)
         t0 = time.perf_counter()
-        state, hist = runner.run(tr.init_state(), data(cfg), TRAIN_STEPS,
+        state, hist = runner.run(tr.init_state(), data(cfg), FT_STEPS,
                                  on_step=FaultInjector({FT_FAULT_AT}),
                                  log_every=1)
         ckpt.wait()
@@ -3893,7 +3915,7 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     emit("train_fault_tolerant", card=card, config=cfg.name,
          layers=FT_LAYERS, reduced=["global batch 256 -> 4",
                                     f"layers 24 -> {FT_LAYERS}"],
-         fault_at=FT_FAULT_AT, restarts=runner.restarts, steps=TRAIN_STEPS,
+         fault_at=FT_FAULT_AT, restarts=runner.restarts, steps=FT_STEPS,
          checkpoint_gb=nbytes / 1e9, checkpoints_kept=saved, wall_s=ft_s,
          history_bit_equal=True, params_bit_equal=True,
          loss=[h["loss"] for h in hist])
@@ -3901,6 +3923,474 @@ def train_full_width_phase(dev, card: str, fa) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def train_sharded_phase(dev, card: str, fa, one: dict) -> dict:
+    """StableLM-2 1.6B at full width (``train_full_width``'s model, shape,
+    seed and batches, ``fsdp=True``) trained ``TRAIN_STEPS`` bf16 steps by
+    the mesh ``Trainer`` on ``MeshConfig((1, 1))`` in a one-rank NCCL
+    group: its state laid out by ``param_specs``, each step gathering,
+    reducing and updating through the sharded path.  A collective over one
+    rank is an identity, so the history and the final parameters must be
+    bit-equal to the one-device ``Trainer``'s (``one``, kept by
+    ``train_full_width``).  Step ms of both paths, the flash kernels'
+    launches and peak memory (the one-device run's kept parameters
+    included).  Returns ``{"bf16": launches}``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.stablelm_1_6b import FULL
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.train_loop import Trainer
+
+    shape = ShapeConfig("train_4k_cut", *TRAIN_SHAPE, "train")
+    mesh_cfg = MeshConfig((1, 1), ("data", "model"))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        # a one-device mesh in a world of one rank: the mesh path
+        tr = Trainer(FULL.with_(fsdp=True), shape, mesh_cfg,
+                     TrainConfig(total_steps=TRAIN_STEPS), device=dev)
+        if tr.mesh is None:
+            raise AssertionError("train_sharded: the Trainer took the "
+                                 "one-device path")
+        handed = [tr.init_state()]    # not kept: each old state is freed
+        torch.cuda.reset_peak_memory_stats()
+        clock = StepClock()
+        zero_counts()                 # the main path's counts start here
+        clock.start()
+        state, hist = tr.run(handed.pop(),
+                             lambda s: lm_batch(FULL, shape, s, device=dev),
+                             TRAIN_STEPS, log_every=1, on_step=clock)
+        n = train_launches(fa)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(state.params), tree_leaves(one["params"])))
+        if hist != one["history"] or not same_params:
+            raise AssertionError(
+                f"train_sharded: history {hist} against the one-device "
+                f"{one['history']}, params bit-equal {same_params}")
+        idle = train_idle(fa, FULL, n)
+        if idle:
+            raise AssertionError(f"train_sharded: no launch of {idle}")
+        kept_gb = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(one["params"])) / 1e9
+        emit("train_sharded", card=card, config=FULL.name, plan="bf16",
+             mesh=list(mesh_cfg.shape), backend="nccl", world=1, fsdp=True,
+             shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+             reduced=["global batch 256 -> 4 (one card)"],
+             step_ms=float(np.median(clock.times)) * 1e3,
+             step_ms_each=[t * 1e3 for t in clock.times],
+             one_device_step_ms=float(np.median(one["step_ms_each"])) * 1e3,
+             one_device_step_ms_each=[t * 1e3 for t in one["step_ms_each"]],
+             peak_gb=peak_gb, kept_one_device_params_gb=kept_gb,
+             loss=[h["loss"] for h in hist],
+             grad_norm=[h["grad_norm"] for h in hist],
+             history_bit_equal=True, params_bit_equal=True,
+             **{f"{k}_launches": v for k, v in n.items()})
+        del state, tr, handed
+    finally:
+        dist.destroy_process_group()
+    one.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bf16": n}
+
+
+SHARDED_LAYERS = 2               # the two-rank check's depth
+SHARDED_STEPS = 2
+SHARDED_ACCUM = 2                # microbatches a step: two ranks' logits
+#                                  (4 x 4096 x 100352 in f32 each) and their
+#                                  gradients do not fit one card at once
+SHARDED_MESHES = ((2, 1), (1, 2))
+SHARDED_TIMEOUT_S = 400
+# (2, 1) against the one-rank run.  The two ranks' GEMMs see other row
+# counts and their gradients are summed in another order, so bf16 rounding
+# parts them; an early Adam step moves a weight by about ``lr`` whatever
+# its gradient's size, so the parameters' bound alone (``sharded_
+# tolerance``) would pass any gradient.  What a wrong gradient moves:
+# - each leaf's gradient slice, before AdamW, against the same slice of the
+#   one-rank gradient, ||got - want|| / ||want||: 1 for a zero gradient,
+#   2 for a flipped one, ~1.4 for another slice's; rounding gives 2.35e-3
+#   at step 1 and 1.20e-2 at step 2, where step 1's rounding has already
+#   parted the parameters (the worst leaf's, on an H100);
+# - the mean |param diff|: a wrong gradient turns most Adam steps, ~lr/2
+#   = 1.5e-6 at step 1, and rounding turns a few (1.47e-9 and 1.04e-8
+#   after steps 1 and 2 on an H100).
+# (1, 2) splits no batch and runs the one-rank arithmetic: bit-equal.
+SHARDED_GRAD_REL = 2e-2
+SHARDED_MEAN_DIFF = 1e-7
+
+
+def sharded_tolerance(tc, step: int) -> float:
+    """A parameter's bound after ``step`` bf16 steps on two ranks against
+    one: 2.2 x the learning rates of those steps, since an early Adam step
+    moves a weight by up to ``lr`` whatever its gradient's size
+    (``STEP_TOL`` of ``tests/test_torch_train.py``)."""
+    from repro_torch.optim.adamw import cosine_lr
+    return 2.2 * sum(float(cosine_lr(tc, torch.tensor(t)))
+                     for t in range(1, step + 1))
+
+
+@contextlib.contextmanager
+def kept_grads(seen: list):
+    """While inside, each ``adamw.apply_updates`` call appends the leaves
+    of the gradient it was given (on a mesh, the rank's slices) to
+    ``seen``."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim import adamw
+
+    def apply(params, grads, *a, **kw):
+        seen.append(tree_leaves(grads))
+        return real(params, grads, *a, **kw)
+    with patched(adamw, "apply_updates", apply) as real:
+        yield
+
+
+@contextlib.contextmanager
+def timed_collectives(spent: list):
+    """``torch.distributed.all_reduce`` and ``all_gather`` timed while
+    inside: each call's wall ms, between two synchronizes, appended to
+    ``spent``."""
+    import torch.distributed as dist
+    originals = {name: getattr(dist, name)
+                 for name in ("all_reduce", "all_gather")}
+
+    def timing(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+    for name, fn in originals.items():
+        setattr(dist, name, timing(fn))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(dist, name, fn)
+
+
+def train_rank(rank: int, world: int, d: str) -> None:
+    """One rank of ``train_sharded_2rank`` (run as ``python3 chip_smoke.py
+    train-rank RANK WORLD DIR``): joins the gloo group through a
+    ``FileStore`` in ``DIR``, trains, checks, and writes its results to
+    ``DIR/rank<RANK>.json``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.stablelm_1_6b import FULL
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.specs import param_structs
+    from repro_torch.runtime.train_loop import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # what a process pays once, before the wait: its CUDA context, cuBLAS,
+    # the flash libraries and the meta structs' imports
+    x = torch.ones(64, 64, device=dev)
+    float((x @ x).sum() + (x.bfloat16() @ x.bfloat16()).float().sum())
+    for name in ("flash_attention", "flash_attention_bwd"):
+        build.load(name)
+    param_structs(FULL.with_(num_layers=SHARDED_LAYERS), 1)
+    go = Path(d) / "go"
+    waited = time.perf_counter()
+    while not go.exists():            # the parent's card is busy till then
+        if time.perf_counter() - waited > SHARDED_TIMEOUT_S * 3:
+            raise TimeoutError(f"train-rank {rank}: no {go}")
+        time.sleep(0.1)
+    began = time.perf_counter()
+    marks = {}                        # seconds from the go, by stage
+
+    def mark(stage: str) -> None:
+        marks[stage] = time.perf_counter() - began
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(Path(d) / "store"), world),
+        rank=rank, world_size=world)
+    mark("joined")
+    try:
+        cfg = FULL.with_(num_layers=SHARDED_LAYERS, fsdp=True,
+                         grad_accum=SHARDED_ACCUM)
+        shape = ShapeConfig("train_4k_cut", *TRAIN_SHAPE, "train")
+        tc = TrainConfig(total_steps=SHARDED_STEPS)
+        data = lambda s: lm_batch(cfg, shape, s, device=dev)
+        one_mesh = MeshConfig((1, 1), ("data", "model"))
+        res = {"rank": rank, "meshes": {}}
+        # the one-rank run, on each rank at once (each holds the parts it
+        # checks against it, and so no gather is needed to check them)
+        ref = []
+        one = Trainer(cfg, shape, one_mesh, tc, device=dev)
+        st = one.init_state()
+        for s in range(SHARDED_STEPS):
+            seen = []
+            with kept_grads(seen):
+                st, m = one.step_fn(st, data(s))
+            # the whole gradient waits on the host (2 GB a step)
+            ref.append(([p.clone() for p in tree_leaves(st.params)],
+                        float(m["loss"]), float(m["grad_norm"]),
+                        [g.to("cpu") for g in seen[0]]))
+            del seen
+        del st, one
+        torch.cuda.empty_cache()
+        res["one_rank"] = {"loss": [r[1] for r in ref],
+                           "grad_norm": [r[2] for r in ref]}
+        mark("one_rank_run")
+        dist.barrier()
+        mark("barrier")
+        ck = CheckpointManager(str(Path(d) / "ckpt"), keep=1)
+        for ms in SHARDED_MESHES:
+            tr = Trainer(cfg, shape, MeshConfig(ms, ("data", "model")), tc,
+                         device=dev)
+            st = tr.init_state()
+            mark(f"{ms} init")
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()             # this rank's main path starts here
+            out = {"step_ms": [], "collective_ms": [], "loss": [],
+                   "grad_norm": [], "max_abs_diff": [], "mean_abs_diff": [],
+                   "bound": [], "grad_rel_err": [], "grad_equal": []}
+            specs = tree_leaves(tr.param_specs)
+            for s in range(SHARDED_STEPS):
+                spent, seen = [], []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with timed_collectives(spent), kept_grads(seen):
+                    st, m = tr.step_fn(st, data(s))
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                out["collective_ms"].append(sum(spent))
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                # this rank's slice of every gradient, as AdamW got it,
+                # against the same slice of the one-rank gradient
+                rel, equal = [], True
+                for g, w, sp in zip(seen[0], ref[s][3], specs):
+                    w = w[tr.param_shardings.slices(sp, w.shape)].to(dev)
+                    equal = equal and torch.equal(g, w)
+                    rel.append(float(torch.linalg.vector_norm(
+                        g.float() - w.float())
+                        / torch.linalg.vector_norm(w.float())))
+                out["grad_rel_err"].append(max(rel))
+                out["grad_equal"].append(equal)
+                del seen, g, w
+                # this rank's part of every parameter against the same
+                # slice of the one-rank run's (the ranks' parts together
+                # are the gathered parameters)
+                diffs = [(a.float() - b[tr.param_shardings.slices(
+                    sp, b.shape)].float()).abs() for a, b, sp in zip(
+                        tree_leaves(st.params), ref[s][0], specs)]
+                out["max_abs_diff"].append(max(float(x.max())
+                                               for x in diffs))
+                out["mean_abs_diff"].append(
+                    sum(float(x.sum()) for x in diffs)
+                    / sum(x.numel() for x in diffs))
+                out["bound"].append(sharded_tolerance(tc, s + 1))
+                del diffs
+            if ms == (2, 1):
+                saved = tree_leaves(tr.param_shardings.unshard(st.params))
+                saved = [t.clone() for t in saved]
+            mark(f"{ms} steps")
+            out["launches"] = train_launches(fa)
+            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if ms == (2, 1):          # written while (1, 2) trains
+                t0 = time.perf_counter()
+                ck.save(SHARDED_STEPS, st, shardings=tr.state_shardings)
+                out["save_snapshot_s"] = time.perf_counter() - t0
+            res["meshes"]["x".join(map(str, ms))] = out
+            del st, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark(f"{ms} freed")
+        # the (2, 1) checkpoint restored on (1, 2) by both ranks, and on
+        # (1, 1) by rank 0: bit-equal, then a step runs
+        del ref
+        restores = {}
+        for ms in ((1, 2), (1, 1)):
+            if ms == (1, 1) and rank != 0:
+                continue
+            t0 = time.perf_counter()
+            if ms == (1, 1):
+                tr = Trainer(cfg, shape, one_mesh, tc, device=dev)
+                st, step = ck.restore(tr.state_like(), device=dev)
+                parts = saved
+            else:
+                tr = Trainer(cfg, shape, MeshConfig(ms, ("data", "model")),
+                             tc, device=dev)
+                st, step = ck.restore(tr.state_like(), device=dev,
+                                      shardings=tr.state_shardings)
+                parts = [b[tr.param_shardings.slices(sp, b.shape)]
+                         for b, sp in zip(saved, tree_leaves(tr.param_specs))]
+            restore_s = time.perf_counter() - t0
+            equal = all(torch.equal(a, b) for a, b in
+                        zip(tree_leaves(st.params), parts))
+            del parts
+            st, m = tr.step_fn(st, data(SHARDED_STEPS))
+            restores["x".join(map(str, ms))] = {
+                "step": step, "bit_equal": equal, "restore_s": restore_s,
+                "next_loss": float(m["loss"])}
+            del st, tr
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark(f"restore {ms}")
+        res["restores"] = restores
+        dist.barrier()
+        mark("end")
+        res["stage_s"] = marks
+        (Path(d) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def start_train_ranks(world: int = 2):
+    """The ranks of ``train_sharded_2rank``, started early so that their
+    imports and CUDA contexts overlap the phases before it: each waits for
+    a ``go`` file in its directory under ``build/``.  Returns ``(procs,
+    dir)``; ``stop_train_ranks`` ends them."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    d = Path(tempfile.mkdtemp(prefix="sharded_", dir=ROOT / "build"))
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = []
+    for rank in range(world):
+        with open(d / f"rank{rank}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "train-rank",
+                 str(rank), str(world), str(d)], stdout=log,
+                stderr=subprocess.STDOUT, env=env))
+    return procs, d
+
+
+def stop_train_ranks(procs, d: Path) -> None:
+    import shutil
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
+    """StableLM-2 1.6B at full widths, ``SHARDED_LAYERS`` deep
+    (``fsdp=True``, ``grad_accum=SHARDED_ACCUM`` in every run, the
+    one-rank one included), trained ``SHARDED_STEPS`` bf16 steps on two
+    gloo ranks sharing the card (NCCL refuses two ranks on one device),
+    the subprocesses of ``start_train_ranks`` joined through a
+    ``FileStore``: on (2, 1) (data parallel, the state split over the data
+    axis) and (1, 2) (the state split over the model axis, compute
+    replicated).  After each step, against the one-rank run on the card:
+    on (2, 1) each rank's gradient slices within ``SHARDED_GRAD_REL`` (a
+    leaf's relative L2 error), its parameters' mean |diff| within
+    ``SHARDED_MEAN_DIFF`` and their max within ``sharded_tolerance``; on
+    (1, 2) gradient slices and parameters bit-equal; on both the loss
+    within 2**-7 and the grad norm within 5e-2 relative.  The flash
+    kernels launch on each rank; the (2, 1) checkpoint restores on (1, 1)
+    and (1, 2) bit-equal and a step runs.  Gloo stages CUDA tensors
+    through host memory, so the collective ms printed are a correctness
+    run's, not a speed.  Returns ``{mesh: launches}`` of rank 0."""
+    t0 = time.perf_counter()
+    (d / "go").touch()
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, SHARDED_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+    wall = time.perf_counter() - t0
+    failed = [f"rank {r} exited {p.returncode}:\n"
+              f"{(d / f'rank{r}.log').read_text()[-3000:]}"
+              for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise AssertionError("train_sharded_2rank: " + "\n".join(failed))
+    ranks = [json.loads((d / f"rank{r}.json").read_text())
+             for r in range(len(procs))]
+    one = ranks[0]["one_rank"]
+    wrong = []
+    for name, got in ranks[0]["meshes"].items():
+        for s in range(SHARDED_STEPS):
+            for r in ranks:
+                mine = r["meshes"][name]
+                at = f"{name} step {s + 1} rank {r['rank']}"
+                diff = mine["max_abs_diff"][s]
+                if not diff <= got["bound"][s]:   # NaN fails too
+                    wrong.append(f"{at}: params {diff} > {got['bound'][s]}")
+                if name == "1x2":     # the one-rank arithmetic
+                    if diff != 0 or not mine["grad_equal"][s]:
+                        wrong.append(f"{at}: not bit-equal (params {diff}, "
+                                     f"gradient equal "
+                                     f"{mine['grad_equal'][s]})")
+                if not mine["grad_rel_err"][s] <= SHARDED_GRAD_REL:
+                    wrong.append(f"{at}: gradient {mine['grad_rel_err'][s]}"
+                                 f" > {SHARDED_GRAD_REL}")
+                if not mine["mean_abs_diff"][s] <= SHARDED_MEAN_DIFF:
+                    wrong.append(f"{at}: mean |param diff| "
+                                 f"{mine['mean_abs_diff'][s]} > "
+                                 f"{SHARDED_MEAN_DIFF}")
+            if abs(got["loss"][s] - one["loss"][s]) > 2 ** -7 * one["loss"][s]:
+                wrong.append(f"{name} step {s + 1}: loss {got['loss'][s]} "
+                             f"against {one['loss'][s]}")
+            if abs(got["grad_norm"][s] - one["grad_norm"][s]) > \
+                    5e-2 * one["grad_norm"][s]:
+                wrong.append(f"{name} step {s + 1}: grad norm "
+                             f"{got['grad_norm'][s]} against "
+                             f"{one['grad_norm'][s]}")
+        for r in ranks:
+            n = r["meshes"][name]["launches"]
+            if not n["flash_attention"] or not n["flash_attention_bwd"]:
+                wrong.append(f"{name} rank {r['rank']}: launches {n}")
+            if r["meshes"][name]["loss"] != got["loss"]:
+                wrong.append(f"{name}: ranks' losses differ")
+    for r in ranks:
+        for name, rs in r["restores"].items():
+            if rs["step"] != SHARDED_STEPS or not rs["bit_equal"] or \
+                    not np.isfinite(rs["next_loss"]):
+                wrong.append(f"restore on {name} rank {r['rank']}: {rs}")
+    if wrong:
+        raise AssertionError(f"train_sharded_2rank: {wrong}")
+    for name, got in ranks[0]["meshes"].items():
+        emit("train_sharded_2rank", card=card, config="stablelm-1.6b",
+             plan="bf16", mesh=[int(x) for x in name.split("x")],
+             backend="gloo", world=2, fsdp=True, layers=SHARDED_LAYERS,
+             shape={"seq_len": TRAIN_SHAPE[0], "batch": TRAIN_SHAPE[1]},
+             reduced=[f"layers 24 -> {SHARDED_LAYERS}",
+                      f"global batch 256 -> {TRAIN_SHAPE[1]}",
+                      f"grad_accum 1 -> {SHARDED_ACCUM} (two ranks on one "
+                      f"card)"],
+             loss=got["loss"], grad_norm=got["grad_norm"],
+             one_rank_loss=one["loss"], one_rank_grad_norm=one["grad_norm"],
+             max_abs_param_diff=[max(r["meshes"][name]["max_abs_diff"][s]
+                                     for r in ranks)
+                                 for s in range(SHARDED_STEPS)],
+             mean_abs_param_diff=[r["meshes"][name]["mean_abs_diff"]
+                                  for r in ranks],
+             mean_abs_param_bound=SHARDED_MEAN_DIFF,
+             param_bound=got["bound"],
+             grad_rel_err=[r["meshes"][name]["grad_rel_err"] for r in ranks],
+             grad_rel_bound=SHARDED_GRAD_REL,
+             grad_bit_equal=[r["meshes"][name]["grad_equal"] for r in ranks],
+             step_ms_each=[r["meshes"][name]["step_ms"] for r in ranks],
+             collective_ms_each=[r["meshes"][name]["collective_ms"]
+                                 for r in ranks],
+             save_snapshot_s=got.get("save_snapshot_s"),
+             peak_gb=[r["meshes"][name]["peak_gb"] for r in ranks],
+             launches=[r["meshes"][name]["launches"] for r in ranks],
+             note="gloo stages CUDA tensors through host memory: "
+                  "correctness runs, not speeds")
+    emit("train_sharded_restore", card=card, saved_on=[2, 1],
+         restores={f"rank{r['rank']}": r["restores"] for r in ranks},
+         stage_s={f"rank{r['rank']}": r["stage_s"] for r in ranks},
+         wall_s=wall)
+    return {name: got["launches"] for name, got in ranks[0]["meshes"].items()}
 
 
 RWKV_TRAIN_STEPS = 3
@@ -4084,9 +4574,25 @@ def main() -> int:
         launches[name]["qwen3-14b/launch_serve"] = n
     gc.collect()                      # the launcher's weights
     torch.cuda.empty_cache()
-    for plan, by_kernel in train_full_width_phase(dev, card, fa).items():
-        for name, n in by_kernel.items():
-            launches[name][f"stablelm-1.6b/train/{plan}"] = n
+    # the two-rank phase's processes start now: their imports and CUDA
+    # contexts overlap the one-device training
+    ranks = start_train_ranks()
+    try:
+        one_device = {}
+        for plan, by_kernel in train_full_width_phase(dev, card, fa,
+                                                      one_device).items():
+            for name, n in by_kernel.items():
+                launches[name][f"stablelm-1.6b/train/{plan}"] = n
+        for plan, by_kernel in train_sharded_phase(dev, card, fa,
+                                                   one_device).items():
+            for name, n in by_kernel.items():
+                launches[name][f"stablelm-1.6b/train_sharded/{plan}"] = n
+        for mesh, by_kernel in train_sharded_2rank_phase(card,
+                                                         *ranks).items():
+            for name, n in by_kernel.items():
+                launches[name][f"stablelm-1.6b/train_sharded_2rank/{mesh}"] = n
+    finally:
+        stop_train_ranks(*ranks)
     for plan, by_kernel in rwkv_train_full_width_phase(dev, card,
                                                        wk).items():
         for name, n in by_kernel.items():
@@ -4123,4 +4629,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["train-rank"]:
+        train_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+    else:
+        sys.exit(main())

@@ -19,14 +19,25 @@ atomic directory rename, so a crash mid-save leaves only a .tmp that
 restore ignores.  Restore rebuilds a tree like the one it is given (the
 state's ``meta`` tensors serve) on the device it is asked for, each array
 through ``bridge.to_tensor``.
+
+A state sharded over a mesh (``shardings``, a ``sharding.TreeSharding``)
+is saved whole: every rank gathers each leaf, rank 0 alone writes the same
+``arrays.npz``, and every rank waits for the commit at the next ``wait``.
+Restore maps each stored array in place and reads, with ``shardings``,
+only each rank's part of each whole array, so a checkpoint written on any
+mesh (one device included) restores on any other, bit for bit — the
+counterpart of the reference's ``restore(..., shardings=)``, the
+elastic-restart path.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import struct
 import threading
 import time
+import zipfile
 from typing import Any, Optional, Tuple
 
 import numpy as np
@@ -84,6 +95,33 @@ def _from_numpy(a: np.ndarray, like: torch.Tensor, device) -> torch.Tensor:
     return bridge.to_tensor(a, device).to(like.dtype)
 
 
+_NPY_HEADER = {(1, 0): np.lib.format.read_array_header_1_0,
+               (2, 0): np.lib.format.read_array_header_2_0}
+
+
+def _stored_arrays(path: str) -> dict:
+    """``{key: read-only np.memmap}`` of an ``np.savez`` archive (stored,
+    not compressed): each member's ``.npy`` data mapped where it lies, so a
+    restore reads only the bytes it keeps, once, with no pass over the
+    whole archive."""
+    out = {}
+    with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+        for info in zf.infolist():
+            if info.compress_type != zipfile.ZIP_STORED:
+                raise ValueError(f"{path}: {info.filename} is compressed")
+            f.seek(info.header_offset + 26)     # the local header's lengths
+            name_len, extra_len = struct.unpack("<HH", f.read(4))
+            f.seek(info.header_offset + 30 + name_len + extra_len)
+            version = np.lib.format.read_magic(f)
+            if version not in _NPY_HEADER:
+                raise ValueError(f"{path}: {info.filename} is .npy {version}")
+            shape, fortran, dtype = _NPY_HEADER[version](f)
+            key = info.filename[:-len(".npy")]
+            out[key] = np.memmap(path, dtype=dtype, mode="r", offset=f.tell(),
+                                 shape=shape, order="F" if fortran else "C")
+    return out
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = directory
@@ -91,11 +129,22 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = None          # the shardings of a save in flight
 
     # ------------------------------------------------------------------
-    def save(self, step: int, tree: Any, blocking: bool = False) -> None:
-        """Snapshot to host memory synchronously, write asynchronously."""
+    def save(self, step: int, tree: Any, blocking: bool = False,
+             shardings=None) -> None:
+        """Snapshot to host memory synchronously, write asynchronously.
+        With ``shardings`` (collective) the whole tree is gathered and rank
+        0 writes it."""
         self.wait()                                   # one in flight at a time
+        if shardings is not None:
+            tree = shardings.unshard(tree)
+            self._pending = shardings
+            if not shardings.is_writer:
+                if blocking:
+                    self.wait()
+                return
         flat = {k: _to_numpy(v) for k, v in _items(tree)}      # D2H now
 
         def _write():
@@ -124,6 +173,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending is not None:                 # every rank, committed
+            pending, self._pending = self._pending, None
+            pending.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -144,22 +196,25 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, tree_like: Any, step: Optional[int] = None,
-                device="cuda") -> Tuple[Any, int]:
+                device="cuda", shardings=None) -> Tuple[Any, int]:
         """Rebuild ``tree_like``'s structure (tensors of any device, meta
-        included, giving shapes and dtypes) from disk, on ``device``."""
+        included, giving shapes and dtypes) from disk, on ``device``; with
+        ``shardings`` each leaf is this rank's part of the whole array."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         path = os.path.join(self.dir, f"step_{step:08d}")
-        with np.load(os.path.join(path, "arrays.npz")) as z:
-            flat = {k: z[k] for k in z.files}
+        flat = _stored_arrays(os.path.join(path, "arrays.npz"))
+        specs = dict(_items(shardings.specs)) if shardings else {}
 
         def leaf(key, like):
             arr = flat[key]
             if arr.shape != tuple(like.shape):
                 raise ValueError(f"checkpoint {key}: shape {arr.shape}, "
                                  f"expected {tuple(like.shape)}")
+            if shardings is not None:             # this rank's part alone
+                arr = arr[shardings.slices(specs[key], arr.shape)]
             return _from_numpy(arr, like, device)
         return _rebuild(tree_like, leaf), step
 

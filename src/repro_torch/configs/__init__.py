@@ -1,9 +1,6 @@
 """Model configurations of the port (copies of ``repro.configs``) and the
 architecture registry: ``--arch <id>`` and ``FleetSpec.arch`` resolve
-here.
-
-The reference's dry-run ``cells()`` belongs to the meta-device dry-run, a
-later slice of the port.
+here, and the dry-run cells (``cells``) are listed here.
 """
 from __future__ import annotations
 
@@ -39,3 +36,17 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.FULL
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) dry-run cells.  long_500k only runs for archs with
+    sub-quadratic decode state (the assignment's skip rule)."""
+    out = []
+    for name in ARCH_NAMES:
+        cfg = get_config(name)
+        for shape in SHAPES.values():
+            skip = (shape.name == "long_500k"
+                    and not cfg.supports_long_context())
+            if include_skipped or not skip:
+                out.append((name, shape.name, skip))
+    return out

@@ -3,9 +3,9 @@
 Every architecture is described by a frozen :class:`ModelConfig`, field for
 field the reference's, so a config means the same model in both packages.
 :class:`TrainConfig`, :class:`ShapeConfig` (with the reference's four
-cells ``SHAPES``) and :class:`MeshConfig` are the reference's too; the port
-trains on one device, so a mesh other than one device is refused where it
-would be used (``runtime/train_loop.Trainer``).
+cells ``SHAPES``) and :class:`MeshConfig` are the reference's too; a mesh
+maps onto ``torch.distributed`` ranks (``launch/mesh.py``,
+``runtime/train_loop.Trainer``).
 """
 from __future__ import annotations
 

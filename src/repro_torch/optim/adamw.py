@@ -60,18 +60,22 @@ def cosine_lr(tc: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return tc.learning_rate * warm * 0.5 * (1 + torch.cos(math.pi * prog))
 
 
-def _clip_scale(grads, max_norm: float):
-    """(the factor that clips ``grads`` to ``max_norm``, their global
-    norm)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
-    return (torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0),
-            gnorm)
+def global_norm(grads) -> torch.Tensor:
+    """The leaves' squared sums added in ``tree_leaves`` order, rooted."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                          for g in tree_leaves(grads)))
+
+
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor that clips a tree of global norm ``gnorm`` to
+    ``max_norm``."""
+    return torch.clamp_max(max_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
 
 
 @torch.no_grad()
 def clip_by_global_norm(grads, max_norm: float):
-    scale, gnorm = _clip_scale(grads, max_norm)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
     # widened first: the reference's bf16 leaf times a 0-dim f32 array
     # promotes to f32, and torch would keep bf16
     return tree_map(lambda g: g.float() * scale, grads), gnorm
@@ -79,7 +83,7 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def apply_updates(params, grads, state: AdamWState, tc: TrainConfig,
-                  donate: bool = False
+                  donate: bool = False, gnorm=None
                   ) -> Tuple[Any, AdamWState, torch.Tensor]:
     """One AdamW step: returns (new params, new state, the global norm of
     ``grads`` before clipping).  Each leaf's gradient is clipped as it is
@@ -87,8 +91,11 @@ def apply_updates(params, grads, state: AdamWState, tc: TrainConfig,
     the results are written into ``params`` and ``state``'s moments, which
     are returned (the reference's ``Trainer`` donates its state to the
     jitted step): the step then holds one state and its gradients, not
-    two states."""
-    scale, gnorm = _clip_scale(grads, tc.grad_clip)
+    two states.  ``gnorm``, where given, is the global norm of the whole
+    gradient of which ``grads`` are parts (a rank's slices on a mesh)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, tc.grad_clip)
     count = state.count + 1
     lr = cosine_lr(tc, count)
     t = count.float()

@@ -3,9 +3,11 @@
 
 The training contract: any step may raise (device loss, preemption).
 ``FaultTolerantRunner`` restores the last committed checkpoint,
-optionally rebuilds the trainer (``rebuild``), and replays — the
-deterministic data pipeline and the deterministic step (no atomics on the
-card) make the replayed steps bit-identical.  ``FaultInjector`` raises at
+optionally rebuilds the trainer (``rebuild``: elastic restart, say a
+``Trainer`` on ``elastic.surviving_mesh(...)`` over the surviving ranks),
+restores into the trainer's mesh, and replays — the deterministic data
+pipeline and the deterministic step (no atomics on the card) make the
+replayed steps bit-identical on the same mesh.  ``FaultInjector`` raises at
 scheduled steps to prove that recovery reproduces the uninterrupted run.
 
 Serving-side faults (router subsystem): onboard accelerators in space see
@@ -121,8 +123,9 @@ class FaultTolerantRunner:
     def _restore(self) -> TrainState:
         if self.rebuild is not None:            # elastic path: new trainer
             self.trainer = self.rebuild()
-        state, _ = self.ckpt.restore(self.trainer.state_like(),
-                                     device=self.trainer.device)
+        state, _ = self.ckpt.restore(
+            self.trainer.state_like(), device=self.trainer.device,
+            shardings=self.trainer.state_shardings)
         return state
 
     def run(self, state: TrainState, data_fn, num_steps: int,
@@ -141,9 +144,15 @@ class FaultTolerantRunner:
             if on_step is not None:
                 on_step(s, st, metrics)
 
-        # always have a step-0 baseline to restart from
-        if self.ckpt.latest_step() is None:
-            self.ckpt.save(int(state.step), state, blocking=True)
+        # always have a step-0 baseline to restart from.  A save on a mesh
+        # is collective, so every rank reads the directory before any rank
+        # may write to it, and all take the same branch
+        fresh = self.ckpt.latest_step() is None
+        if self.trainer.state_shardings is not None:
+            self.trainer.state_shardings.barrier()
+        if fresh:
+            self.ckpt.save(int(state.step), state, blocking=True,
+                           shardings=self.trainer.state_shardings)
         while int(state.step) < target:
             # hand the state over without keeping it: the trainer frees
             # each step's old state as it goes (the reference donates its

@@ -1,14 +1,41 @@
 """The LM training loop (the port of ``repro.runtime.train_loop``): a
-step with microbatch gradient accumulation and AdamW, checkpointing and
-fault-tolerant restart hooks.
+step with microbatch gradient accumulation and AdamW, on one device or on
+a mesh of ``torch.distributed`` ranks, checkpointing and fault-tolerant
+restart hooks.
 
-The reference jits one sharded step over a device mesh; the port runs the
-same step eagerly on one device (a mesh of more devices is ROADMAP.md's
-queue 1 item 7, distributed execution).  Partition-aware QAT is just a
-plan argument — the same loop trains baseline and MPAI variants.  On the
-card the step differentiates through the backward kernels of flash
-attention, wkv and the selective scan, none of which uses atomics, so a
-replayed step repeats bit for bit.
+On one device (no process group) the step runs eagerly, as the
+reference's jitted step does without a mesh.  On a mesh (``build_mesh``;
+one rank a device) the state is laid out as the reference's
+``sharding.param_specs`` lays it out — each rank holds the slices that
+``NamedSharding`` gives the device at its coordinate, AdamW's moments
+with their parameters — and each step:
+
+* keeps the rank's rows of the global batch (``sharding.data_specs``);
+* gathers the whole parameters (an all-gather over each split dim's axes);
+* runs the one-device forward and backward on those rows;
+* all-reduces each gradient over the ranks that split the batch (an
+  ``all_reduce`` then a slice, on gloo and NCCL alike: the gradient is
+  whole on every rank, since compute is) and divides by their count;
+* takes the global norm of that whole gradient (no collective: every rank
+  holds it), then keeps the rank's slices;
+* runs AdamW on the rank's slices, in place, clipped by that norm.
+
+A collective over one rank is an identity and is skipped, so on a mesh of
+one device the step does the one-device step's arithmetic, bit for bit.
+
+The model axis shards state (and, under ``sharding_mode == "fsdp"``, the
+batch); compute along it runs replicated.  Head-parallel compute —
+column- and row-parallel projections with an all-reduce, head-local
+attention, expert-parallel MoE — needs collectives inside the models'
+layers and is ROADMAP.md queue 1 item 7b's next step; its gradients are
+parts on each rank, so the global norm will then need an all-reduce.  An
+MoE stack routes over the global batch, so a mesh that splits its batch is
+refused (7b).
+
+Partition-aware QAT is just a plan argument — the same loop trains
+baseline and MPAI variants.  On the card the step differentiates through
+the backward kernels of flash attention, wkv and the selective scan, none
+of which uses atomics, so a replayed step repeats bit for bit.
 """
 from __future__ import annotations
 
@@ -17,6 +44,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as shard
 from repro_torch.configs.base import (MeshConfig, ModelConfig, ShapeConfig,
                                       TrainConfig)
 from repro_torch.core.partition import PartitionPlan
@@ -38,23 +66,38 @@ def _grad(loss: torch.Tensor, params) -> Any:
     return tree_map(lambda p: grads[id(p)], params)
 
 
-def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
-                 plan: Optional[PartitionPlan], tp: int,
-                 donate: bool = False):
-    """(state, batch) -> (state, metrics); grad-accum aware.  ``batch``
+def build_mesh(mesh_cfg: MeshConfig):
+    """A ``DeviceMesh`` of ``mesh_cfg`` over the initialised process group
+    (whose world must be ``mesh_cfg.num_devices`` ranks)."""
+    from repro_torch.launch.mesh import make_mesh_from_config
+    return make_mesh_from_config(mesh_cfg)
+
+
+def _on_mesh(mesh_cfg: MeshConfig) -> bool:
+    """Whether a ``Trainer`` of ``mesh_cfg`` trains on a mesh of ranks: a
+    mesh of several devices always (``build_mesh`` refuses a world of
+    another size), one device when the initialised process group is that
+    one rank.  One device alone, or inside a larger world, trains as one
+    device."""
+    import torch.distributed as dist
+    if mesh_cfg.num_devices > 1:
+        return True
+    return dist.is_initialized() and dist.get_world_size() == 1
+
+
+def make_grad_fn(cfg: ModelConfig, tc: TrainConfig,
+                 plan: Optional[PartitionPlan], tp: int):
+    """(params, batch) -> (loss, grads); grad-accum aware.  ``batch``
     holds ``tokens`` and ``labels`` [B, S] (and ``frontend_embeds`` for a
     frontend arch); ``cfg.grad_accum`` microbatches of B / grad_accum rows
-    each are summed in ``tc.accum_dtype`` and averaged.  With ``donate``
-    the step updates the state's tensors in place (``adamw.apply_updates``),
-    as the reference's ``Trainer`` donates its state to the jitted step."""
+    each are summed in ``tc.accum_dtype`` and averaged."""
 
     def loss(params, tokens, labels, fe):
         return T.loss_fn(params, cfg, tokens, labels, plan, tp,
                          frontend_embeds=fe)
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        params = tree_map(lambda p: p.detach().requires_grad_(True),
-                          state.params)
+    def grads_of(params, batch: Dict[str, torch.Tensor]):
+        params = tree_map(lambda p: p.detach().requires_grad_(True), params)
         fe = batch.get("frontend_embeds")
         ga = cfg.grad_accum
         if ga > 1:
@@ -75,12 +118,23 @@ def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
             # XLA turns the reference's division by the constant into a
             # product with its float32 reciprocal
             inv = float(np.float32(1.0) / np.float32(ga))
-            grads = tree_map(lambda g_: g_ * inv, gsum)
-            l = lsum * inv
-        else:
-            l = loss(params, batch["tokens"], batch["labels"], fe)
-            grads = _grad(l, params)
-            l = l.detach()
+            return lsum * inv, tree_map(lambda g_: g_ * inv, gsum)
+        l = loss(params, batch["tokens"], batch["labels"], fe)
+        return l.detach(), _grad(l, params)
+    return grads_of
+
+
+def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
+                 plan: Optional[PartitionPlan], tp: int,
+                 donate: bool = False):
+    """(state, batch) -> (state, metrics) on one device (``make_grad_fn``,
+    then AdamW).  With ``donate`` the step updates the state's tensors in
+    place (``adamw.apply_updates``), as the reference's ``Trainer``
+    donates its state to the jitted step."""
+    grads_of = make_grad_fn(cfg, tc, plan, tp)
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        l, grads = grads_of(state.params, batch)
         new, opt, gnorm = adamw.apply_updates(state.params, grads,
                                               state.opt, tc, donate)
         return (TrainState(new, opt, state.step + 1),
@@ -90,23 +144,93 @@ def make_step_fn(cfg: ModelConfig, tc: TrainConfig,
 
 class Trainer:
     """Trains ``cfg`` on ``device`` (the card unless the caller asks for
-    the CPU).  ``mesh_cfg`` must be one device."""
+    the CPU): on a mesh of ranks (``build_mesh(mesh_cfg)``, one rank a
+    device, each rank on its own ``device``) where ``_on_mesh(mesh_cfg)``,
+    else on that device alone."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  mesh_cfg: MeshConfig, tc: TrainConfig,
                  plan: Optional[PartitionPlan] = None, device="cuda"):
-        if mesh_cfg.num_devices != 1:
-            raise NotImplementedError(
-                f"mesh {mesh_cfg.shape}: the port trains on one device; "
-                f"sharded training is ROADMAP.md queue 1 item 7 "
-                f"(distributed and staged execution)")
         self.cfg, self.shape, self.tc, self.plan = cfg, shape, tc, plan
         self.mesh_cfg = mesh_cfg
         self.device = torch.device(device)
         self.tp = mesh_cfg.tp
-        # the state is handed over each step, as the reference's jit
-        # donates it: a 3 B-parameter state and its update fit one card
-        self.step_fn = make_step_fn(cfg, tc, plan, self.tp, donate=True)
+        self.mesh = build_mesh(mesh_cfg) if _on_mesh(mesh_cfg) else None
+        self.state_shardings = None
+        if self.mesh is None:
+            # the state is handed over each step, as the reference's jit
+            # donates it: a 3 B-parameter state and its update fit one card
+            self.step_fn = make_step_fn(cfg, tc, plan, self.tp, donate=True)
+        else:
+            self._place(self.mesh)
+
+    # ------------------------------------------------------------------
+    def _place(self, mesh) -> None:
+        cfg, mesh_cfg = self.cfg, self.mesh_cfg
+        pl = shard.Placement(mesh_cfg, mesh)
+        like = self.state_like()
+        self.param_specs = shard.param_specs(cfg, like.params, mesh_cfg)
+        self.state_specs = TrainState(
+            self.param_specs,
+            adamw.AdamWState(self.param_specs, self.param_specs, shard.P()),
+            shard.P())
+        self.data_specs = shard.data_specs(cfg, self.shape, mesh_cfg)
+        self.state_shardings = shard.TreeSharding(pl, self.state_specs, like)
+        self.param_shardings = shard.TreeSharding(pl, self.param_specs,
+                                                  like.params)
+        self.placement = pl
+        specs = tree_leaves(self.param_specs)
+        shapes = [tuple(t.shape) for t in tree_leaves(like.params)]
+        uneven = [(s, sp) for s, sp in zip(shapes, specs)
+                  if shard.uneven_dims(sp, s, mesh_cfg)]
+        if uneven:
+            raise ValueError(f"mesh {mesh_cfg.shape}: parameters that do "
+                             f"not split evenly: {uneven[:4]}")
+        tok = self.data_specs["tokens"]
+        self.batch_axes = shard.dim_axes(tok, 1)[0]
+        self.batch_ranks = pl.group_size(self.batch_axes)
+        if cfg.moe is not None and self.batch_ranks > 1:
+            raise NotImplementedError(
+                f"{cfg.name} on mesh {mesh_cfg.shape}: an MoE stack routes "
+                f"over the global batch (capacity, slots, aux loss), and "
+                f"this mesh splits the batch over {self.batch_axes}; "
+                f"routing it across ranks is ROADMAP.md queue 1 item 7b")
+        self.rows = shard.shard_slices(
+            tok, (self.shape.global_batch, 1), mesh_cfg, pl.coord)[0]
+        # every group of more than one rank the step uses, made once by
+        # every rank in one order (``dist.new_group`` is collective); a
+        # collective over one rank is skipped
+        used = {self.batch_axes}
+        for s, sp in zip(shapes, specs):
+            used.update(shard.dim_axes(sp, len(s)))
+        for axes in sorted((a for a in used if pl.group_size(a) > 1),
+                           key=lambda a: (len(a), a)):
+            pl.group(axes)
+        self._grads_of = make_grad_fn(cfg, self.tc, self.plan, self.tp)
+        self.step_fn = self._sharded_step
+
+    def _sharded_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
+        import torch.distributed as dist
+        pl, mesh_cfg = self.placement, self.mesh_cfg
+        rows = {k: v[self.rows] for k, v in batch.items()}
+        full = self.param_shardings.unshard(state.params)
+        l, grads = self._grads_of(full, rows)
+        del full
+        if self.batch_ranks > 1:
+            group = pl.group(self.batch_axes)
+
+            def mean(t):
+                dist.all_reduce(t, group=group)
+                return t.div_(self.batch_ranks)
+            l = mean(l.clone())
+            grads = tree_map(mean, grads)
+        gnorm = adamw.global_norm(grads)
+        grads = tree_map(lambda g, sp: shard.shard(g, sp, mesh_cfg, pl.coord),
+                         grads, self.param_specs)
+        new, opt, gnorm = adamw.apply_updates(
+            state.params, grads, state.opt, self.tc, donate=True, gnorm=gnorm)
+        return (TrainState(new, opt, state.step + 1),
+                {"loss": l, "grad_norm": gnorm})
 
     def _init_state(self, device) -> TrainState:
         """The port's own seeded init (``T.model_init`` from
@@ -120,11 +244,17 @@ class Trainer:
                           torch.zeros((), dtype=torch.int32, device=device))
 
     def init_state(self) -> TrainState:
-        return self._init_state(self.device)
+        """The state from ``tc.seed``; on a mesh the whole tree is made
+        and the rank's parts kept, so one seed gives one model on every
+        mesh."""
+        state = self._init_state(self.device)
+        if self.state_shardings is None:
+            return state
+        return self.state_shardings.shard(state)
 
     def state_like(self) -> TrainState:
         """The state's structure, shapes and dtypes as ``meta`` tensors
-        (what a checkpoint restores into)."""
+        (what a checkpoint restores into; the whole shapes on a mesh)."""
         return self._init_state(torch.device("meta"))
 
     def run(self, state: TrainState, data_fn, num_steps: int,
@@ -142,5 +272,5 @@ class Trainer:
                                 "loss": float(metrics["loss"]),
                                 "grad_norm": float(metrics["grad_norm"])})
             if ckpt is not None and (s + 1) % self.tc.checkpoint_every == 0:
-                ckpt.save(s + 1, state)
+                ckpt.save(s + 1, state, shardings=self.state_shardings)
         return state, history

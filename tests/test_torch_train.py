@@ -441,7 +441,10 @@ def test_trainer_loss_decreases():
                                   ((1, 2), ("data", "model")),
                                   ((2, 16, 16), ("pod", "data", "model"))])
 def test_trainer_refuses_a_mesh_of_many_devices(mesh):
-    with pytest.raises(NotImplementedError, match="item 7"):
+    """Without as many ``torch.distributed`` ranks as the mesh has devices
+    (here no process group: one device) the mesh is refused."""
+    n = TMesh(*mesh).num_devices
+    with pytest.raises(ValueError, match=f"need {n} devices, have 1"):
         ttrain.Trainer(TINY, TShape("t", 32, 4, "train"), TMesh(*mesh),
                        TTrain(**TC_KW), device="cpu")
 
