@@ -150,13 +150,9 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8
-# and bf16 tensor-core ops/s, f32 CUDA-core flops/s.  bound_ms uses them.
-PEAK_BYTES = 3.35e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
+sys.path.insert(0, str(ROOT / "src"))
+# the card's peaks and every kernel's work: bound_ms comes from them
+from repro_torch import roofline  # noqa: E402
 
 PAGED_ATTENTION_SRC = "src/repro_torch/kernels/csrc/paged_attention.cu"
 INT8_MATMUL_SRC = "src/repro_torch/kernels/csrc/int8_matmul.cu"
@@ -337,12 +333,10 @@ def paged_attention_phase(timer, pa, dev) -> dict:
             raise AssertionError(f"paged_attention disagrees with its plain "
                                  f"version at {label}: max |err| {err}")
         ln = np.asarray(lengths)
-        blocks = int((-(-ln // page)).sum())
-        kv_bytes = 2 * blocks * page * kvp * hd * 2
-        nbytes = kv_bytes + 2 * q.numel() * 2 + 4 * tbl.numel() + 4 * b
-        flops = 4 * int(ln.sum()) * kvp * gp * hd
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = roofline.kernel_bound(
+            "paged_attention", b=b, kvp=kvp, gp=gp, hd=hd, page=page,
+            table=tbl.numel(), blocks=int((-(-ln // page)).sum()),
+            tokens=int(ln.sum()))
         rows[label] = {
             "max_abs_err": err, "bit_identical": True,
             "plan": pa.plan(b, kvp, mb, torch.cuda.get_device_properties(
@@ -351,8 +345,7 @@ def paged_attention_phase(timer, pa, dev) -> dict:
             "device_ms": timer.device_ms(lambda: pa.paged_attention(*args)),
             "plain_ms": timer.ms(lambda: pa.paged_attention_plain(*args),
                                  reps=3 if mb > 8 else 15),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
         emit("kernel_paged_attention", shape=label, B=b, KVp=kvp, gp=gp,
              hd=hd, P=page, MB=mb, **rows[label], library_ms=None,
              tolerance="2**-6 * |ref| + 2**-10")
@@ -401,9 +394,8 @@ def int8_matmul_phase(timer, im, dev) -> dict:
         else:
             lib_note = (None if m > 16 else
                         f"torch._int_mm on x zero-padded to M={INT_MM_PAD_M}")
-        nbytes = m * k + k * n + 4 * m * n
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+        bound = roofline.kernel_bound("int8_matmul", m=m, k=k, n=n)
+        t_bytes, t_ops = bound["bytes_ms"], bound["operations_ms"]
         per_shape[(m, k, n)] = {
             "ms": timer.ms(lambda: im.int8_matmul(x, w)),
             "device_ms": timer.device_ms(lambda: im.int8_matmul(x, w)),
@@ -415,8 +407,7 @@ def int8_matmul_phase(timer, im, dev) -> dict:
              device_ms=per_shape[(m, k, n)]["device_ms"],
              plain_ms=per_shape[(m, k, n)]["plain_ms"],
              library_ms=lib_ms, library_note=lib_note,
-             bound_ms=max(t_bytes, t_ops),
-             bound_by="bytes" if t_bytes >= t_ops else "operations")
+             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
     # the kernels line reports one decode layer's seven GEMMs at M = 8
     layer = [per_shape[(8, k, n)] for k, n in QWEN_LAYER_GEMMS]
     lib = [r["library_ms"] for r in layer]
@@ -474,17 +465,17 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             lib_ms, lib_note = None, str(e).splitlines()[0]
         else:
             lib_note = None
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        flops = 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
+        flops, _, _ = roofline.kernel_work("flash_attention", b=b, s=s,
+                                           kvp=kvp, gp=gp, hd=hd, itemsize=2)
+        bound = roofline.kernel_bound("flash_attention", b=b, s=s, kvp=kvp,
+                                      gp=gp, hd=hd, itemsize=2)
         rows[(b, s, gp)] = {
             "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
             "device_ms": timer.device_ms(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_f32_cuda_core_ms": flops / PEAK_F32_FLOPS * 1e3,
+            "library_ms": lib_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
+            "bound_f32_cuda_core_ms": flops / roofline.PEAK_F32 * 1e3,
             "max_abs_err": err}
         emit("kernel_flash_attention", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
              **rows[(b, s, gp)], library_note=lib_note,
@@ -528,19 +519,13 @@ def wkv_phase(timer, wk, dev) -> dict:
                                  f"B={b} S={s}: max |err| y {err_y}, state "
                                  f"{err_s}")
         errs.append(max(err_y, err_s))
-        nbytes = 4 * (5 * r.numel() + u.numel() + s_fin.numel())
-        # per (b, t, h): r^T S (2 N^2), the decay and rank-1 update of S
-        # (3 N^2); the u-bonus term is O(N)
-        flops = 5 * n * n * b * s * h
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = roofline.kernel_bound("wkv", b=b, s=s, h=h, n=n)
         rows[(b, s)] = {
             "ms": timer.ms(lambda: wk.wkv(r, k, v, w, u)),
             "device_ms": timer.device_ms(lambda: wk.wkv(r, k, v, w, u)),
             "plain_ms": timer.ms(lambda: wk.wkv_plain(r, k, v, w, u),
                                  reps=3 if s > 512 else 15),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
             "max_abs_err_y": err_y, "max_abs_err_state": err_s,
             "bit_identical": True}
         emit("kernel_wkv", B=b, S=s, H=h, N=n, **rows[(b, s)],
@@ -610,24 +595,16 @@ def selective_scan_phase(timer, ss, dev, sm_mhz: int) -> dict:
                                  f"version at B={b} S={s}: max |err| y "
                                  f"{err_y}, state {err_h}")
         errs.append(max(err_y, err_h))
-        # each input read once, y and the final state written once
-        nbytes = 4 * (3 * x.numel() + 2 * bm.numel() + a.numel() + dim
-                      + h.numel())
-        # per (b, t, d, n): one exp on the special-function unit (16 a
-        # clock per SM) and dt*a, dt*x*B, the state's fma and the output's
-        # fma on the f32 units (6 flops)
-        cells = b * s * dim * n
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = max(cells / (16 * sms * sm_mhz * 1e6),
-                    6 * cells / PEAK_F32_FLOPS) * 1e3
+        # the exps on the special-function unit: 16 a clock per SM
+        bound = roofline.kernel_bound("selective_scan",
+                                      sfu_per_s=16 * sms * sm_mhz * 1e6,
+                                      b=b, s=s, dim=dim, n=n)
         rows[(b, s)] = {
             "ms": timer.ms(lambda: ss.selective_scan(*args)),
             "device_ms": timer.device_ms(lambda: ss.selective_scan(*args)),
             "plain_ms": timer.ms(lambda: ss.selective_scan_plain(*args),
                                  reps=3 if s > 512 else 15),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            **bound,
             "lanes": ss.plan(b, dim, n, sms),
             "max_abs_err_y": err_y, "max_abs_err_state": err_h,
             "bit_identical": True}
@@ -711,23 +688,14 @@ def wkv_backward_phase(timer, wk, dev) -> dict:
         errs.append(grads_agree(f"wkv_bwd B={b} S={s}",
                                 ("dr", "dk", "dv", "dw", "du"), got, want))
         del got, want
-        # r, k, v, w, dy, u and the checkpoints read; dr, dk, dv, dw, du
-        # written (ds_fin, where given, read)
-        nbytes = 4 * (9 * r.numel() + 2 * u.numel() + ckpt.numel()
-                      + (ds.numel() if with_ds else 0))
-        # per (b, t, h): G (2 N^2), dr (4 N^2), dk, dw (2 N^2 each), dv's
-        # product (N^2), dS's update (3 N^2); the bonus terms are O(N)
-        flops = 14 * n * n * b * s * h
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = flops / PEAK_F32_FLOPS * 1e3
+        bound = roofline.kernel_bound("wkv_bwd", b=b, s=s, h=h, n=n,
+                                      ds_fin=with_ds)
         rows[(b, s)] = {
             "ms": timer.ms(call, reps=5 if s > 512 else 15),
             "device_ms": timer.device_ms(call, reps=5 if s > 512 else 15),
             "forward_ms": timer.ms(lambda: wk._launch(
                 r, k, v, w, u, checkpoints=True)),
-            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "plain_ms": p_ms, **bound,
             "max_abs_err": errs[-1], "bit_identical": True}
         emit("kernel_wkv_backward", B=b, S=s, H=h, N=n, ds_fin=with_ds,
              **rows[(b, s)], plan=wk.bwd_plan(s, n)._asdict(),
@@ -779,25 +747,15 @@ def selective_scan_backward_phase(timer, ss, dev, sm_mhz: int) -> dict:
                                 ("dx", "ddt", "dB", "dC", "dA", "dD"), got,
                                 want))
         del got, want
-        # x, dt, dy, B, C, A, D and the checkpoints read; dx, ddt, dB, dC,
-        # dA, dD written (dh_fin, where given, read)
-        nbytes = 4 * (5 * x.numel() + 4 * bm.numel() + 2 * a.numel()
-                      + 2 * dim + ckpt.numel()
-                      + (dh.numel() if dh is not None else 0))
-        # per (b, t, d, n): one exp on the special-function unit, and dh's
-        # fma, dB and dC's products, dx's and ddt's sums, dA's update and
-        # dh's decay on the f32 units (16 flops)
-        cells = b * s * dim * n
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = max(cells / (16 * sms * sm_mhz * 1e6),
-                    16 * cells / PEAK_F32_FLOPS) * 1e3
+        bound = roofline.kernel_bound("selective_scan_bwd",
+                                      sfu_per_s=16 * sms * sm_mhz * 1e6,
+                                      b=b, s=s, dim=dim, n=n,
+                                      dh_fin=dh is not None)
         rows[(b, s)] = {
             "ms": timer.ms(call), "device_ms": timer.device_ms(call),
             "forward_ms": timer.ms(lambda: ss._launch(
                 *args, checkpoints=True)),
-            "plain_ms": p_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "plain_ms": p_ms, **bound,
             "max_abs_err": errs[-1], "bit_identical": True}
         emit("kernel_selective_scan_backward", B=b, S=s, D=dim, N=n,
              dh_fin=dh is not None, **rows[(b, s)],
@@ -894,15 +852,13 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
             if not (torch.equal(q, q_p) and torch.equal(scale, s_p)):
                 raise AssertionError(f"rowwise_quant != plain at M={m} "
                                      f"K={k} {dtype}")
-            nbytes = x.numel() * x.element_size() + q.numel() + 4 * m
-            # per element: abs, max, divide, round, clamp
-            t_bytes = nbytes / PEAK_BYTES * 1e3
-            t_ops = 5 * x.numel() / PEAK_F32_FLOPS * 1e3
+            bound = roofline.kernel_bound("rowwise_quant", m=m, k=k,
+                                          itemsize=x.element_size())
             row = {"ms": timer.ms(lambda: rq.rowwise_quant(x)),
                    "device_ms": timer.device_ms(lambda: rq.rowwise_quant(x)),
                    "plain_ms": timer.ms(lambda: rq.rowwise_quant_plain(x)),
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+                   "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"]}
             rows[(m, k, dtype)] = row
             emit("kernel_rowwise_quant", M=m, K=k,
                  dtype=str(dtype).replace("torch.", ""), exact=True, **row,
@@ -917,11 +873,10 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
         if not (all(torch.equal(a_, b_) for a_, b_ in zip(bufs, plain))
                 and torch.equal(stack[0][0], kept)):
             raise AssertionError(f"int8 KV write != plain: {label}")
-        written = k.shape[0] * min(s, t) * k.shape[2]
-        nbytes = (2 * k.numel() * k.element_size()
-                  + 2 * written * (k.shape[-1] + 4) + 4)
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = 5 * 2 * k.numel() / PEAK_F32_FLOPS * 1e3
+        bound = roofline.kernel_bound(
+            "rowwise_quant_into", elements=k.numel(),
+            itemsize=k.element_size(),
+            written=k.shape[0] * min(s, t) * k.shape[2], hd=k.shape[-1])
         fused = lambda: rq.rowwise_quant_into(k, v, *bufs, slot)
         seq = lambda: kv_write_sequence(rq, k, v, bufs, slot)
         row = {"ms": timer.ms(fused), "device_ms": timer.device_ms(fused),
@@ -929,8 +884,7 @@ def rowwise_quant_phase(timer, rq, dev) -> dict:
                    lambda: rq.rowwise_quant_into_plain(k, v, *plain, slot)),
                "sequence_ms": timer.ms(seq),
                "sequence_device_ms": timer.device_ms(seq),
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
         writes[label] = row
         emit("kernel_int8_kv_write", case=label, S=s, T=t, decode_pos=pos,
              ring=ring, exact=True, **row, library_ms=None)
@@ -3426,23 +3380,22 @@ def ursonet_full_width_phase(dev, card: str, timer, im) -> dict:
                 lib_ms = timer.ms(lambda: torch._int_mm(x, w))
             except RuntimeError:
                 lib_ms = None         # cuBLAS refuses the shape
-            t_bytes = (m * k + k * n + 4 * m * n) / PEAK_BYTES * 1e3
-            t_ops = 2 * m * k * n / PEAK_INT8_OPS * 1e3
+            bound = roofline.kernel_bound("int8_matmul", m=m, k=k, n=n)
             emit("kernel_int8_matmul", M=m, K=k, N=n, exact=True,
                  shapes="ursonet head",
                  ms=timer.ms(lambda: im.int8_matmul(x, w)),
                  device_ms=timer.device_ms(lambda: im.int8_matmul(x, w)),
                  plain_ms=timer.ms(lambda: im.int8_matmul_plain(x, w)),
-                 library_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
-                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+                 library_ms=lib_ms, bound_ms=bound["bound_ms"],
+                 bound_by=bound["bound_by"])
 
     cfg, batch, batches, steps = FULL, 16, 8, 50
     macs = ursonet_macs(cfg)
-    step_bound = 2 * macs["train"] * batch / PEAK_BF16_FLOPS * 1e3
+    step_bound = 2 * macs["train"] * batch / roofline.PEAK_BF16 * 1e3
     emit("ursonet_macs", config=cfg.name, per_image=macs,
          train_step_bound_ms=step_bound, bound_by="bf16 tensor-core "
          "operations", eval_batch_bound_ms=2 * macs["forward"] * batch
-         / PEAK_BF16_FLOPS * 1e3)
+         / roofline.PEAK_BF16 * 1e3)
     launches, seen = {}, {}
     real_step, real_train = pose.train_step, pose.train_ursonet
     real_eval, real_apply = pose.eval_ursonet, pose.ursonet_apply
@@ -3638,15 +3591,9 @@ def flash_backward_phase(timer, fa, dev) -> list:
             lib_note = None
         del ql, kl, vl, dol
         size = 2 if dt == torch.bfloat16 else 4
-        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
-        # do, q, out and dq [B,S,KVp,gp,hd]; k, v, dk, dv; lse read
-        nbytes = size * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel()
-        fwd_flops = 4 * hd * (s * (s + 1) // 2) * b * kvp * gp
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        t_ops = 2.5 * fwd_flops / peak * 1e3
-        # the forward: q, k, v read, out written
-        fwd_bound = max(size * (2 * q.numel() + 2 * k.numel()) / PEAK_BYTES,
-                        fwd_flops / peak) * 1e3
+        work = dict(b=b, s=s, kvp=kvp, gp=gp, hd=hd, itemsize=size)
+        bound = roofline.kernel_bound("flash_attention_bwd", **work)
+        fwd_bound = roofline.kernel_bound("flash_attention", **work)
         call = lambda: fa.flash_attention_bwd(do, q, k, v, out, lse)
         rows[(b, s, gp, hd, dtype)] = row = {
             "route": route,
@@ -3654,11 +3601,11 @@ def flash_backward_phase(timer, fa, dev) -> list:
             "device_ms": timer.device_ms(call, reps=10),
             "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(
                 do, q, k, v), reps=3),
-            "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "bound_ms": bound["bound_ms"],
+            "bound_by": bound["bound_by"],
             "forward_ms": timer.ms(lambda: fa._forward(q, k, v, False),
                                    reps=10),
-            "forward_library_ms": lib_fwd_ms, "forward_bound_ms": fwd_bound,
+            "forward_library_ms": lib_fwd_ms, "forward_bound_ms": fwd_bound["bound_ms"],
             "max_abs_err": max(errs.values())}
         emit("kernel_flash_backward", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
              dtype=dtype, **row, errs=errs, bit_equal=True,
@@ -3776,16 +3723,17 @@ def tiny_train_phase(dev, fa) -> None:
 
 
 def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
-                reduced: list, counts, check, keep=None) -> dict:
+                reduced: list, counts, check, keep=None,
+                keep_params: bool = True) -> dict:
     """``cfg`` trained ``steps`` steps of ``shape`` under bf16 and under
     "mpai" (``qat.train_plan``: a fake-quantized backbone) by the
     ``Trainer`` from its seeded init: loss and grad norm finite, step ms
     (median, each step ending in a synchronize), tokens/s, peak memory and
     ``counts()`` (kernel launches by row name), counted from 0 for each
     plan's run; ``check(counts)`` lists what is wrong with them.  Frees
-    each state, but for the bf16 run's history, step times and final
-    parameters, which go into the dict ``keep`` when one is given.
-    Returns ``{plan: counts}``."""
+    each state, but for the bf16 run's history, step times, state bytes,
+    peak memory and (with ``keep_params``) final parameters, which go into
+    the dict ``keep`` when one is given.  Returns ``{plan: counts}``."""
     from repro_torch.configs.base import MeshConfig, TrainConfig
     from repro_torch.core import qat
     from repro_torch.core.partition import PartitionPlan
@@ -3834,7 +3782,11 @@ def train_plans(dev, card: str, cfg, shape, steps: int, phase: str,
         out[name] = n
         if keep is not None and name == "bf16":
             keep.update(history=hist, step_ms_each=list(clock.times),
-                        params=state.params)
+                        peak_bytes=torch.cuda.max_memory_allocated(),
+                        state_bytes=sum(t.numel() * t.element_size() for t
+                                        in tree_leaves(tuple(state))))
+            if keep_params:
+                keep["params"] = state.params
         del state, tr
         gc.collect()
         torch.cuda.empty_cache()
@@ -4397,7 +4349,7 @@ RWKV_TRAIN_STEPS = 3
 RWKV_REPEAT_LAYERS = 2           # the repeated step's depth (two states)
 
 
-def rwkv_train_full_width_phase(dev, card: str, wk) -> dict:
+def rwkv_train_full_width_phase(dev, card: str, wk, keep=None) -> dict:
     """RWKV-6 3B at full width and depth (32 layers, d 2560, 40 heads of
     64, vocab 65536, remat) trained ``RWKV_TRAIN_STEPS`` steps of
     ``RWKV_TRAIN_SHAPE`` under bf16 and "mpai" by ``train_plans``: every
@@ -4405,7 +4357,8 @@ def rwkv_train_full_width_phase(dev, card: str, wk) -> dict:
     which writes the checkpoints) and its backward once.  Then one step
     from the same state run twice, ``RWKV_REPEAT_LAYERS`` deep at the same
     widths (two 3 B states and their moments do not fit one card): the
-    parameters bit-equal."""
+    parameters bit-equal.  ``keep`` receives the bf16 run's step times,
+    state bytes and peak memory (``train_plans``) for ``dryrun``."""
     from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.configs.rwkv6_3b import FULL
     from repro_torch.core.tree import tree_leaves
@@ -4424,7 +4377,7 @@ def rwkv_train_full_width_phase(dev, card: str, wk) -> dict:
         dev, card, FULL, shape, RWKV_TRAIN_STEPS, "rwkv_train_full_width",
         [f"global batch 256 -> {RWKV_TRAIN_SHAPE[1]} (one card)"],
         lambda: {"wkv": wk.wkv.launches, "wkv_bwd": wk.wkv_bwd.launches},
-        check)
+        check, keep, keep_params=False)
 
     cfg = FULL.with_(num_layers=RWKV_REPEAT_LAYERS)
     tr = Trainer(cfg, shape, MeshConfig((1, 1), ("data", "model")),
@@ -4450,6 +4403,67 @@ def rwkv_train_full_width_phase(dev, card: str, wk) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+DRYRUN_PEAK_BAND = 0.10         # predicted peak within 10% of the measured
+
+
+def dryrun_phase(card: str, measured: dict) -> None:
+    """The dry run (``repro_torch.launch.dryrun``, a fake world of one rank
+    on the CPU, no device) of the two bf16 training runs just measured:
+    StableLM-2 1.6B at ``TRAIN_SHAPE`` and RWKV-6 3B at ``RWKV_TRAIN_SHAPE``
+    on a (1, 1) mesh.  Its state bytes (the arguments less the batch) must
+    equal the ``Trainer`` state's bytes on the card exactly, and its peak
+    lie within ``DRYRUN_PEAK_BAND`` of the run's
+    ``torch.cuda.max_memory_allocated()``.  Prints the roofline's terms,
+    ``model_flops`` over the measured median step as a share of the bf16
+    peak, and the dry run's seconds.  ``measured``: ``{arch: train_plans'
+    keep}``."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig, ShapeConfig
+    from repro_torch.launch import dryrun, specs
+
+    mesh = MeshConfig((1, 1), ("data", "model"))
+    for arch, (seq, batch) in (("stablelm-1.6b", TRAIN_SHAPE),
+                               ("rwkv6-3b", RWKV_TRAIN_SHAPE)):
+        cfg, run = get_config(arch), measured[arch]
+        shape = ShapeConfig("train_4k_cut", seq, batch, "train")
+        t0 = time.perf_counter()
+        with dryrun.fake_world(1):
+            st = dryrun.trace_cell(cfg, shape, mesh)
+        seconds = time.perf_counter() - t0
+        batch_bytes = sum(t.numel() * t.element_size()
+                          for t in specs.batch_specs(cfg, shape).values())
+        state_bytes = st["argument_size_in_bytes"] - batch_bytes
+        peak_err = st["peak_bytes"] / run["peak_bytes"] - 1
+        step_ms = float(np.median(run["step_ms_each"])) * 1e3
+        model_flops = roofline.model_flops(cfg, shape)
+        row = st["roofline"]
+        emit("dryrun", card=card, config=arch,
+             shape={"seq_len": seq, "batch": batch}, mesh="1x1",
+             plan="bf16", execution=st["execution"], dryrun_s=seconds,
+             state_bytes_predicted=state_bytes,
+             state_bytes_measured=run["state_bytes"],
+             peak_bytes_predicted=st["peak_bytes"],
+             peak_bytes_measured=run["peak_bytes"],
+             peak_relative_err=peak_err, peak_band=DRYRUN_PEAK_BAND,
+             temp_bytes_predicted=st["temp_size_in_bytes"],
+             flops_predicted=st["flops"], kernel_flops=st["kernel_flops"],
+             hlo_bytes_predicted=st["hlo_bytes"],
+             kernel_calls=st["kernel_calls"],
+             compute_ms=row["compute_ms"], memory_ms=row["memory_ms"],
+             collective_ms=row["collective_ms"], dominant=row["dominant"],
+             model_flops=model_flops, step_ms=step_ms,
+             model_flops_share_of_bf16_peak=model_flops / (step_ms / 1e3)
+             / roofline.PEAK_BF16)
+        if state_bytes != run["state_bytes"]:
+            raise AssertionError(f"dryrun {arch}: predicted state "
+                                 f"{state_bytes} bytes, the Trainer's on "
+                                 f"the card {run['state_bytes']}")
+        if abs(peak_err) > DRYRUN_PEAK_BAND:
+            raise AssertionError(f"dryrun {arch}: predicted peak "
+                                 f"{st['peak_bytes']} bytes, measured "
+                                 f"{run['peak_bytes']} ({peak_err:+.1%})")
 
 
 # the train launcher on the card, each a main path of its own: the audio
@@ -4583,6 +4597,8 @@ def main() -> int:
                                                       one_device).items():
             for name, n in by_kernel.items():
                 launches[name][f"stablelm-1.6b/train/{plan}"] = n
+        measured = {"stablelm-1.6b": {k: one_device[k] for k in (
+            "step_ms_each", "peak_bytes", "state_bytes")}}
         for plan, by_kernel in train_sharded_phase(dev, card, fa,
                                                    one_device).items():
             for name, n in by_kernel.items():
@@ -4593,10 +4609,12 @@ def main() -> int:
                 launches[name][f"stablelm-1.6b/train_sharded_2rank/{mesh}"] = n
     finally:
         stop_train_ranks(*ranks)
-    for plan, by_kernel in rwkv_train_full_width_phase(dev, card,
-                                                       wk).items():
+    measured["rwkv6-3b"] = {}
+    for plan, by_kernel in rwkv_train_full_width_phase(
+            dev, card, wk, measured["rwkv6-3b"]).items():
         for name, n in by_kernel.items():
             launches[name][f"rwkv6-3b/train/{plan}"] = n
+    dryrun_phase(card, measured)
     for config, by_kernel in launch_train_phase(card).items():
         for name, n in by_kernel.items():
             launches[name][f"{config}/launch_train"] = n

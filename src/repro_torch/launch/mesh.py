@@ -12,9 +12,17 @@ def production_mesh_config(*, multi_pod: bool = False) -> MeshConfig:
     return MULTI_POD if multi_pod else SINGLE_POD
 
 
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: ``(16, 16)`` ``("data", "model")``, or ``(2,
+    16, 16)`` ``("pod", "data", "model")`` with ``multi_pod``, over a
+    process group of 256 or 512 ranks (the dry run's is a fake one)."""
+    return make_mesh_from_config(production_mesh_config(multi_pod=multi_pod))
+
+
 def _device_type() -> str:
     """``cuda`` under NCCL; ``cpu`` under gloo, whose ranks may share a
-    card (the mesh's device type only names where DTensors would live)."""
+    card, and under the dry run's fake backend (the mesh's device type
+    only names where DTensors would live)."""
     import torch.distributed as dist
     return "cuda" if dist.get_backend() == "nccl" else "cpu"
 

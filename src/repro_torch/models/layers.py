@@ -7,8 +7,9 @@ cast (or quantized) at use, as in the reference.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,39 @@ def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(x.dtype)
+
+
+def layernorm_init(shape, device) -> Dict:
+    return {"scale": torch.ones(shape, dtype=torch.float32, device=device),
+            "bias": torch.zeros(shape, dtype=torch.float32, device=device)}
+
+
+def layernorm(params: Dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Two-pass mean and variance in f32, as the reference writes them."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
+        + params["bias"]
+    return out.to(x.dtype)
+
+
+def make_norm(norm_type: str):
+    if norm_type == "rmsnorm":
+        return rmsnorm_init, rmsnorm
+    if norm_type == "layernorm":
+        return layernorm_init, layernorm
+    raise ValueError(norm_type)
+
+
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The operands of a product in their common dtype, as ``jnp`` promotes
+    them (an f32 activation and a bf16 parameter meet in f32): ``@`` and
+    ``einsum`` take no mixed operands.  Operands already of that dtype are
+    returned as they are."""
+    dt = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    return tuple(t.to(dt) for t in ts)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,7 @@ from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, silu
+from repro_torch.models.layers import dense_init, promoted, silu
 
 
 def _dims(cfg: ModelConfig) -> Tuple[MambaConfig, int, int, int]:
@@ -107,7 +107,9 @@ def mamba_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     dt, b_t, c_t = _ssm_params(params, cfg, xc, policy)
     a = -torch.exp(params["A_log"])                     # [di, N]
     xcf = xc.float()
-    y, h_fin = kops.selective_scan(xcf, dt, b_t, c_t, a, params["D"])
+    # A and D meet f32 operands: bf16 ones are promoted, as in the reference
+    y, h_fin = kops.selective_scan(xcf, dt, b_t, c_t, a.float(),
+                                   params["D"].float())
     y = y.to(x.dtype) * silu(z)
     out = pdot(y, params["out_proj"], policy)
     if return_state:
@@ -125,7 +127,8 @@ def mamba_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     xr, z = torch.chunk(xz, 2, dim=-1)
 
     hist = torch.cat([cache.conv, xr[:, None].to(cache.conv.dtype)], dim=1)
-    xc = torch.einsum("bkd,kd->bd", hist, params["conv_w"]) + params["conv_b"]
+    xc = torch.einsum("bkd,kd->bd", *promoted(hist, params["conv_w"])) \
+        + params["conv_b"]
     xc = silu(xc).to(x.dtype)
 
     dt, b_t, c_t = _ssm_params(params, cfg, xc[:, None], policy)

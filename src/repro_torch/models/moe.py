@@ -117,15 +117,20 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
         keep = slot < cap
         x_rep = x[:, :, None].expand(b, s, k, d).reshape(b, sk, d)
         b_idx = torch.arange(b, device=x.device)[:, None].expand(b, sk)
-        # dropped slots are masked out before indexing: the reference's
-        # scatter drops out-of-range writes, torch would raise on them
-        idx = (b_idx[keep], eids[keep], slot[keep])
-        buf = torch.zeros((b, e, cap, d), dtype=xf.dtype, device=x.device)
-        buf.index_put_(idx, x_rep[keep], accumulate=True)
+        # the reference's scatter drops out-of-range writes, torch would
+        # raise on them: dropped slots write a spare row past the buffer,
+        # which the experts never see (no boolean mask, so no shape that
+        # depends on the data and no wait for the host)
+        rows = b * e * cap
+        dest = torch.where(keep, (b_idx * e + eids) * cap + slot, rows)
+        flat = torch.zeros((rows + 1, d), dtype=xf.dtype, device=x.device)
+        flat.index_put_((dest.reshape(-1),), x_rep.reshape(-1, d),
+                        accumulate=True)
+        buf = flat[:rows].view(b, e, cap, d)
         out_buf = _expert_ffn(params, buf, act, glu, policy)     # [B,E,C,D]
-        gathered = torch.zeros((b, sk, d), dtype=out_buf.dtype,
-                               device=x.device)
-        gathered[keep] = out_buf[idx]                            # fill 0
+        gathered = torch.where(
+            keep[..., None],
+            out_buf.reshape(rows, d)[dest.clamp(max=rows - 1)], 0)  # fill 0
         w = (gate.reshape(b, sk, 1) * keep[..., None]).to(gathered.dtype)
         out = (gathered * w).reshape(b, s, k, d).sum(dim=2).reshape(t, d)
 

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig, RWKVConfig
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import dense_init, sigmoid, silu
+from repro_torch.models.layers import dense_init, promoted, sigmoid, silu
 
 
 def _padded_heads(cfg: ModelConfig, tp: int) -> int:
@@ -129,9 +129,9 @@ def _ddlerp(params: Dict, x: torch.Tensor, x_prev: torch.Tensor):
     mixed streams [5, B, S, D] plus the lerp that feeds the mixing lora."""
     xx = x_prev - x
     xxx = x + xx * params["mu_x"]
-    lora = torch.tanh(xxx.float() @ params["mix_A"])
+    lora = torch.tanh(torch.matmul(*promoted(xxx.float(), params["mix_A"])))
     lora = lora.reshape(*lora.shape[:-1], 5, -1)
-    dyn = torch.einsum("bsli,lid->lbsd", lora, params["mix_B"])
+    dyn = torch.einsum("bsli,lid->lbsd", *promoted(lora, params["mix_B"]))
     mixed = x[None] + xx[None] * (params["mu"][:, None, None, :]
                                   + dyn).to(x.dtype)
     return mixed, xxx
@@ -151,7 +151,8 @@ def _group_norm(params: Dict, y: torch.Tensor, n: int,
 
 def _decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent decay in (0, 1), f32, over the padded channels."""
-    ww = params["w0"] + torch.tanh(xw.float() @ params["wA"]) @ params["wB"]
+    lora = torch.tanh(torch.matmul(*promoted(xw.float(), params["wA"])))
+    ww = params["w0"] + torch.matmul(*promoted(lora, params["wB"]))
     return torch.exp(-torch.exp(ww))
 
 
@@ -172,7 +173,8 @@ def time_mix_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     v = heads(pdot(xv, params["w_v"], policy))
     g = silu(pdot(xg, params["w_g"], policy))
     w = heads(_decay(params, xw))
-    y, s_fin = kops.wkv(r, k, v, w, params["u"].reshape(hp, n))
+    # u meets f32 operands, so a bf16 u is promoted, as in the reference
+    y, s_fin = kops.wkv(r, k, v, w, params["u"].reshape(hp, n).float())
     y = _group_norm(params, y.reshape(b, s, dp), n).to(x.dtype) * g
     return pdot(y, params["w_o"], policy), s_fin, x[:, -1]
 

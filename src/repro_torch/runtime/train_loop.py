@@ -189,12 +189,7 @@ class Trainer:
         tok = self.data_specs["tokens"]
         self.batch_axes = shard.dim_axes(tok, 1)[0]
         self.batch_ranks = pl.group_size(self.batch_axes)
-        if cfg.moe is not None and self.batch_ranks > 1:
-            raise NotImplementedError(
-                f"{cfg.name} on mesh {mesh_cfg.shape}: an MoE stack routes "
-                f"over the global batch (capacity, slots, aux loss), and "
-                f"this mesh splits the batch over {self.batch_axes}; "
-                f"routing it across ranks is ROADMAP.md queue 1 item 7b")
+        self._check_routing()
         self.rows = shard.shard_slices(
             tok, (self.shape.global_batch, 1), mesh_cfg, pl.coord)[0]
         # every group of more than one rank the step uses, made once by
@@ -208,6 +203,16 @@ class Trainer:
             pl.group(axes)
         self._grads_of = make_grad_fn(cfg, self.tc, self.plan, self.tp)
         self.step_fn = self._sharded_step
+
+    def _check_routing(self) -> None:
+        """Refuses an MoE stack on a mesh that splits its batch."""
+        if self.cfg.moe is not None and self.batch_ranks > 1:
+            raise NotImplementedError(
+                f"{self.cfg.name} on mesh {self.mesh_cfg.shape}: an MoE "
+                f"stack routes over the global batch (capacity, slots, aux "
+                f"loss), and this mesh splits the batch over "
+                f"{self.batch_axes}; routing it across ranks is ROADMAP.md "
+                f"queue 1 item 7b")
 
     def _sharded_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         import torch.distributed as dist
