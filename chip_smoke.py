@@ -125,6 +125,19 @@ parameters views of the weights), then times one step's
 ``FleetSpec.build``; ``compression`` runs ``compressed_grad_mean`` over a
 one-rank NCCL group on a 64 M-element leaf (its own round trip, bit for
 bit).
+Tooling and the examples: ``fleetlint`` runs the port's static analyzer
+(``repro_torch.analysis``) over the checkout and fails unless it is clean,
+prints its counts by pass, and resolves every kernel contract's
+``extern "C"`` symbol with ``build.entry`` in the ``sm_90a`` libraries
+just built, its argtypes those of the contract; ``examples`` runs the
+five twins of ``examples_torch/`` in-process on the card at the
+examples' own widths (``serve_partitioned``: Qwen3 smoke width, 4 layers,
+an "mpai" prefill stage and 2 decode shards; ``quickstart``: its reduced
+StableLM-2 config, 50 steps; ``train_100m``: d 640, 12 layers, vocab
+50304, 8 x 512 tokens, 30 steps with the fault at step 25, bit-equal to an
+uninterrupted run; ``route_failover`` and ``orbit_eclipse``: cost-model
+fleets), each checked as the reference example asserts, its launches
+counted under ``examples/<twin>`` in ``launches_by_plan``.
 Prints one JSON line per phase,
 the card's name and power limit, a ``{"kernels": [...]}`` line, and as its
 last line
@@ -195,6 +208,11 @@ WINDOW_GEMMS = [(2560, 2560), (2560, 8960), (8960, 2560), (4096, 16384),
                 (8192, 4096)]
 # torch._int_mm takes M > 16 only: the decode yardstick pads x with zero rows
 INT_MM_PAD_M = 32
+# (M, K, N) of the example twins' int8 GEMMs: serve_partitioned's Qwen3
+# smoke decode (4 slots) and quickstart's StableLM-2 smoke evaluation (a
+# batch of 8 x 64 tokens)
+EXAMPLE_GEMMS = ((4, 64, 32), (4, 64, 64), (4, 64, 128), (4, 128, 64),
+                 (512, 128, 128), (512, 128, 256), (512, 256, 128))
 
 
 def emit(phase: str, **kv) -> None:
@@ -296,19 +314,29 @@ def paged_case(dev, lengths, seed: int, num_blocks: int = 0,
             torch.as_tensor(lengths, device=dev))
 
 
-# Paged decode attention (KVp 8, gp 5, hd 128, P 16): (label, lengths, pool
-# blocks) of the Qwen3-14B decode layer (8 slots, table width 8 for max_len
-# 128, a 64-block pool), of 8 sequences of 4096 tokens and of one
-PAGED_CASES = (("qwen3 decode layer", [0, 1, 16, 17, 40, 77, 127, 128], 64),
-               ("B=8 x 4096", [4096] * 8, 0), ("B=1 x 4096", [4096], 0))
+# Paged decode attention: (label, lengths, pool blocks, geometry) of the
+# Qwen3-14B decode layer (8 slots, table width 8 for max_len 128, a
+# 64-block pool; KVp 8, gp 5, hd 128, P 16), of 8 sequences of 4096 tokens
+# and of one, and of the example twins' decode steps: serve_partitioned's
+# Qwen3 smoke width (4 slots, a 12-block pool of P 8, table width 3) and
+# quickstart's StableLM-2 smoke width (2 slots, 4 blocks, table width 2)
+QWEN_GEOM = dict(page=16, kvp=8, gp=5, hd=128)
+PAGED_CASES = (("qwen3 decode layer", [0, 1, 16, 17, 40, 77, 127, 128], 64,
+                QWEN_GEOM),
+               ("B=8 x 4096", [4096] * 8, 0, QWEN_GEOM),
+               ("B=1 x 4096", [4096], 0, QWEN_GEOM),
+               ("serve_partitioned decode", [23, 17, 9, 0], 12,
+                dict(page=8, kvp=2, gp=2, hd=16)),
+               ("quickstart decode", [15, 0], 4,
+                dict(page=8, kvp=4, gp=1, hd=32)))
 
 
 def paged_attention_phase(timer, pa, dev) -> dict:
     """The paged-decode kernel against its plain version at ``PAGED_CASES``,
     each also as a CUDA graph replay (``device_ms``)."""
     rows = {}
-    for seed, (label, lengths, num_blocks) in enumerate(PAGED_CASES):
-        args = paged_case(dev, lengths, seed, num_blocks)
+    for seed, (label, lengths, num_blocks, geom) in enumerate(PAGED_CASES):
+        args = paged_case(dev, lengths, seed, num_blocks, **geom)
         q, k_pool, v_pool, tbl, lens = args
         b, kvp, gp, hd = q.shape
         page, mb = k_pool.shape[1], tbl.shape[1]
@@ -365,15 +393,17 @@ def paged_attention_phase(timer, pa, dev) -> dict:
 def int8_matmul_phase(timer, im, dev) -> dict:
     """The int8 GEMM against its plain version, bit for bit, at every shape
     of the main paths: each (K, N) of a Qwen3-14B layer at decode (M = 8
-    slots) and at a full admission bucket (M = 8 x 32), and RWKV-6's and
-    Jamba's widths at a window prefill (M = 8 x 128); times it per shape
-    beside ``torch._int_mm`` (at M = 8 on x padded with zero rows to
+    slots) and at a full admission bucket (M = 8 x 32), RWKV-6's and
+    Jamba's widths at a window prefill (M = 8 x 128), and the example
+    twins' smoke widths (``EXAMPLE_GEMMS``); times it per shape beside
+    ``torch._int_mm`` (at M <= 16 on x padded with zero rows to
     ``INT_MM_PAD_M``: ``_int_mm`` refuses M <= 16)."""
     g = torch.Generator(device=dev).manual_seed(1)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     shapes = [(m, k, n) for m in (8, 8 * 32)
               for k, n in sorted(set(QWEN_LAYER_GEMMS))]
     shapes += [(8 * 128, k, n) for k, n in WINDOW_GEMMS]
+    shapes += list(EXAMPLE_GEMMS)
     per_shape = {}
     for m, k, n in shapes:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
@@ -427,19 +457,26 @@ def int8_matmul_phase(timer, im, dev) -> dict:
                       "at M=8, summed"}
 
 
+# (B, S, KVp, gp, hd) of the example twins' attention: quickstart's
+# StableLM-2 smoke width (training and evaluation at 8 x 64, the served
+# prompt at 2 slots x 8) and train_100m's d 640 (8 x 512)
+EXAMPLE_FLASH = ((8, 64, 4, 1, 32), (2, 8, 4, 1, 32), (8, 512, 5, 2, 64))
+
+
 def flash_attention_phase(timer, fa, dev) -> dict:
     """The causal flash kernel against its plain version at the Qwen3-14B
     admission round (B = 8 slots, S = prompt_len = 32, KVp = 8, gp = 5,
     hd = 128), at Jamba's attention prefill (B = 8, S = 128, gp = 4), at a
-    2048-token Qwen3 prefill and at a ragged S; beside each, one
+    2048-token Qwen3 prefill, at a ragged S, and at the example twins'
+    shapes (``EXAMPLE_FLASH``); beside each, one
     ``scaled_dot_product_attention`` call at the same shapes (timed only
     here: the port never calls it)."""
     g = torch.Generator(device=dev).manual_seed(4)
-    kvp, hd = 8, 128
     rows, errs = {}, []
-    for b, s, gp in ((QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 5),
-                     (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 4),
-                     (1, 2048, 5), (2, 301, 5)):
+    for b, s, kvp, gp, hd in (
+            (QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5, 128),
+            (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 8, 4, 128),
+            (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH):
         q = torch.randn((b, s, kvp, gp, hd), generator=g,
                         device=dev).bfloat16()
         k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
@@ -469,7 +506,7 @@ def flash_attention_phase(timer, fa, dev) -> dict:
                                            kvp=kvp, gp=gp, hd=hd, itemsize=2)
         bound = roofline.kernel_bound("flash_attention", b=b, s=s, kvp=kvp,
                                       gp=gp, hd=hd, itemsize=2)
-        rows[(b, s, gp)] = {
+        rows[(b, s, kvp, gp, hd)] = {
             "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
             "device_ms": timer.device_ms(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
@@ -478,17 +515,18 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             "bound_f32_cuda_core_ms": flops / roofline.PEAK_F32 * 1e3,
             "max_abs_err": err}
         emit("kernel_flash_attention", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
-             **rows[(b, s, gp)], library_note=lib_note,
+             **rows[(b, s, kvp, gp, hd)], library_note=lib_note,
              tolerance="2**-6 * |ref| + 2**-10",
              bound_peak="bf16 tensor cores, 989 TFLOP/s")
-    adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 5)]
+    adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5,
+                128)]
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_ATTENTION_SRC, "replaces": FLASH_ATTENTION_TPU,
             "launches": 0, "max_abs_err": max(errs),
             **{k: adm[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms")},
-            "shapes": f"one admission layer of Qwen3-14B: B=8 S=32 KVp={kvp} "
-                      f"gp={gp} hd={hd}; bound on bf16 tensor cores"}
+            "shapes": "one admission layer of Qwen3-14B: B=8 S=32 KVp=8 "
+                      "gp=5 hd=128; bound on bf16 tensor cores"}
 
 
 def wkv_phase(timer, wk, dev) -> dict:
@@ -3496,7 +3534,9 @@ FLASH_BWD_REPLACES = "src/repro/models/attention.py:115"
 # 2048-token prefill, StableLM-2's at S 4096 (B 1 and the training batch of
 # 4, the main path's shape and the row's), a ragged S at hd 64 and gp 1, an
 # hd 128 layout with gp 4 (Jamba's, LLaVA-NeXT's), all on the wgmma route;
-# the tiny configs' hd 16 on the mma.sync route, a ragged S in f32
+# the tiny configs' hd 16 on the mma.sync route, a ragged S in f32; the
+# example twins' training shapes (quickstart's hd 32 on mma.sync,
+# train_100m's hd 64 on wgmma)
 FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (1, 2048, 8, 5, 128, "bfloat16"),
                    (1, 4096, 32, 1, 64, "bfloat16"),
@@ -3504,7 +3544,9 @@ FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (2, 300, 4, 1, 64, "bfloat16"),
                    (2, 256, 2, 4, 128, "bfloat16"),
                    (2, 37, 2, 2, 16, "bfloat16"),
-                   (2, 37, 2, 3, 64, "float32"))
+                   (2, 37, 2, 3, 64, "float32"),
+                   (8, 64, 4, 1, 32, "bfloat16"),
+                   (8, 512, 5, 2, 64, "bfloat16"))
 # per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
 # (bf16: P and dS enter their products as bf16)
 FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
@@ -4518,6 +4560,241 @@ def launch_train_phase(card: str) -> dict:
     return out
 
 
+def fleetlint_phase(build) -> None:
+    """The port's static analyzer over this checkout (pure ``ast``, no
+    device): clean against its baseline, counts by pass.  Then every
+    kernel contract's ``extern "C"`` symbol looked up in the library
+    built for the card (the static pass holds the wrappers' argtypes to
+    the C signatures; this shows the symbols are real exports of the
+    ``sm_90a`` build)."""
+    from repro_torch.analysis import run_lint
+    from repro_torch.analysis.passes.contracts import KERNEL_CONTRACTS
+
+    t0 = time.perf_counter()
+    report = run_lint(root=str(ROOT))
+    lint_s = time.perf_counter() - t0
+    unsuppressed = run_lint(root=str(ROOT), baseline_path=None)
+    by_pass = collections.Counter(f.pass_id for f in unsuppressed.findings)
+    resolved, missing = {}, []
+    for sym, c in sorted(KERNEL_CONTRACTS.items()):
+        lib = c.source.rsplit("/", 1)[-1][:-3]
+        try:
+            getattr(build.load(lib), sym)
+        except AttributeError:
+            missing.append(f"{sym} in {lib}")
+        else:
+            resolved[sym] = lib
+    emit("fleetlint", files_scanned=report.files_scanned,
+         findings=len(report.findings),
+         stale_suppressions=len(report.stale_suppressions),
+         parse_errors=len(report.parse_errors),
+         suppressed=len(report.suppressed),
+         baselined_by_pass=dict(sorted(by_pass.items())),
+         lint_s=lint_s, contracts_resolved=len(resolved),
+         libraries=sorted(set(resolved.values())))
+    if not report.clean:
+        raise AssertionError("fleetlint: " + "; ".join(
+            [f"{f.path}:{f.line}: {f.code} {f.message}"
+             for f in report.findings]
+            + [f"stale {k}" for k in report.stale_suppressions]
+            + [f"{p}: {e}" for p, e in report.parse_errors]))
+    if missing or len(resolved) != 14:
+        raise AssertionError(f"fleetlint: {len(resolved)} contracts "
+                             f"resolved; missing {missing}")
+
+
+def load_twin(name: str):
+    """``examples_torch/<name>.py`` as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+EXAMPLE_QUICKSTART_STEPS = 50        # the example's 200 cut to 50
+EXAMPLE_100M_STEPS = 30              # the fault at step 25, saved at 25
+
+
+def run_twin(fn, *args):
+    """One twin step on the card, its stdout kept and its launches
+    counted from 0: ``(result, stdout lines, launches, wall s)``."""
+    import io
+    zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    torch.cuda.synchronize()
+    return res, out.getvalue().splitlines(), launch_counts(), \
+        time.perf_counter() - t0
+
+
+def to_cpu(tree):
+    from repro_torch.core.tree import tree_map
+    return tree_map(lambda t: t.cpu() if torch.is_tensor(t) else t, tree)
+
+
+def bf16_ulp(x: float) -> float:
+    return 2.0 ** (np.floor(np.log2(abs(float(x)))) - 7)
+
+
+def example_ties(what: str, cfg, cpu_params, plan, prompts, prompt_len: int,
+                 cuda: dict, cpu: dict) -> int:
+    """``near_tie_divergences`` of a twin's greedy streams, card against
+    CPU: the CPU's top two logits over the left-padded prompt and the
+    CPU's tokens before the parting."""
+    from repro_torch.models import transformer as T
+
+    def top2_of(rid, t):
+        ctx = np.zeros(prompt_len, np.int32)
+        ctx[-len(prompts[rid]):] = prompts[rid]
+        ctx = np.concatenate([ctx, np.asarray(cpu[rid][:t], np.int32)])
+        logits = T.forward(cpu_params, cfg, torch.as_tensor(ctx[None]),
+                           plan).logits[0, -1].float()
+        return torch.topk(logits, 2).values
+    return near_tie_divergences(f"examples {what}",
+                                {"cuda": cuda, "cpu": cpu},
+                                [(rid, None, None) for rid in cuda], top2_of)
+
+
+def examples_phase(dev, card: str, fa) -> dict:
+    """The five twins of ``examples_torch/`` on the card, in-process, at
+    the examples' widths; each checked as the reference example asserts
+    (the cost-model twins assert inside ``main``); ``serve_partitioned``'s
+    streams and ``quickstart``'s eval losses and stream held against the
+    same weights on the CPU (plain versions), ``train_100m``'s faulted run
+    bit-equal to an uninterrupted one.  Returns ``{twin run:
+    launches by row name}``, each run counted from 0."""
+    import shutil
+    import tempfile
+    from repro_torch.core.tree import tree_leaves
+
+    out, wrong = {}, []
+
+    def need(run: str, n: dict, rows) -> None:
+        idle = [k for k in rows if not n[k]]
+        if idle:
+            wrong.append(f"{run}: no launch of {idle}")
+
+    for name in ("route_failover", "orbit_eclipse"):
+        res, lines, n, wall = run_twin(load_twin(name).main, [])
+        snap = res if name == "route_failover" else res["telemetry"]
+        emit("example", card=card, twin=name, wall_s=wall,
+             admitted=snap["admitted"], completed=snap["completed"],
+             dropped=snap["dropped"], stdout=lines[-6:])
+        out[f"examples/{name}"] = n
+
+    twin = load_twin("serve_partitioned")
+    res, lines, n, wall = run_twin(twin.main, [])
+    shards = res["imports_by_shard"]
+    if sorted(res["tokens"]) != list(range(10)) or any(
+            len(t) != 8 for t in res["tokens"].values()) or \
+            sum(shards.values()) != 10 or min(shards.values()) < 1:
+        wrong.append(f"serve_partitioned: {res}")
+    # the split's prefill is chunked through the pool: no flash
+    need("serve_partitioned", n, ("paged_attention", "int8_matmul"))
+    # the same weights through the same fleet on the CPU (plain versions)
+    cfg, cpu_params = res["cfg"], to_cpu(res["params"])
+    with contextlib.redirect_stdout(None):
+        client = twin.build_fleet(cfg, cpu_params, "cpu")
+        cpu = twin.serve(client, cfg)
+    ties = example_ties("serve_partitioned", cfg, cpu_params,
+                        client.engines["board"].decode.plan,
+                        twin.prompts(cfg), 16, res["tokens"], cpu["tokens"])
+    if cpu["imports_by_shard"] != shards:
+        wrong.append(f"serve_partitioned: imports by shard {shards} on the "
+                     f"card, {cpu['imports_by_shard']} on the CPU")
+    emit("example", card=card, twin="serve_partitioned", wall_s=wall,
+         config="qwen3-smoke", layers=4, plan="mpai", plan_split=3,
+         decode_shards=2, tokens=res["tokens"], imports_by_shard=shards,
+         prefill_tokens=res["prefill_tokens"], stdout=lines[-2:],
+         streams_equal_to_cpu=res["tokens"] == cpu["tokens"],
+         near_tie_divergences=ties)
+    out["examples/serve_partitioned"] = n
+    del res, cpu_params, client
+
+    twin = load_twin("quickstart")
+    res, lines, n, wall = run_twin(
+        twin.main, ["--steps", str(EXAMPLE_QUICKSTART_STEPS)])
+    finite = all(np.isfinite(h["loss"]) for h in res["history"]) and all(
+        np.isfinite(v) for v in res["losses"].values())
+    if not finite or len(res["stream"]) != 8:
+        wrong.append(f"quickstart: {res['losses']} {res['stream']}")
+    cfg = res["cfg"]
+    row = FLASH_BWD_ROWS[fa.bwd_route(torch.bfloat16,
+                                      cfg.resolved_head_dim())][0]
+    need("quickstart", n, ("flash_attention", row, "paged_attention",
+                           "int8_matmul"))
+    # the trained weights evaluated and served on the CPU (plain versions):
+    # each loss within 2 bf16 ulps, the stream equal but at a near-tie
+    cpu_params = to_cpu(res["params"])
+    with contextlib.redirect_stdout(None):
+        cpu_losses = twin.evaluate(cfg, cpu_params, res["plan"],
+                                   device="cpu")
+        cpu_stream = twin.serve(cfg, cpu_params, "stablelm-1.6b",
+                                device="cpu")
+    loss_err = {k: abs(v - cpu_losses[k]) for k, v in res["losses"].items()}
+    far = {k: e for k, e in loss_err.items()
+           if not e <= 2 * bf16_ulp(cpu_losses[k])}
+    if far:
+        wrong.append(f"quickstart: eval losses {res['losses']} on the card, "
+                     f"{cpu_losses} on the CPU")
+    prompt = twin.lm_batch(cfg, twin.SHAPE, 42,
+                           device="cpu")["tokens"][0, :8].numpy()
+    ties = example_ties("quickstart", cfg, cpu_params, None, [prompt], 8,
+                        {0: res["stream"]}, {0: cpu_stream})
+    emit("example", card=card, twin="quickstart", wall_s=wall,
+         steps=EXAMPLE_QUICKSTART_STEPS, assignments=res["assignments"],
+         loss_first=res["history"][0]["loss"],
+         loss_last=res["history"][-1]["loss"], eval_losses=res["losses"],
+         cpu_eval_losses=cpu_losses, eval_loss_abs_err=loss_err,
+         tolerance="2 bf16 ulps of the CPU's loss", stream=res["stream"],
+         stream_equal_to_cpu=res["stream"] == cpu_stream,
+         near_tie_divergences=ties, reduced=["steps 200 -> 50"])
+    out["examples/quickstart"] = n
+    del res, cpu_params
+
+    twin = load_twin("train_100m")
+    with contextlib.redirect_stdout(None):
+        cfg = twin.model_config(640, 12, 50304)
+    (ROOT / "build").mkdir(exist_ok=True)
+    runs = {}
+    for fault in (True, False):
+        d = tempfile.mkdtemp(prefix="example_100m_", dir=ROOT / "build")
+        try:
+            runs[fault] = run_twin(twin.train, cfg, 512, 8,
+                                   EXAMPLE_100M_STEPS, d, fault, dev)
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+    (a, hist_a, restarts_a), _, n_a, wall_a = runs[True]
+    (b, hist_b, restarts_b), _, n_b, wall_b = runs[False]
+    equal = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((a.params, a.opt)), tree_leaves((b.params, b.opt))))
+    if (restarts_a, restarts_b) != (1, 0) or not equal or \
+            hist_a != hist_b or int(a.step) != EXAMPLE_100M_STEPS:
+        wrong.append(f"train_100m: restarts {restarts_a}/{restarts_b}, "
+                     f"bit-equal {equal}, step {int(a.step)}")
+    row = FLASH_BWD_ROWS[fa.bwd_route(torch.bfloat16,
+                                      cfg.resolved_head_dim())][0]
+    need("train_100m", n_a, ("flash_attention", row))
+    emit("example", card=card, twin="train_100m", config=cfg.name,
+         params=cfg.param_count(), d_model=cfg.d_model,
+         layers=cfg.num_layers, vocab=cfg.vocab_size, seq_len=512, batch=8, steps=EXAMPLE_100M_STEPS, fault_at=25,
+         restarts=restarts_a, bit_equal_to_uninterrupted=equal,
+         loss=[h["loss"] for h in hist_a[::5]] + [hist_a[-1]["loss"]],
+         wall_s_faulted=wall_a, wall_s_uninterrupted=wall_b)
+    out["examples/train_100m"] = n_a
+    out["examples/train_100m/uninterrupted"] = n_b
+    del a, b, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if wrong:
+        raise AssertionError(f"examples: {wrong}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4627,6 +4904,11 @@ def main() -> int:
     launches["int8_matmul"].update(
         ursonet_full_width_phase(dev, card, timer, im))
     del timer
+    fleetlint_phase(build)
+    for run, by_kernel in examples_phase(dev, card, fa).items():
+        for name, n in by_kernel.items():
+            if n and name in launches:
+                launches[name][run] = n
     for row in rows:
         # each (config, plan) run is a main path, counted from 0 on its
         # own; "launches" is their sum, "launches_by_plan" keeps them apart

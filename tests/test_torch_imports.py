@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: every ``repro_torch`` module imports with
-JAX and ml_dtypes blocked, and no module (nor ``chip_smoke.py`` or the
-port's scripts) imports JAX, ml_dtypes or the reference package ``repro``.  Its entry points run on
+"""The PyTorch port stands alone: every ``repro_torch`` module (and every
+twin of an example) imports with JAX and ml_dtypes blocked, and no module
+(nor ``chip_smoke.py``, the port's scripts, its example twins or its lint
+launcher) imports JAX, ml_dtypes or the reference package ``repro``.  Its entry points run on
 the card unless the caller asks for the CPU."""
 import ast
 import inspect
@@ -13,8 +14,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "scripts").glob("*.py")))
+              + sorted((ROOT / "scripts").glob("*.py")) + TWINS
+              + [ROOT / "tools" / "fleetlint_torch.py"])
 
 
 def _module_name(path: Path) -> str:
@@ -41,6 +44,23 @@ def test_every_port_module_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(names) >= 20
+
+
+def test_every_example_twin_imports_with_jax_blocked():
+    code = (
+        "import sys, importlib.util\n"
+        "sys.modules['jax'] = sys.modules['ml_dtypes'] = None\n"
+        f"for path in {[str(p) for p in TWINS]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('twin', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m, mod in sys.modules.items() if mod is not None "
+        "and (m == 'repro' or m.startswith(('repro.', 'jax'))))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(TWINS) == 5
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
