@@ -100,7 +100,14 @@ through the mesh ``Trainer`` (``fsdp=True``) in a one-rank NCCL group,
 its history and parameters bit-equal to the one-device run's, and
 ``train_sharded_2rank`` trains it 2 layers deep on two gloo ranks sharing
 the card, on the (2, 1) and (1, 2) meshes, held to the one-rank run and
-restoring a (2, 1) checkpoint on (1, 1) and (1, 2); ``launch_train``
+restoring a (2, 1) checkpoint on (1, 1) and (1, 2); then the same two
+ranks train OLMoE-1B-7B at full width, 1 layer deep (64 experts, top 8),
+2 ``"mpai"`` steps (and 2 bf16 ones) of a 2 x 512 global batch on (2,
+1), each rank routing its row inside the global batch
+(``olmoe_sharded_2rank``: loss, aux loss, grad norm, gradients, dispatch
+paths and dropped slots held to the one-rank run from its state; each
+later step also run freely, beside where the parameters parted);
+``launch_train``
 runs ``python -m repro_torch.launch.train --steps 2 --smoke`` at
 ``musicgen-medium``,
 ``jamba-v0.1-52b`` (the scan, flash and their backwards, the MoE
@@ -461,6 +468,10 @@ def int8_matmul_phase(timer, im, dev) -> dict:
 # StableLM-2 smoke width (training and evaluation at 8 x 64, the served
 # prompt at 2 slots x 8) and train_100m's d 640 (8 x 512)
 EXAMPLE_FLASH = ((8, 64, 4, 1, 32), (2, 8, 4, 1, 32), (8, 512, 5, 2, 64))
+# (B, S, KVp, gp, hd) of OLMoE-1B-7B's attention on each of the two ranks
+# of ``olmoe_sharded_2rank`` (one row of the 2 x 512 global batch, 16 heads
+# of 128)
+OLMOE_FLASH = (1, 512, 16, 1, 128)
 
 
 def flash_attention_phase(timer, fa, dev) -> dict:
@@ -476,7 +487,8 @@ def flash_attention_phase(timer, fa, dev) -> dict:
     for b, s, kvp, gp, hd in (
             (QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5, 128),
             (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 8, 4, 128),
-            (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH):
+            (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH,
+            OLMOE_FLASH):
         q = torch.randn((b, s, kvp, gp, hd), generator=g,
                         device=dev).bfloat16()
         k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
@@ -3536,7 +3548,8 @@ FLASH_BWD_REPLACES = "src/repro/models/attention.py:115"
 # hd 128 layout with gp 4 (Jamba's, LLaVA-NeXT's), all on the wgmma route;
 # the tiny configs' hd 16 on the mma.sync route, a ragged S in f32; the
 # example twins' training shapes (quickstart's hd 32 on mma.sync,
-# train_100m's hd 64 on wgmma)
+# train_100m's hd 64 on wgmma), OLMoE-1B-7B's on a rank of the two-rank run
+# (hd 128 on wgmma)
 FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (1, 2048, 8, 5, 128, "bfloat16"),
                    (1, 4096, 32, 1, 64, "bfloat16"),
@@ -3546,7 +3559,8 @@ FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (2, 37, 2, 2, 16, "bfloat16"),
                    (2, 37, 2, 3, 64, "float32"),
                    (8, 64, 4, 1, 32, "bfloat16"),
-                   (8, 512, 5, 2, 64, "bfloat16"))
+                   (8, 512, 5, 2, 64, "bfloat16"),
+                   (*OLMOE_FLASH, "bfloat16"))
 # per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
 # (bf16: P and dS enter their products as bf16)
 FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
@@ -4069,6 +4083,274 @@ def timed_collectives(spent: list):
             setattr(dist, name, fn)
 
 
+OLMOE_LAYERS = 1                 # the two-rank MoE run's depth
+OLMOE_SHAPE = (512, 2)           # seq, global batch: t * k is 8192, the
+#                                  per-row path; a rank's 4096 alone would
+#                                  take the flat one
+OLMOE_STEPS = 2
+# "mpai" is the slice's run; bf16 runs the same steps without the
+# fake-quantized layer, so that the free steps (``olmoe_rank``) of the two
+# tell how far int8 rounding carries a parting of the parameters
+OLMOE_PLANS = ("mpai", "bf16")
+# a held two-rank step starts from the one-rank run's state, so its loss
+# and aux loss part only by rounding: the ranks' GEMMs see other row
+# counts (the loss 8.5e-8 apart on an H100; per-rank activation scales
+# moved ``tiny_dense``'s two-rank loss by 1.75e-4 on the CPU)
+OLMOE_LOSS_REL = 1e-5
+OLMOE_AUX_REL = 1e-6
+# a token's experts may differ between the two-rank and the one-rank run
+# only where its router's k-th and (k+1)-th probabilities lie within this
+# of each other: the ranks' GEMMs see other row counts, so bf16 rounding
+# parts the hidden states by an ulp, which moves a probability by ~1e-6
+ROUTE_NEAR_TIE = 1e-4
+
+
+@contextlib.contextmanager
+def routed(calls: list):
+    """While inside, each ``moe.moe_apply`` call appends its routing to
+    ``calls``, on the host: whether it dispatched through a buffer per
+    batch row, each row's dropped slots (its ``S * k`` less the slots its
+    buffer row holds; none on the flat, dropless path), its aux loss, and
+    each token's top-k experts (sorted) and router margin (the k-th less
+    the (k+1)-th probability)."""
+    from repro_torch.models import moe
+    seen = {}
+
+    def ffn(params, buf, *args):
+        seen["per_row"] = buf.ndim == 4
+        if buf.ndim == 4:
+            seen["filled"] = buf.detach().ne(0).any(-1).sum(dim=(1, 2))
+        return real_ffn(params, buf, *args)
+
+    def apply(params, mc, x, *args, **kw):
+        out, aux = real_apply(params, mc, x, *args, **kw)
+        b, s, d = x.shape
+        k = mc.top_k
+        probs = torch.softmax(x.detach().reshape(-1, d).float()
+                              @ params["router"].detach().float(), dim=-1)
+        top = torch.topk(probs, k + 1, dim=-1)
+        calls.append({
+            "per_row": seen["per_row"],
+            "dropped": ((s * k - seen["filled"]).tolist() if seen["per_row"]
+                        else [0] * b),
+            "aux": float(aux.detach()),
+            "ids": top.indices[:, :k].sort(-1).values.reshape(b, s, k).cpu(),
+            "margin": (top.values[:, k - 1]
+                       - top.values[:, k]).reshape(b, s).cpu()})
+        return out, aux
+    with patched(moe, "_expert_ffn", ffn) as real_ffn, \
+            patched(moe, "moe_apply", apply) as real_apply:
+        yield
+
+
+def route_differences(rank: int, one: list, mesh: list) -> tuple:
+    """Each MoE call of the two-rank run against the same call of the
+    one-rank run, for this rank's rows of the global batch: ``(wrong,
+    near_ties)``.  A row whose dropped slots differ is excused only where
+    every token whose experts differ has a router margin under
+    ``ROUTE_NEAR_TIE`` in the one-rank run."""
+    wrong, ties = [], []
+    if len(one) != len(mesh):
+        return [f"{len(mesh)} MoE calls against {len(one)}"], ties
+    for i, (a, m) in enumerate(zip(one, mesh)):
+        if a["per_row"] != m["per_row"]:
+            wrong.append(f"call {i}: per-row dispatch {m['per_row']} against "
+                         f"{a['per_row']}")
+            continue
+        part = len(m["dropped"])
+        for j in range(part):
+            g = rank * part + j           # the row in the global batch
+            if m["dropped"][j] == a["dropped"][g]:
+                continue
+            moved = (m["ids"][j] != a["ids"][g]).any(-1)
+            margin = float(a["margin"][g][moved].max()) if moved.any() \
+                else None
+            at = {"call": i, "row": g, "dropped": m["dropped"][j],
+                  "one_rank_dropped": a["dropped"][g],
+                  "tokens_moved": int(moved.sum()), "max_margin": margin}
+            if margin is not None and margin < ROUTE_NEAR_TIE:
+                ties.append(at)
+            else:
+                wrong.append(f"routes part without a near-tie: {at}")
+    return wrong, ties
+
+
+def leaf_names(tree, at: str = "") -> list:
+    """Each leaf's path in ``tree``, in ``tree_leaves`` order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k],
+                                                            f"{at}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{at}/{i}")]
+    return [at.lstrip("/")]
+
+
+def route_parting(rank: int, one: dict, mesh: dict) -> dict:
+    """One MoE call of the two-rank run against the one-rank run's, over
+    this rank's rows: the tokens whose top-k experts differ, the largest
+    one-rank router margin among them, and the rows whose dropped slots
+    differ."""
+    part = len(mesh["dropped"])
+    rows = slice(rank * part, (rank + 1) * part)
+    moved = (mesh["ids"] != one["ids"][rows]).any(-1)
+    return {"tokens_moved": int(moved.sum()), "of": moved.numel(),
+            "max_margin": (float(one["margin"][rows][moved].max())
+                           if moved.any() else None),
+            "rows_dropped_differ": sum(
+                a != b for a, b in zip(mesh["dropped"],
+                                       one["dropped"][rows]))}
+
+
+def parting_after_step(tr, st, start, names, lr: float) -> dict:
+    """Where the two-rank run's parameters part from the one-rank run's
+    after an Adam step, by leaf: the entries of the rank's slice that moved
+    more than ``lr`` apart (a first Adam step moves a weight by about
+    ``+-lr`` whatever its gradient's size, so an update whose sign flipped
+    parts by ~2 lr, rounding by ~1e-9), and for each layer's weight that
+    ``"mpai"`` fake-quantizes (every leaf of two or more dims a layer but
+    the router) the int8 codes of its per-output-channel quantization that
+    differ (the whole leaf, gathered; under bf16 the codes it would
+    have)."""
+    from repro_torch.core.quantization import quantize
+    from repro_torch.core.tree import tree_leaves
+    flipped, codes = {}, {}
+    for n, a, b in zip(names, tree_leaves(st.params), tree_leaves(
+            tr.param_shardings.shard(start.params))):
+        moved = int(((a.float() - b.float()).abs() > lr).sum())
+        if moved:
+            flipped[n] = [moved, a.numel()]
+    whole = tree_leaves(tr.param_shardings.unshard(st.params))
+    for n, a, b in zip(names, whole, tree_leaves(start.params)):
+        if n.startswith("layers/") and a.ndim >= 3 and \
+                not n.endswith("/router"):
+            differ = sum(int((quantize(x, channel_axis=-1).values
+                              != quantize(y, channel_axis=-1).values).sum())
+                         for x, y in zip(a, b))
+            codes[n] = [differ, a.numel()]
+    del whole
+    return {"flipped": flipped, "codes": codes}
+
+
+def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
+    """One rank of ``olmoe_sharded_2rank``: OLMoE-1B-7B at full width,
+    ``OLMOE_LAYERS`` deep, ``OLMOE_STEPS`` steps of ``plan_name`` (one of
+    ``OLMOE_PLANS``) of the global batch on (1, 1), then on (2, 1) (the
+    same weights, from ``tc.seed``),
+    each step's gradient as AdamW gets it and its MoE routing recorded.
+    On (2, 1), before each later step: where the parameters part from the
+    one-rank run's (``parting_after_step``), that step run freely from the
+    two-rank state (``free``), then again from the one-rank run's state
+    (the held step).  Returns what the parent checks."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs.olmoe_1b_7b import FULL
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.optim.adamw import cosine_lr
+    from repro_torch.runtime.train_loop import Trainer
+
+    cfg = FULL.with_(num_layers=OLMOE_LAYERS)
+    shape = ShapeConfig("olmoe_2x512", *OLMOE_SHAPE, "train")
+    tc = TrainConfig(total_steps=OLMOE_STEPS)
+    plan = (qat.train_plan(PartitionPlan.mpai(OLMOE_LAYERS))
+            if plan_name == "mpai" else None)
+    runs, ref, starts, one_calls = {}, [], [], []
+
+    def record():
+        return {"loss": [], "grad_norm": [], "aux": [], "step_ms": [],
+                "collective_ms": [], "grad_rel_err": [], "calls": []}
+
+    def step(tr, st, s, rec):
+        spent, seen, calls = [], [], []
+        batch = lm_batch(cfg, shape, s, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with timed_collectives(spent), kept_grads(seen), routed(calls):
+            st, m = tr.step_fn(st, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["collective_ms"].append(sum(spent))
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        rec["aux"].append([c["aux"] for c in calls])
+        rec["calls"].append(calls)
+        if tr.state_shardings is None:
+            ref.append(seen[0])           # the whole gradient, on the card
+        else:
+            rec["grad_rel_err"].append(max(
+                float(torch.linalg.vector_norm(g.float() - w[
+                    tr.param_shardings.slices(sp, w.shape)].float())
+                    / torch.linalg.vector_norm(w.float()))
+                for g, w, sp in zip(seen[0], ref[s],
+                                    tree_leaves(tr.param_specs))))
+        return st
+
+    for ms in ((1, 1), (2, 1)):
+        tr = Trainer(cfg, shape, MeshConfig(ms, ("data", "model")), tc,
+                     plan=plan, device=dev)
+        st = tr.init_state()
+        run = runs["x".join(map(str, ms))] = record()
+        if ms == (2, 1):
+            names = leaf_names(st.params)
+            run.update(max_abs_diff=[], mean_abs_diff=[], parting=[])
+            free = run["free"] = dict(record(), routes=[])
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()             # this rank's main path starts here
+        for s in range(OLMOE_STEPS):
+            if ms == (2, 1) and s:
+                # the parameters after step s against the one-rank run's
+                # (``parting_after_step`` says where an update's sign
+                # flipped and which int8 codes moved), step s + 1 run
+                # freely, then again from the one-rank run's state, so
+                # that each held step starts where the one-rank one did
+                diffs = [(a.float() - b.float()).abs() for a, b in zip(
+                    tree_leaves(st.params),
+                    tree_leaves(tr.param_shardings.shard(starts[s - 1]
+                                                         .params)))]
+                run["max_abs_diff"].append(max(float(x.max())
+                                               for x in diffs))
+                run["mean_abs_diff"].append(
+                    sum(float(x.sum()) for x in diffs)
+                    / sum(x.numel() for x in diffs))
+                del diffs
+                run["parting"].append(parting_after_step(
+                    tr, st, starts[s - 1], names,
+                    float(cosine_lr(tc, torch.tensor(s)))))
+                st = step(tr, st, s, free)
+                free["routes"].append([
+                    route_parting(rank, a, m)
+                    for a, m in zip(one_calls[s], free["calls"][-1])])
+                for dst, src in zip(tree_leaves(st), tree_leaves(
+                        tr.state_shardings.shard(starts[s - 1]))):
+                    dst.copy_(src)
+            st = step(tr, st, s, run)
+            if ms == (1, 1) and s + 1 < OLMOE_STEPS:
+                starts.append(tree_map(torch.clone, st))
+        if ms == (1, 1):
+            one_calls = run["calls"]
+        else:
+            run["launches"] = train_launches(fa)
+            run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del st, tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref, starts
+    flat = lambda calls: [c for step_calls in calls for c in step_calls]
+    mesh, free = runs["2x1"], runs["2x1"]["free"]
+    wrong, ties = route_differences(rank, flat(runs["1x1"].pop("calls")),
+                                    flat(mesh["calls"]))
+    calls = flat(mesh.pop("calls"))
+    mesh["per_row"] = [c["per_row"] for c in calls]
+    mesh["dropped"] = [c["dropped"] for c in calls]
+    free["per_row"] = [c["per_row"] for c in flat(free.pop("calls"))]
+    return {"runs": runs, "route_wrong": wrong, "near_ties": ties}
+
+
 def train_rank(rank: int, world: int, d: str) -> None:
     """One rank of ``train_sharded_2rank`` (run as ``python3 chip_smoke.py
     train-rank RANK WORLD DIR``): joins the gloo group through a
@@ -4237,6 +4519,8 @@ def train_rank(rank: int, world: int, d: str) -> None:
             torch.cuda.empty_cache()
             mark(f"restore {ms}")
         res["restores"] = restores
+        res["olmoe"] = {p: olmoe_rank(rank, dev, p) for p in OLMOE_PLANS}
+        mark("olmoe")
         dist.barrier()
         mark("end")
         res["stage_s"] = marks
@@ -4289,9 +4573,12 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
     (1, 2) gradient slices and parameters bit-equal; on both the loss
     within 2**-7 and the grad norm within 5e-2 relative.  The flash
     kernels launch on each rank; the (2, 1) checkpoint restores on (1, 1)
-    and (1, 2) bit-equal and a step runs.  Gloo stages CUDA tensors
-    through host memory, so the collective ms printed are a correctness
-    run's, not a speed.  Returns ``{mesh: launches}`` of rank 0."""
+    and (1, 2) bit-equal and a step runs.  Then the same ranks train
+    OLMoE-1B-7B under each of ``OLMOE_PLANS`` (``olmoe_rank``,
+    ``olmoe_sharded_check``).  Gloo stages
+    CUDA tensors through host memory, so the collective ms printed are a
+    correctness run's, not a speed.  Returns ``{run: launches}`` of rank
+    0."""
     t0 = time.perf_counter()
     (d / "go").touch()
     for p in procs:
@@ -4384,7 +4671,125 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
          restores={f"rank{r['rank']}": r["restores"] for r in ranks},
          stage_s={f"rank{r['rank']}": r["stage_s"] for r in ranks},
          wall_s=wall)
-    return {name: got["launches"] for name, got in ranks[0]["meshes"].items()}
+    out = {f"stablelm-1.6b/train_sharded_2rank/{name}": got["launches"]
+           for name, got in ranks[0]["meshes"].items()}
+    for p in OLMOE_PLANS:
+        out["olmoe-1b-7b/train_sharded_2rank/2x1"
+            + ("" if p == "mpai" else f"/{p}")] = olmoe_sharded_check(
+                card, [r["olmoe"][p] for r in ranks], p)
+    return out
+
+
+def olmoe_sharded_check(card: str, ranks: list, plan_name: str) -> dict:
+    """``olmoe_sharded_2rank`` under ``plan_name``: each rank's two-rank
+    run against its one-rank run (``olmoe_rank``).  Each held step (from the one-rank run's
+    state): the loss within ``OLMOE_LOSS_REL`` and each MoE call's aux loss
+    within ``OLMOE_AUX_REL`` relative, the grad norm within 5e-2 relative,
+    each gradient slice within ``SHARDED_GRAD_REL``, every MoE call through
+    the per-row path in both runs, each row's dropped slots equal but at a
+    near-tie (``route_differences``), the ranks' histories equal and the
+    flash kernels launched; after each step but the last, the parameters'
+    max |diff| within ``sharded_tolerance`` and their mean within
+    ``SHARDED_MEAN_DIFF``.  Each free step (from the two-rank state): the
+    per-row path, the loss within 2**-7 and the grad norm within 5e-2
+    relative; its routes and gradient are reported beside where the
+    parameters parted.  Returns rank 0's launches."""
+    from repro_torch.configs.base import TrainConfig
+    tc = TrainConfig(total_steps=OLMOE_STEPS)
+    wrong = []
+
+    def near(got, want, rel):
+        return abs(got - want) <= rel * abs(want)
+    for r, res in enumerate(ranks):
+        one, mesh = res["runs"]["1x1"], res["runs"]["2x1"]
+        free = mesh["free"]
+        wrong += [f"rank {r}: {w}" for w in res["route_wrong"]]
+        for s in range(OLMOE_STEPS):
+            at = f"rank {r} step {s + 1}"
+            if not near(mesh["loss"][s], one["loss"][s], OLMOE_LOSS_REL):
+                wrong.append(f"{at}: loss {mesh['loss'][s]} against "
+                             f"{one['loss'][s]}")
+            if len(mesh["aux"][s]) != len(one["aux"][s]) or not all(
+                    near(a, b, OLMOE_AUX_REL)
+                    for a, b in zip(mesh["aux"][s], one["aux"][s])):
+                wrong.append(f"{at}: aux {mesh['aux'][s]} against "
+                             f"{one['aux'][s]}")
+            if not near(mesh["grad_norm"][s], one["grad_norm"][s], 5e-2):
+                wrong.append(f"{at}: grad norm {mesh['grad_norm'][s]} "
+                             f"against {one['grad_norm'][s]}")
+            if not mesh["grad_rel_err"][s] <= SHARDED_GRAD_REL:
+                wrong.append(f"{at}: gradient {mesh['grad_rel_err'][s]} > "
+                             f"{SHARDED_GRAD_REL}")
+        for i, s in enumerate(range(1, OLMOE_STEPS)):
+            at = f"rank {r} free step {s + 1}"
+            if not near(free["loss"][i], one["loss"][s], 2 ** -7):
+                wrong.append(f"{at}: loss {free['loss'][i]} against "
+                             f"{one['loss'][s]}")
+            if not near(free["grad_norm"][i], one["grad_norm"][s], 5e-2):
+                wrong.append(f"{at}: grad norm {free['grad_norm'][i]} "
+                             f"against {one['grad_norm'][s]}")
+        if not free["per_row"] or not all(free["per_row"]):
+            wrong.append(f"rank {r}: free dispatch per row "
+                         f"{free['per_row']}")
+        for s, (hi, mean) in enumerate(zip(mesh["max_abs_diff"],
+                                           mesh["mean_abs_diff"])):
+            bound = sharded_tolerance(tc, s + 1)
+            if not (hi <= bound and mean <= SHARDED_MEAN_DIFF):
+                wrong.append(f"rank {r} after step {s + 1}: params max "
+                             f"|diff| {hi} (bound {bound}), mean {mean} "
+                             f"(bound {SHARDED_MEAN_DIFF})")
+        if not mesh["per_row"] or not all(mesh["per_row"]):
+            wrong.append(f"rank {r}: dispatch per row {mesh['per_row']}")
+        n = mesh["launches"]
+        if not n["flash_attention"] or not n["flash_attention_bwd"]:
+            wrong.append(f"rank {r}: launches {n}")
+        if mesh["loss"] != ranks[0]["runs"]["2x1"]["loss"]:
+            wrong.append("the ranks' losses differ")
+    if wrong:
+        raise AssertionError(f"olmoe_sharded_2rank: {wrong}")
+    one, mesh = ranks[0]["runs"]["1x1"], ranks[0]["runs"]["2x1"]
+    free = [r["runs"]["2x1"]["free"] for r in ranks]
+    emit("olmoe_sharded_2rank", card=card, config="olmoe-1b-7b",
+         plan=plan_name,
+         mesh=[2, 1], backend="gloo", world=2, layers=OLMOE_LAYERS,
+         shape={"seq_len": OLMOE_SHAPE[0], "batch": OLMOE_SHAPE[1]},
+         reduced=[f"layers 16 -> {OLMOE_LAYERS}",
+                  f"train_4k's 256 x 4096 -> {OLMOE_SHAPE[1]} x "
+                  f"{OLMOE_SHAPE[0]} (t * k 8192: the per-row path, which "
+                  f"a rank's 4096 alone would not take)"],
+         held="each later two-rank step starts from the one-rank run's "
+              "state; it is also run freely from the two-rank state "
+              "(free_*)",
+         loss=mesh["loss"], one_rank_loss=one["loss"],
+         loss_rel_bound=OLMOE_LOSS_REL,
+         grad_norm=mesh["grad_norm"], one_rank_grad_norm=one["grad_norm"],
+         aux=mesh["aux"], one_rank_aux=one["aux"],
+         aux_rel_bound=OLMOE_AUX_REL,
+         grad_rel_err=[r["runs"]["2x1"]["grad_rel_err"] for r in ranks],
+         grad_rel_bound=SHARDED_GRAD_REL,
+         max_abs_param_diff=[r["runs"]["2x1"]["max_abs_diff"] for r in ranks],
+         mean_abs_param_diff=[r["runs"]["2x1"]["mean_abs_diff"]
+                              for r in ranks],
+         mean_abs_param_bound=SHARDED_MEAN_DIFF,
+         parting_after_step=[r["runs"]["2x1"]["parting"] for r in ranks],
+         free_loss=free[0]["loss"], free_grad_norm=free[0]["grad_norm"],
+         free_aux=free[0]["aux"],
+         free_grad_rel_err=[f["grad_rel_err"] for f in free],
+         free_routes=[f["routes"] for f in free],
+         dropped_slots_by_call=[r["runs"]["2x1"]["dropped"] for r in ranks],
+         near_ties=[r["near_ties"] for r in ranks],
+         near_tie_bound=ROUTE_NEAR_TIE,
+         step_ms_each=[r["runs"]["2x1"]["step_ms"] for r in ranks],
+         free_step_ms_each=[f["step_ms"] for f in free],
+         one_rank_step_ms=one["step_ms"],
+         collective_ms_each=[r["runs"]["2x1"]["collective_ms"]
+                             for r in ranks],
+         peak_gb=[r["runs"]["2x1"]["peak_gb"] for r in ranks],
+         launches=[r["runs"]["2x1"]["launches"] for r in ranks],
+         note="gloo stages CUDA tensors through host memory: a "
+              "correctness run, not a speed; the routing record syncs "
+              "the host at each MoE call")
+    return mesh["launches"]
 
 
 RWKV_TRAIN_STEPS = 3
@@ -4880,10 +5285,10 @@ def main() -> int:
                                                    one_device).items():
             for name, n in by_kernel.items():
                 launches[name][f"stablelm-1.6b/train_sharded/{plan}"] = n
-        for mesh, by_kernel in train_sharded_2rank_phase(card,
-                                                         *ranks).items():
+        for run, by_kernel in train_sharded_2rank_phase(card,
+                                                        *ranks).items():
             for name, n in by_kernel.items():
-                launches[name][f"stablelm-1.6b/train_sharded_2rank/{mesh}"] = n
+                launches[name][run] = n
     finally:
         stop_train_ranks(*ranks)
     measured["rwkv6-3b"] = {}

@@ -14,6 +14,12 @@ codes and the int32 accumulators must come out equal: the scale is
 division and round-half-to-even, and the epilogue is
 ``(acc.f32 * x_scale) * w_scale`` before the cast to bf16.  The scale is
 computed as XLA runs the reference (see ``_absmax_scale``).
+
+An activation's per-tensor scale (``activation=True``: ``pdot``'s input,
+the int8 GEMM's input, MoE's dispatch buffer) is the reference's absmax
+over the global batch: inside a mesh step's batch group
+(``core/collectives.py``) the rank's absmax is all-reduced with ``MAX``.
+Weights are whole on every rank and keep their own.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.tree import tree_map
 from repro_torch.kernels import ops as kops
@@ -40,8 +47,11 @@ class QTensor(NamedTuple):
         return (self.values.float() * self.scale).to(dtype)
 
 
-def _absmax_scale(x: torch.Tensor, axis) -> torch.Tensor:
+def _absmax_scale(x: torch.Tensor, axis,
+                  activation: bool = False) -> torch.Tensor:
     amax = torch.amax(x.float().abs(), dim=axis, keepdim=True)
+    if activation:
+        amax = collectives.batch_max(amax)
     # the reference writes ``/ 127``; XLA folds a division by a constant
     # into a multiply by its f32 reciprocal, and the scales (and so the
     # codes) only match that way
@@ -49,12 +59,13 @@ def _absmax_scale(x: torch.Tensor, axis) -> torch.Tensor:
 
 
 def quantize(x: torch.Tensor, channel_axis: Optional[int] = None,
-             batch_axes: tuple = ()) -> QTensor:
+             batch_axes: tuple = (), activation: bool = False) -> QTensor:
     """Symmetric absmax quantization to int8.
 
     ``channel_axis``: axis that keeps its own scale (None -> per-tensor).
     ``batch_axes``: additional axes that keep independent scales (e.g. the
-    stacked-layer dim of stacked weights).
+    stacked-layer dim of stacked weights).  ``activation``: ``x``'s rows
+    are the rank's part of the batch group's (module docstring).
     """
     if channel_axis is None:
         axis = tuple(i for i in range(x.ndim) if i not in
@@ -64,12 +75,13 @@ def quantize(x: torch.Tensor, channel_axis: Optional[int] = None,
         channel_axis = channel_axis % x.ndim
         keep = {channel_axis, *(a % x.ndim for a in batch_axes)}
         axis = tuple(i for i in range(x.ndim) if i not in keep)
-    scale = _absmax_scale(x, axis)
+    scale = _absmax_scale(x, axis, activation)
     q = torch.div(x.float(), scale).round_().clamp_(-INT8_QMAX, INT8_QMAX)
     return QTensor(q.to(torch.int8), scale)
 
 
-def fake_quant(x: torch.Tensor, channel_axis: Optional[int] = None) -> torch.Tensor:
+def fake_quant(x: torch.Tensor, channel_axis: Optional[int] = None,
+               activation: bool = False) -> torch.Tensor:
     """Quantize-dequantize with a straight-through gradient.
 
     Forward: the round trip through the int8 grid, written as the
@@ -77,14 +89,15 @@ def fake_quant(x: torch.Tensor, channel_axis: Optional[int] = None) -> torch.Ten
     value is ``dq``: a nonzero ``dq`` lies within a factor of 2 of ``x``,
     so the difference is exact).  Backward: the identity (the STE)."""
     with torch.no_grad():
-        dq = quantize(x, channel_axis).dequantize(torch.float32).to(x.dtype)
+        dq = quantize(x, channel_axis, activation=activation).dequantize(
+            torch.float32).to(x.dtype)
         delta = dq - x
     return x + delta
 
 
 def _int8_dot(x: torch.Tensor, w: QTensor) -> torch.Tensor:
     """x: [..., K] float;  w: QTensor [K, N] (per-out-channel scales)."""
-    xq = quantize(x)                                        # per-tensor dynamic
+    xq = quantize(x, activation=True)                      # per-tensor dynamic
     lead = xq.values.shape[:-1]
     xm = xq.values.reshape(-1, xq.values.shape[-1])
     acc = kops.int8_matmul(xm, w.values)                   # int32 [M, N]
@@ -108,7 +121,7 @@ def pdot(x: torch.Tensor, w, policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.
         w = w.dequantize(dt)
     if policy.mode == "fake":
         w = fake_quant(w, channel_axis=-1 if policy.per_channel else None)
-        x = fake_quant(x)
+        x = fake_quant(x, activation=True)
     return torch.matmul(x.to(dt), w.to(dt))
 
 

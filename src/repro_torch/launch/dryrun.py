@@ -14,17 +14,21 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
 * train cells run ``Trainer._sharded_step`` on a ``TrainState`` of the
   rank's parts (``sharding.param_specs``), built from ``specs.
   param_structs`` without ``init_state``: it gathers the parameters, runs
-  forward and backward on the rank's rows of the batch, all-reduces the
-  gradients and runs AdamW on the rank's slices;
+  forward and backward on the rank's rows of the batch inside the batch
+  group (``core/collectives.py``: per-tensor activation scales and MoE
+  routing over the global batch), all-reduces the gradients and runs
+  AdamW on the rank's slices;
 * prefill and decode cells lay the parameters out the same way (int8
   structs under ``--plan mpai``, bf16 otherwise) and the cache by
   ``sharding.cache_specs``, gather the parameters (and the cache's heads)
-  and run ``T.forward`` / ``T.decode_step`` on the rank's rows.
+  and run ``T.forward`` / ``T.decode_step`` on the rank's rows, inside
+  the same batch group over the batch's axes (under ``--plan mpai`` the
+  scales' all-reduces; an MoE layer's dispatch path on the global token
+  count, and its load-balancing sums, which XLA drops from the
+  reference's serving cells as unused).
 
 So every row describes replicated compute with gathered parameters
-(``"execution"``); an MoE stack is routed over the rank's rows, where the
-``Trainer`` itself refuses a mesh that splits the batch (ROADMAP.md queue
-1 item 7b).
+(``"execution"``).
 
 While a cell is traced each front door of ``kernels/ops.py`` is a
 stand-in that allocates what the kernel's wrapper allocates on the card
@@ -65,7 +69,7 @@ from repro_torch import sharding as shard
 from repro_torch.configs import SHAPES, cells, get_config
 from repro_torch.configs.base import (MeshConfig, ModelConfig, ShapeConfig,
                                       TrainConfig)
-from repro_torch.core import qat
+from repro_torch.core import collectives, qat
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
@@ -367,15 +371,6 @@ def _make_plan(cfg: ModelConfig, plan_name: str, kind: str):
     raise ValueError(plan_name)
 
 
-class _DryRunTrainer(Trainer):
-    """The mesh ``Trainer``, except that an MoE stack is routed over the
-    rank's rows where the ``Trainer`` refuses a mesh that splits its batch
-    (the cost is what the dry run reports; the routing is ROADMAP 7b's)."""
-
-    def _check_routing(self) -> None:
-        self.moe_split = self.cfg.moe is not None and self.batch_ranks > 1
-
-
 def _local(like: torch.Tensor, spec, mesh_cfg: MeshConfig, coord,
            device=None):
     return torch.empty(shard.local_shape(spec, like.shape, mesh_cfg, coord),
@@ -446,12 +441,9 @@ class Cell:
         self.cfg, self.shape, self.mesh_cfg = cfg, shape, mesh_cfg
         self.tp = mesh_cfg.tp
         self.plan = _make_plan(cfg, plan_name, shape.kind)
-        self.moe_split = False
         if shape.kind == "train":
-            self.trainer = _DryRunTrainer(cfg, shape, mesh_cfg,
-                                          tc or TrainConfig(),
-                                          plan=self.plan, device="cpu")
-            self.moe_split = self.trainer.moe_split
+            self.trainer = Trainer(cfg, shape, mesh_cfg, tc or TrainConfig(),
+                                   plan=self.plan, device="cpu")
             self.placement = self.trainer.placement
             self.like = self.trainer.state_like()
             self.specs = self.trainer.state_specs
@@ -468,6 +460,15 @@ class Cell:
                                          self.like)
         if shape.kind == "decode":
             self.cache = _CacheLayout(cfg, shape, mesh_cfg, self.tp)
+            b_ax = shard.P(shard.batch_axes(shape.global_batch, mesh_cfg))
+        else:
+            b_ax = shard.data_specs(cfg, shape, mesh_cfg)["tokens"]
+        # the batch group the serving step enters; a train cell's is the
+        # Trainer's own
+        batch_axes = shard.dim_axes(b_ax, 1)[0]
+        self.batch_ranks = self.placement.group_size(batch_axes)
+        self.batch_group = (self.placement.group(batch_axes)
+                            if self.batch_ranks > 1 else None)
 
     def arguments(self, device=None) -> tuple:
         """The rank's parts, made on ``device`` (fake ones under
@@ -488,9 +489,14 @@ class Cell:
 
     def step(self, *args):
         """The step on the rank's parts; returns what it outputs."""
-        cfg, plan, tp = self.cfg, self.plan, self.tp
         if self.shape.kind == "train":
             return self.trainer._sharded_step(*args)
+        with collectives.batch_group(self.batch_group, self.batch_ranks):
+            return self._serve_step(*args)
+
+    def _serve_step(self, *args):
+        """Prefill or decode on the rank's rows."""
+        cfg, plan, tp = self.cfg, self.plan, self.tp
         if self.shape.kind == "prefill":
             params, batch = args
             full = self.params.unshard(params)
@@ -521,9 +527,6 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
     stats = {"arch": cfg.name, "shape": shape.name,
              "mesh": "x".join(map(str, mesh_cfg.shape)),
              "execution": EXECUTION}
-    if cell.moe_split:
-        stats["moe_routing"] = ("over the rank's rows; the Trainer refuses "
-                                "this mesh (ROADMAP 7b)")
     tally = Tally()
     flops = FlopCounterMode(display=False)
     with FakeTensorMode():

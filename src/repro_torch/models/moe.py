@@ -8,6 +8,13 @@ their gate weights.  Small batches (``t * k <= 4096``: decode, short
 prefills) use one flat dropless buffer; larger ones a buffer per batch row
 whose capacity drops overflowing tokens (Switch/GShard semantics).
 
+On a mesh step that splits the batch (``core/collectives.py``'s batch
+group) the rank routes its own rows as the reference routes them inside
+the global batch: the path is chosen on the global token count, a row's
+capacity and slots are its own in the per-row path and nothing is dropped
+in the flat one, and the load-balancing loss takes its assignment counts
+and mean probabilities over the group.
+
 Routers run in f32 and are never quantized.  The expert products are bf16
 einsums in the policy's compute dtype, as in the reference (XLA code
 there, not a Pallas kernel), so ``"mpai"`` leaves them unquantized; a
@@ -23,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import QTensor, fake_quant
 from repro_torch.models.layers import dense_init, mlp_apply, mlp_init, silu
@@ -63,7 +71,7 @@ def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
         w_out = fake_quant(w_out, channel_axis=-1)
         if w_gate is not None:
             w_gate = fake_quant(w_gate, channel_axis=-1)
-        buf = fake_quant(buf)
+        buf = fake_quant(buf, activation=True)
     bufc = buf.to(dt)
     g = "g" if buf.ndim == 4 else ""
     h = torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_in.to(dt))
@@ -89,10 +97,15 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
     gate, expert_ids = torch.topk(probs, k, dim=-1)              # [T, k]
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
-    frac = F.one_hot(expert_ids, e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(frac * probs.mean(dim=0))
+    # the assignment fractions and mean probabilities of the global batch,
+    # in one all-reduce: every rank holds the same number of rows
+    ranks = collectives.batch_ranks()
+    m = collectives.batch_sum(torch.cat([
+        F.one_hot(expert_ids, e).float().mean(dim=(0, 1)),
+        probs.mean(dim=0)])) / ranks
+    aux = e * torch.sum(m[:e] * m[e:])
 
-    if t * k <= FLAT_DISPATCH_MAX:
+    if t * ranks * k <= FLAT_DISPATCH_MAX:
         # decode / small batches: flat dropless dispatch
         cap = t * k
         flat_e = expert_ids.reshape(t * k)                       # token-major

@@ -10,9 +10,16 @@ one rank a device) the state is laid out as the reference's
 ``NamedSharding`` gives the device at its coordinate, AdamW's moments
 with their parameters — and each step:
 
-* keeps the rank's rows of the global batch (``sharding.data_specs``);
+* keeps the rank's rows of the global batch (``sharding.data_specs``):
+  its share of each global microbatch, so that microbatch m is the
+  reference's rows ``[m * mb, (m + 1) * mb)`` across the ranks;
 * gathers the whole parameters (an all-gather over each split dim's axes);
-* runs the one-device forward and backward on those rows;
+* runs the one-device forward and backward on those rows, inside the
+  batch group of the ranks that split the batch (``core/collectives.py``):
+  per-tensor activation scales take the global batch's absmax, and MoE
+  routing chooses its path on the global token count and takes its
+  load-balancing loss over the global batch, as the reference's jitted
+  step does on the whole batch;
 * all-reduces each gradient over the ranks that split the batch (an
   ``all_reduce`` then a slice, on gloo and NCCL alike: the gradient is
   whole on every rank, since compute is) and divides by their count;
@@ -28,9 +35,7 @@ batch); compute along it runs replicated.  Head-parallel compute —
 column- and row-parallel projections with an all-reduce, head-local
 attention, expert-parallel MoE — needs collectives inside the models'
 layers and is ROADMAP.md queue 1 item 7b's next step; its gradients are
-parts on each rank, so the global norm will then need an all-reduce.  An
-MoE stack routes over the global batch, so a mesh that splits its batch is
-refused (7b).
+parts on each rank, so the global norm will then need an all-reduce.
 
 Partition-aware QAT is just a plan argument — the same loop trains
 baseline and MPAI variants.  On the card the step differentiates through
@@ -47,6 +52,7 @@ import torch
 from repro_torch import sharding as shard
 from repro_torch.configs.base import (MeshConfig, ModelConfig, ShapeConfig,
                                       TrainConfig)
+from repro_torch.core import collectives
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.models import transformer as T
@@ -189,9 +195,7 @@ class Trainer:
         tok = self.data_specs["tokens"]
         self.batch_axes = shard.dim_axes(tok, 1)[0]
         self.batch_ranks = pl.group_size(self.batch_axes)
-        self._check_routing()
-        self.rows = shard.shard_slices(
-            tok, (self.shape.global_batch, 1), mesh_cfg, pl.coord)[0]
+        self.rows = self._batch_rows(tok)
         # every group of more than one rank the step uses, made once by
         # every rank in one order (``dist.new_group`` is collective); a
         # collective over one rank is skipped
@@ -204,25 +208,33 @@ class Trainer:
         self._grads_of = make_grad_fn(cfg, self.tc, self.plan, self.tp)
         self.step_fn = self._sharded_step
 
-    def _check_routing(self) -> None:
-        """Refuses an MoE stack on a mesh that splits its batch."""
-        if self.cfg.moe is not None and self.batch_ranks > 1:
-            raise NotImplementedError(
-                f"{self.cfg.name} on mesh {self.mesh_cfg.shape}: an MoE "
-                f"stack routes over the global batch (capacity, slots, aux "
-                f"loss), and this mesh splits the batch over "
-                f"{self.batch_axes}; routing it across ranks is ROADMAP.md "
-                f"queue 1 item 7b")
+    def _batch_rows(self, tok) -> slice:
+        """The rank's rows of each global microbatch (its ``shard_slices``
+        part of ``global_batch / grad_accum`` rows); the step keeps them
+        microbatch by microbatch, in order, so that ``make_grad_fn``'s
+        split of the rank's rows gives back its part of each."""
+        ga, gb = self.cfg.grad_accum, self.shape.global_batch
+        mb = gb // ga
+        if gb % ga or mb % self.batch_ranks:
+            raise ValueError(
+                f"mesh {self.mesh_cfg.shape}: a global batch of {gb} in "
+                f"{ga} microbatches does not split evenly over the "
+                f"{self.batch_ranks} ranks of {self.batch_axes}")
+        return shard.shard_slices(tok, (mb, 1), self.mesh_cfg,
+                                  self.placement.coord)[0]
 
     def _sharded_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         import torch.distributed as dist
         pl, mesh_cfg = self.placement, self.mesh_cfg
-        rows = {k: v[self.rows] for k, v in batch.items()}
+        ga = self.cfg.grad_accum
+        rows = {k: v.unflatten(0, (ga, -1))[:, self.rows].flatten(0, 1)
+                for k, v in batch.items()}
         full = self.param_shardings.unshard(state.params)
-        l, grads = self._grads_of(full, rows)
+        group = pl.group(self.batch_axes) if self.batch_ranks > 1 else None
+        with collectives.batch_group(group, self.batch_ranks):
+            l, grads = self._grads_of(full, rows)
         del full
-        if self.batch_ranks > 1:
-            group = pl.group(self.batch_axes)
+        if group is not None:
 
             def mean(t):
                 dist.all_reduce(t, group=group)

@@ -235,19 +235,14 @@ def _world2(rank, d, w, res):
                                                     "cpu")),
                          _data(cfg), 1, log_every=1)
     _record(res, "rwkv", tr, state, hist)
-    # MoE: refused where the batch splits; on (1, 2) bit-equal to one device
+    # MoE on (2, 1), routed over the global batch, and on (1, 2)
     moe = _cfg("moe", fsdp=False, moe=MoEConfig(num_experts=4, top_k=2,
                                                 d_ff_expert=64))
-    try:
-        ttrain.Trainer(moe, shape, MeshConfig((2, 1), _axes((2, 1))), tc,
-                       device="cpu")
-        res["moe/refused"] = np.array("")
-    except NotImplementedError as e:
-        res["moe/refused"] = np.array(str(e))
-    tr = ttrain.Trainer(moe, shape, MeshConfig((1, 2), _axes((1, 2))), tc,
-                        plan=_plan("f32", 2), device="cpu")
-    state, hist = tr.run(tr.init_state(), _data(moe), 2, log_every=1)
-    _record(res, "moe", tr, state, hist)
+    for key, ms in (("moe21", (2, 1)), ("moe", (1, 2))):
+        tr = ttrain.Trainer(moe, shape, MeshConfig(ms, _axes(ms)), tc,
+                            plan=_plan("f32", 2), device="cpu")
+        state, hist = tr.run(tr.init_state(), _data(moe), 2, log_every=1)
+        _record(res, key, tr, state, hist)
 
 
 def _world8(rank, d, w, res):
@@ -457,9 +452,25 @@ def test_rwkv_smoke_on_2x1(runs):
     assert bool(got["rwkv/shards_ok"])
 
 
-def test_moe_on_a_batch_split_mesh_is_refused(runs):
-    msg = str(runs[1][2][0]["moe/refused"])
-    assert "routes over the global batch" in msg and "7b" in msg
+def test_moe_on_a_batch_split_mesh_equals_one_device(runs):
+    """(2, 1) splits the batch: each rank routes its rows inside the global
+    batch (the flat path's choice and the load-balancing loss over the
+    batch group, ``core/collectives.py``); the steps agree with the
+    one-device Trainer's within ``ONE_TOL``."""
+    got = runs[1][2][0]
+    cfg = _cfg("moe", fsdp=False, moe=MoEConfig(num_experts=4, top_k=2,
+                                                d_ff_expert=64))
+    tr = ttrain.Trainer(cfg, ShapeConfig("t", S, B, "train"),
+                        MeshConfig((1, 1), _axes((1, 1))),
+                        TrainConfig(**TC_KW), plan=_plan("f32", 2),
+                        device="cpu")
+    st, hist = tr.run(tr.init_state(), _data(cfg), 2, log_every=1)
+    want = {}
+    _flatten(st.params, "", want)
+    _check(got["moe21/loss"], got["moe21/grad_norm"],
+           _params(got, "moe21/params"), [h["loss"] for h in hist],
+           [h["grad_norm"] for h in hist], want, ONE_TOL["f32"])
+    assert bool(got["moe21/shards_ok"])
 
 
 def test_moe_on_the_model_axis_equals_one_device(runs):
