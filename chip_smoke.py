@@ -220,6 +220,12 @@ INT_MM_PAD_M = 32
 # batch of 8 x 64 tokens)
 EXAMPLE_GEMMS = ((4, 64, 32), (4, 64, 64), (4, 64, 128), (4, 128, 64),
                  (512, 128, 128), (512, 128, 256), (512, 256, 128))
+# (M, K, N) of StableLM-2's int8 GEMMs on a rank of the head-parallel
+# "mpai" forward (``tp_forward``, 2 x 512 tokens, tp 2): column-parallel
+# wq / wk / wv and w_in / w_gate at N / 2, row-parallel wo and w_out at
+# K / 2
+TP_GEMMS = ((1024, 2048, 1024), (1024, 1024, 2048), (1024, 2048, 2816),
+            (1024, 2816, 2048))
 
 
 def emit(phase: str, **kv) -> None:
@@ -401,8 +407,9 @@ def int8_matmul_phase(timer, im, dev) -> dict:
     """The int8 GEMM against its plain version, bit for bit, at every shape
     of the main paths: each (K, N) of a Qwen3-14B layer at decode (M = 8
     slots) and at a full admission bucket (M = 8 x 32), RWKV-6's and
-    Jamba's widths at a window prefill (M = 8 x 128), and the example
-    twins' smoke widths (``EXAMPLE_GEMMS``); times it per shape beside
+    Jamba's widths at a window prefill (M = 8 x 128), the example
+    twins' smoke widths (``EXAMPLE_GEMMS``) and a head-parallel rank's
+    (``TP_GEMMS``); times it per shape beside
     ``torch._int_mm`` (at M <= 16 on x padded with zero rows to
     ``INT_MM_PAD_M``: ``_int_mm`` refuses M <= 16)."""
     g = torch.Generator(device=dev).manual_seed(1)
@@ -410,7 +417,7 @@ def int8_matmul_phase(timer, im, dev) -> dict:
     shapes = [(m, k, n) for m in (8, 8 * 32)
               for k, n in sorted(set(QWEN_LAYER_GEMMS))]
     shapes += [(8 * 128, k, n) for k, n in WINDOW_GEMMS]
-    shapes += list(EXAMPLE_GEMMS)
+    shapes += list(EXAMPLE_GEMMS) + list(TP_GEMMS)
     per_shape = {}
     for m, k, n in shapes:
         x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
@@ -472,6 +479,11 @@ EXAMPLE_FLASH = ((8, 64, 4, 1, 32), (2, 8, 4, 1, 32), (8, 512, 5, 2, 64))
 # of ``olmoe_sharded_2rank`` (one row of the 2 x 512 global batch, 16 heads
 # of 128)
 OLMOE_FLASH = (1, 512, 16, 1, 128)
+# (B, S, KVp, gp, hd) on a rank of the head-parallel (1, 2) runs: a
+# StableLM-2 training microbatch (2 x 4096, 16 of the 32 heads), the
+# "mpai" serving forward (``tp_forward``, 2 x 512) and OLMoE-1B-7B's step
+# (2 x 512, 8 of the 16 heads)
+TP_FLASH = ((2, 4096, 16, 1, 64), (2, 512, 16, 1, 64), (2, 512, 8, 1, 128))
 
 
 def flash_attention_phase(timer, fa, dev) -> dict:
@@ -479,7 +491,8 @@ def flash_attention_phase(timer, fa, dev) -> dict:
     admission round (B = 8 slots, S = prompt_len = 32, KVp = 8, gp = 5,
     hd = 128), at Jamba's attention prefill (B = 8, S = 128, gp = 4), at a
     2048-token Qwen3 prefill, at a ragged S, and at the example twins'
-    shapes (``EXAMPLE_FLASH``); beside each, one
+    shapes (``EXAMPLE_FLASH``) and the two-rank runs' (``OLMOE_FLASH``,
+    ``TP_FLASH``); beside each, one
     ``scaled_dot_product_attention`` call at the same shapes (timed only
     here: the port never calls it)."""
     g = torch.Generator(device=dev).manual_seed(4)
@@ -488,7 +501,7 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             (QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5, 128),
             (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 8, 4, 128),
             (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH,
-            OLMOE_FLASH):
+            OLMOE_FLASH, *TP_FLASH):
         q = torch.randn((b, s, kvp, gp, hd), generator=g,
                         device=dev).bfloat16()
         k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
@@ -1955,7 +1968,10 @@ FLEET_SPEC = {
               "max_accuracy_penalty": 0.0}],
 }
 FLEET_LM, FLEET_COST = 12, 4
-ORBIT_LM = 24                     # the eclipse's autoscaler needs the load
+# the eclipse's autoscaler needs the load: two seconds of arrivals (24
+# before the chip budget's trim) still queue past ``queue_high`` within the
+# first batch, and outlast the battery's one second of demand
+ORBIT_LM = 16
 FLEET_RATE_HZ = 8.0
 FLEET_MIX = (("lm-any", 0.5), ("lm-accurate", 0.5))
 
@@ -2931,9 +2947,9 @@ def coproc_full_width_phase(dev, card: str, cfg, params, mpai, trace,
     request, a handoff a request with imports on both shards, every
     kernel's launches as ``CoProcLog`` says; one shard of
     ``COPROC_SLOTS`` slots gives the same tokens bit for bit (bf16 decode
-    rows depend on their own row alone at a fixed shape), and so do a run
-    with a corrupted wire frame and a lost handoff (two replays) and a
-    hardened run whose bit flip is detected and restored through the seam;
+    rows depend on their own row alone at a fixed shape) with, in the same
+    run, a corrupted wire frame and a lost handoff (two replays) and a
+    hardened seam whose bit flip is detected and restored through it;
     one shard of 8 slots (another decode shape) and a split with a bf16
     prefill stage against the unified bf16 engine part only at near-ties
     of the picks' top two logits.  Prints each handoff of the main run
@@ -3047,24 +3063,23 @@ def coproc_full_width_phase(dev, card: str, cfg, params, mpai, trace,
         return sorted(rid for rid in a if a[rid] != b[rid])
 
     base, _, _ = run("coproc", mpai, 2, COPROC_SLOTS)
-    for key, shards, slots, inject, faults, harden, want in (
-            ("coproc-1shard", 1, COPROC_SLOTS, (), (), False, None),
-            ("coproc-faulted", 2, COPROC_SLOTS,
-             ("inject_handoff_corruption", "inject_handoff_loss"), (),
-             False, 2),
-            ("coproc-hardened", 2, COPROC_SLOTS, (), QWEN_BITFLIP, True,
-             None)):
-        out, st, _ = run(key, mpai, shards, slots, inject, faults, harden)
-        if out != base:
-            raise AssertionError(f"coproc {key}: requests "
-                                 f"{parted(out, base)} part from the "
-                                 f"two-shard run")
-        if want is not None and st["handoffs_replayed"] != want:
-            raise AssertionError(f"coproc {key}: {st['handoffs_replayed']}"
-                                 f" handoffs replayed")
-        if harden and not (st["bitflips_detected"] and st["replays"]
-                           and st["blocks_quarantined"]):
-            raise AssertionError(f"coproc {key}: {st}")
+    # one shard of the same shape, a corrupted frame and a lost handoff
+    # (two replays) and a hardened seam restoring a detected bit flip, in
+    # one run: each alone gives the two-shard run's tokens bit for bit,
+    # and so must all three together
+    key = "coproc-1shard-faulted-hardened"
+    out, st, _ = run(key, mpai, 1, COPROC_SLOTS,
+                     ("inject_handoff_corruption", "inject_handoff_loss"),
+                     QWEN_BITFLIP, True)
+    if out != base:
+        raise AssertionError(f"coproc {key}: requests {parted(out, base)} "
+                             f"part from the two-shard run")
+    if st["handoffs_replayed"] != 2:
+        raise AssertionError(f"coproc {key}: {st['handoffs_replayed']} "
+                             f"handoffs replayed")
+    if not (st["bitflips_detected"] and st["replays"]
+            and st["blocks_quarantined"]):
+        raise AssertionError(f"coproc {key}: {st}")
     summary = {}
     by_rid = {rid: (rid, p, n) for rid, p, n in trace}
     for key, prefill_plan, shards, slots, want in (
@@ -3126,9 +3141,9 @@ def qwen_sampled_hardened_phase(dev, card: str, cfg, params, plans: dict,
     bf16, where a row's logits and KV depend on that row alone: the greedy
     requests equal the greedy-only run, a sampled request equals its solo
     run, ``harden=True`` with no fault equals the unhardened run with every
-    hardening counter 0, an armed bit flip is detected, quarantined and
-    recovered to the unfaulted streams with the books exact, and a stalled
-    slot trips the watchdog and replays to the unfaulted streams.  Under
+    hardening counter 0, and in one run an armed bit flip is detected,
+    quarantined and recovered and a stalled slot trips the watchdog and
+    replays, to the unfaulted streams with the books exact.  Under
     "mpai" a bit flip's counters, books and budgets are checked, and the
     streams that part from the unfaulted run are counted (int8 activations
     are quantized per tensor across the batch: a replay's masked rows move
@@ -3226,23 +3241,23 @@ def qwen_sampled_hardened_phase(dev, card: str, cfg, params, plans: dict,
             if solo[QWEN_SOLO] != sampled[QWEN_SOLO]:
                 raise AssertionError("qwen bf16: a sampled request parts "
                                      "from its solo run")
-            for key, faults, extra in (
-                    ("harden-bf16", (), {}),
-                    ("harden-bitflip-bf16", QWEN_BITFLIP, {}),
-                    ("harden-stall-bf16", QWEN_STALL, {})):
+            # the bit flip and the stalled slot in one run: each alone
+            # recovers to the unfaulted streams, and so must both
+            for key, faults in (
+                    ("harden-bf16", ()),
+                    ("harden-bitflip-stall-bf16", QWEN_BITFLIP + QWEN_STALL)):
                 out, hst = run(key, "bf16", trace, sampling, faults,
-                               harden=True, **extra)
+                               harden=True)
                 if out != sampled:
                     raise AssertionError(f"qwen {key}: requests "
                                          f"{parted(out, sampled)} part from "
                                          f"the unfaulted run")
                 c = {k: hst[k] for k in HARDENING}
-                if key == "harden-bf16" and any(c.values()):
+                if not faults and any(c.values()):
                     raise AssertionError(f"qwen {key}: counters {c}")
-                if key == "harden-bitflip-bf16" and not (
-                        c["bitflips_detected"] and c["blocks_quarantined"]):
-                    raise AssertionError(f"qwen {key}: counters {c}")
-                if key == "harden-stall-bf16" and not c["watchdog_trips"]:
+                if faults and not (c["bitflips_detected"]
+                                   and c["blocks_quarantined"]
+                                   and c["watchdog_trips"]):
                     raise AssertionError(f"qwen {key}: counters {c}")
         else:
             out, hst = run("harden-bitflip-mpai", "mpai", trace, sampling,
@@ -3560,7 +3575,8 @@ FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (2, 37, 2, 3, 64, "float32"),
                    (8, 64, 4, 1, 32, "bfloat16"),
                    (8, 512, 5, 2, 64, "bfloat16"),
-                   (*OLMOE_FLASH, "bfloat16"))
+                   (*OLMOE_FLASH, "bfloat16"),
+                   (*TP_FLASH[0], "bfloat16"), (*TP_FLASH[2], "bfloat16"))
 # per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
 # (bf16: P and dS enter their products as bf16)
 FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
@@ -4026,9 +4042,17 @@ SHARDED_TIMEOUT_S = 400
 # - the mean |param diff|: a wrong gradient turns most Adam steps, ~lr/2
 #   = 1.5e-6 at step 1, and rounding turns a few (1.47e-9 and 1.04e-8
 #   after steps 1 and 2 on an H100).
-# (1, 2) splits no batch and runs the one-rank arithmetic: bit-equal.
+# (1, 2) computes head-parallel: its row-parallel products sum f32
+# partials in another order and round to bf16 once, its GEMMs see other
+# widths, so rounding parts it as it parts (2, 1), and the same bounds
+# hold it.
 SHARDED_GRAD_REL = 2e-2
 SHARDED_MEAN_DIFF = 1e-7
+# the "mpai" serving forward of the held weights on (1, 2) against one
+# rank: the prompt's shape, and the logits' bound (4 bf16 ulps of the
+# largest: the bf16 layer's row-parallel sums round in another order)
+TP_FORWARD_SHAPE = (512, 2)      # seq, batch
+TP_LOGITS_REL = 2 ** -5
 
 
 def sharded_tolerance(tc, step: int) -> float:
@@ -4092,6 +4116,9 @@ OLMOE_STEPS = 2
 # fake-quantized layer, so that the free steps (``olmoe_rank``) of the two
 # tell how far int8 rounding carries a parting of the parameters
 OLMOE_PLANS = ("mpai", "bf16")
+# the two-rank meshes: (2, 1) splits the batch, (1, 2) the experts (and
+# the heads, the vocab)
+OLMOE_MESHES = ("2x1", "1x2")
 # a held two-rank step starts from the one-rank run's state, so its loss
 # and aux loss part only by rounding: the ranks' GEMMs see other row
 # counts (the loss 8.5e-8 apart on an H100; per-rank activation scales
@@ -4106,6 +4133,29 @@ ROUTE_NEAR_TIE = 1e-4
 
 
 @contextlib.contextmanager
+def routes_of(routes):
+    """While inside, ``moe.route``: with ``routes`` a list, each call's
+    experts are appended to it; with ``routes`` experts recorded so, each
+    call takes the next of them (and their probabilities) instead of its
+    own top k; None changes nothing."""
+    from repro_torch.models import moe
+    if routes is None:
+        yield
+        return
+    record, calls = not routes, iter(list(routes))
+
+    def route(probs, k):
+        if record:
+            gate, ids = real(probs, k)
+            routes.append(ids)
+            return gate, ids
+        ids = next(calls)
+        return torch.gather(probs, -1, ids), ids
+    with patched(moe, "route", route) as real:
+        yield
+
+
+@contextlib.contextmanager
 def routed(calls: list):
     """While inside, each ``moe.moe_apply`` call appends its routing to
     ``calls``, on the host: whether it dispatched through a buffer per
@@ -4117,6 +4167,7 @@ def routed(calls: list):
     seen = {}
 
     def ffn(params, buf, *args):
+        # the whole dispatch buffer (an expert-parallel rank runs its part)
         seen["per_row"] = buf.ndim == 4
         if buf.ndim == 4:
             seen["filled"] = buf.detach().ne(0).any(-1).sum(dim=(1, 2))
@@ -4138,7 +4189,7 @@ def routed(calls: list):
             "margin": (top.values[:, k - 1]
                        - top.values[:, k]).reshape(b, s).cpu()})
         return out, aux
-    with patched(moe, "_expert_ffn", ffn) as real_ffn, \
+    with patched(moe, "_experts", ffn) as real_ffn, \
             patched(moe, "moe_apply", apply) as real_apply:
         yield
 
@@ -4237,13 +4288,16 @@ def parting_after_step(tr, st, start, names, lr: float) -> dict:
 def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
     """One rank of ``olmoe_sharded_2rank``: OLMoE-1B-7B at full width,
     ``OLMOE_LAYERS`` deep, ``OLMOE_STEPS`` steps of ``plan_name`` (one of
-    ``OLMOE_PLANS``) of the global batch on (1, 1), then on (2, 1) (the
-    same weights, from ``tc.seed``),
+    ``OLMOE_PLANS``) of the global batch on (1, 1), then on (2, 1) and on
+    (1, 2) (expert-parallel; the same weights, from ``tc.seed``),
     each step's gradient as AdamW gets it and its MoE routing recorded.
     On (2, 1), before each later step: where the parameters part from the
     one-rank run's (``parting_after_step``), that step run freely from the
     two-rank state (``free``), then again from the one-rank run's state
-    (the held step).  Returns what the parent checks."""
+    (the held step).  On (1, 2) every later step is held so, and every
+    step takes the one-rank run's experts (``routes_of``): the tokens its
+    own router would move are reported and must lie at near-ties.
+    Returns what the parent checks."""
     from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.configs.olmoe_1b_7b import FULL
     from repro_torch.core import qat
@@ -4259,21 +4313,24 @@ def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
     tc = TrainConfig(total_steps=OLMOE_STEPS)
     plan = (qat.train_plan(PartitionPlan.mpai(OLMOE_LAYERS))
             if plan_name == "mpai" else None)
-    runs, ref, starts, one_calls = {}, [], [], []
+    runs, ref, starts, one_calls, one_routes = {}, [], [], [], []
 
     def record():
         return {"loss": [], "grad_norm": [], "aux": [], "step_ms": [],
                 "collective_ms": [], "grad_rel_err": [], "calls": []}
 
-    def step(tr, st, s, rec):
+    def step(tr, st, s, rec, routes=None):
         spent, seen, calls = [], [], []
         batch = lm_batch(cfg, shape, s, device=dev)
         torch.cuda.synchronize()
+        held = step_peak_start(st)
         t0 = time.perf_counter()
-        with timed_collectives(spent), kept_grads(seen), routed(calls):
+        with timed_collectives(spent), kept_grads(seen), routed(calls), \
+                routes_of(routes):
             st, m = tr.step_fn(st, batch)
         torch.cuda.synchronize()
         rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        step_peak_end(rec, held)
         rec["collective_ms"].append(sum(spent))
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
@@ -4281,6 +4338,7 @@ def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
         rec["calls"].append(calls)
         if tr.state_shardings is None:
             ref.append(seen[0])           # the whole gradient, on the card
+            one_routes.append(routes)
         else:
             rec["grad_rel_err"].append(max(
                 float(torch.linalg.vector_norm(g.float() - w[
@@ -4290,34 +4348,42 @@ def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
                                     tree_leaves(tr.param_specs))))
         return st
 
-    for ms in ((1, 1), (2, 1)):
+    for ms in ((1, 1), (2, 1), (1, 2)):
         tr = Trainer(cfg, shape, MeshConfig(ms, ("data", "model")), tc,
                      plan=plan, device=dev)
         st = tr.init_state()
         run = runs["x".join(map(str, ms))] = record()
-        if ms == (2, 1):
-            names = leaf_names(st.params)
-            run.update(max_abs_diff=[], mean_abs_diff=[], parting=[])
-            free = run["free"] = dict(record(), routes=[])
+        if ms != (1, 1):
+            run.update(max_abs_diff=[], mean_abs_diff=[])
             torch.cuda.reset_peak_memory_stats()
             zero_counts()             # this rank's main path starts here
+        if ms == (2, 1):
+            names = leaf_names(st.params)
+            run.update(parting=[])
+            free = run["free"] = dict(record(), routes=[])
         for s in range(OLMOE_STEPS):
+            if ms == (1, 2) and s:
+                # held: from the one-rank run's state, after noting where
+                # the parameters stand from it
+                held_diffs(tr, st, starts[s - 1], run)
+                for dst, src in zip(tree_leaves(st), tree_leaves(
+                        tr.state_shardings.shard(starts[s - 1]))):
+                    dst.copy_(src)
+            if ms == (1, 2):
+                # the one-rank run's experts: its hidden states part from
+                # these by bf16 rounding (the row-parallel sums), which
+                # moves tokens at near-ties; held to the same routes, the
+                # expert-parallel step is compared as (2, 1)'s is, and
+                # the routes its own router picks are checked apart
+                st = step(tr, st, s, run, one_routes[s])
+                continue
             if ms == (2, 1) and s:
                 # the parameters after step s against the one-rank run's
                 # (``parting_after_step`` says where an update's sign
                 # flipped and which int8 codes moved), step s + 1 run
                 # freely, then again from the one-rank run's state, so
                 # that each held step starts where the one-rank one did
-                diffs = [(a.float() - b.float()).abs() for a, b in zip(
-                    tree_leaves(st.params),
-                    tree_leaves(tr.param_shardings.shard(starts[s - 1]
-                                                         .params)))]
-                run["max_abs_diff"].append(max(float(x.max())
-                                               for x in diffs))
-                run["mean_abs_diff"].append(
-                    sum(float(x.sum()) for x in diffs)
-                    / sum(x.numel() for x in diffs))
-                del diffs
+                held_diffs(tr, st, starts[s - 1], run)
                 run["parting"].append(parting_after_step(
                     tr, st, starts[s - 1], names,
                     float(cosine_lr(tc, torch.tensor(s)))))
@@ -4328,27 +4394,51 @@ def olmoe_rank(rank: int, dev, plan_name: str) -> dict:
                 for dst, src in zip(tree_leaves(st), tree_leaves(
                         tr.state_shardings.shard(starts[s - 1]))):
                     dst.copy_(src)
-            st = step(tr, st, s, run)
+            st = step(tr, st, s, run, [] if ms == (1, 1) else None)
             if ms == (1, 1) and s + 1 < OLMOE_STEPS:
                 starts.append(tree_map(torch.clone, st))
         if ms == (1, 1):
             one_calls = run["calls"]
         else:
             run["launches"] = train_launches(fa)
-            run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         del st, tr
         gc.collect()
         torch.cuda.empty_cache()
     del ref, starts
     flat = lambda calls: [c for step_calls in calls for c in step_calls]
-    mesh, free = runs["2x1"], runs["2x1"]["free"]
-    wrong, ties = route_differences(rank, flat(runs["1x1"].pop("calls")),
-                                    flat(mesh["calls"]))
-    calls = flat(mesh.pop("calls"))
-    mesh["per_row"] = [c["per_row"] for c in calls]
-    mesh["dropped"] = [c["dropped"] for c in calls]
+    one = flat(runs["1x1"].pop("calls"))
+    wrong, ties = {}, {}
+    for name in OLMOE_MESHES:
+        mesh = runs[name]
+        if name == "2x1":             # the rank's rows
+            wrong[name], ties[name] = route_differences(
+                rank, one, flat(mesh["calls"]))
+        else:                         # every row, its own router's picks
+            wrong[name], ties[name] = [], []
+            for i, (a, m) in enumerate(zip(one, flat(mesh["calls"]))):
+                p = route_parting(0, a, m)
+                if p["max_margin"] is None:
+                    continue
+                (ties if p["max_margin"] < ROUTE_NEAR_TIE
+                 else wrong)[name].append(dict(p, call=i))
+        calls = flat(mesh.pop("calls"))
+        mesh["per_row"] = [c["per_row"] for c in calls]
+        mesh["dropped"] = [c["dropped"] for c in calls]
+    free = runs["2x1"]["free"]
     free["per_row"] = [c["per_row"] for c in flat(free.pop("calls"))]
     return {"runs": runs, "route_wrong": wrong, "near_ties": ties}
+
+
+def held_diffs(tr, st, start, run: dict) -> None:
+    """The max and mean |diff| of the rank's parameters from the same
+    parts of the one-rank run's ``start``, appended to ``run``."""
+    from repro_torch.core.tree import tree_leaves
+    diffs = [(a.float() - b.float()).abs() for a, b in zip(
+        tree_leaves(st.params),
+        tree_leaves(tr.param_shardings.shard(start.params)))]
+    run["max_abs_diff"].append(max(float(x.max()) for x in diffs))
+    run["mean_abs_diff"].append(sum(float(x.sum()) for x in diffs)
+                                / sum(x.numel() for x in diffs))
 
 
 def train_rank(rank: int, world: int, d: str) -> None:
@@ -4362,7 +4452,7 @@ def train_rank(rank: int, world: int, d: str) -> None:
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
     from repro_torch.configs.stablelm_1_6b import FULL
-    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.data.pipeline import lm_batch
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa
@@ -4436,14 +4526,17 @@ def train_rank(rank: int, world: int, d: str) -> None:
                    "grad_norm": [], "max_abs_diff": [], "mean_abs_diff": [],
                    "bound": [], "grad_rel_err": [], "grad_equal": []}
             specs = tree_leaves(tr.param_specs)
+            out["step_peak_bytes"] = out["step_only_peak_bytes"] = 0
             for s in range(SHARDED_STEPS):
                 spent, seen = [], []
                 torch.cuda.synchronize()
+                held = step_peak_start(st)
                 t0 = time.perf_counter()
                 with timed_collectives(spent), kept_grads(seen):
                     st, m = tr.step_fn(st, data(s))
                 torch.cuda.synchronize()
                 out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+                step_peak_end(out, held)
                 out["collective_ms"].append(sum(spent))
                 out["loss"].append(float(m["loss"]))
                 out["grad_norm"].append(float(m["grad_norm"]))
@@ -4473,11 +4566,10 @@ def train_rank(rank: int, world: int, d: str) -> None:
                 out["bound"].append(sharded_tolerance(tc, s + 1))
                 del diffs
             if ms == (2, 1):
-                saved = tree_leaves(tr.param_shardings.unshard(st.params))
-                saved = [t.clone() for t in saved]
+                saved = tree_map(torch.clone,
+                                 tr.param_shardings.unshard(st.params))
             mark(f"{ms} steps")
             out["launches"] = train_launches(fa)
-            out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             if ms == (2, 1):          # written while (1, 2) trains
                 t0 = time.perf_counter()
                 ck.save(SHARDED_STEPS, st, shardings=tr.state_shardings)
@@ -4498,14 +4590,13 @@ def train_rank(rank: int, world: int, d: str) -> None:
             if ms == (1, 1):
                 tr = Trainer(cfg, shape, one_mesh, tc, device=dev)
                 st, step = ck.restore(tr.state_like(), device=dev)
-                parts = saved
+                parts = tree_leaves(saved)
             else:
                 tr = Trainer(cfg, shape, MeshConfig(ms, ("data", "model")),
                              tc, device=dev)
                 st, step = ck.restore(tr.state_like(), device=dev,
                                       shardings=tr.state_shardings)
-                parts = [b[tr.param_shardings.slices(sp, b.shape)]
-                         for b, sp in zip(saved, tree_leaves(tr.param_specs))]
+                parts = tree_leaves(tr.param_shardings.shard(saved))
             restore_s = time.perf_counter() - t0
             equal = all(torch.equal(a, b) for a, b in
                         zip(tree_leaves(st.params), parts))
@@ -4519,6 +4610,9 @@ def train_rank(rank: int, world: int, d: str) -> None:
             torch.cuda.empty_cache()
             mark(f"restore {ms}")
         res["restores"] = restores
+        res["tp_forward"] = tp_forward(rank, dev, cfg, shape, tc, saved)
+        del saved
+        mark("tp_forward")
         res["olmoe"] = {p: olmoe_rank(rank, dev, p) for p in OLMOE_PLANS}
         mark("olmoe")
         dist.barrier()
@@ -4527,6 +4621,87 @@ def train_rank(rank: int, world: int, d: str) -> None:
         (Path(d) / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
+
+
+def step_peak_start(state) -> int:
+    """Before a timed step: the peak counter reset, and the bytes the
+    process holds beside ``state`` (what the dry run does not see)."""
+    from repro_torch.core.tree import tree_leaves
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() - sum(
+        t.numel() * t.element_size() for t in tree_leaves(state)
+        if torch.is_tensor(t))
+
+
+def step_peak_end(out: dict, held: int) -> None:
+    """After that step: ``step_peak_bytes``, the largest peak of a step so
+    far, and ``step_only_peak_bytes``, that peak less what the process held
+    beside the state (what the dry run predicts)."""
+    peak = torch.cuda.max_memory_allocated()
+    out["step_peak_bytes"] = max(out.get("step_peak_bytes", 0), peak)
+    out["step_only_peak_bytes"] = max(out.get("step_only_peak_bytes", 0),
+                                      peak - held)
+
+
+def tp_forward(rank: int, dev, cfg, shape, tc, whole) -> dict:
+    """One forward of ``whole`` (the parameters the (2, 1) run holds)
+    under the ``"mpai"`` serving plan at ``TP_FORWARD_SHAPE``: on one rank,
+    then head-parallel on (1, 2) with the rank's parts.  Layer 0 (int8)
+    must come out bit-equal, the logits within ``TP_LOGITS_REL`` of the
+    largest and their argmax equal but at a near-tie of the one-rank top
+    two (``near_tie_divergences``' rule).  Returns what it measured."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import MeshConfig, ShapeConfig
+    from repro_torch.core import collectives, qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.train_loop import Trainer
+    seq, batch = TP_FORWARD_SHAPE
+    tokens = lm_batch(cfg, ShapeConfig("tp_forward", seq, batch, "train"), 0,
+                      device=dev)["tokens"]
+    plan = qat.serve_plan(PartitionPlan.mpai(cfg.num_layers))
+    tr = Trainer(cfg, shape, MeshConfig((1, 2), ("data", "model")), tc,
+                 device=dev)
+    local = tr.param_shardings.shard(whole)
+
+    def forward(params, group):
+        layers = []
+
+        def keep(*a, **kw):
+            x, new, aux = real(*a, **kw)
+            layers.append(x)
+            return x, new, aux
+        with torch.no_grad(), patched(T, "_sublayer_apply", keep) as real, \
+                collectives.model_group(group, 2 if group else 1, rank):
+            logits = T.forward(params, cfg, tokens, plan, tr.tp).logits
+        return logits, layers
+
+    one, one_layers = forward(whole, None)
+    zero_counts()
+    mine, layers = forward(local, tr.placement.group(("model",)))
+    torch.cuda.synchronize()
+    int8 = im.int8_matmul.launches
+    parts = [torch.empty_like(mine) for _ in range(2)]
+    dist.all_gather(parts, mine.contiguous())
+    got = torch.cat(parts, dim=-1).float()
+    want = one.float()
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    top2 = torch.topk(want, 2, dim=-1).values
+    moved = got.argmax(-1) != want.argmax(-1)
+    margins = (top2[..., 0] - top2[..., 1])[moved]
+    ties_ok = bool((margins <= 2 ** -5 * top2[..., 0][moved].abs()).all())
+    res = {"layer0_bit_equal": bool(torch.equal(layers[0], one_layers[0])),
+           "layers_bit_equal": [bool(torch.equal(a, b))
+                                for a, b in zip(layers, one_layers)],
+           "logits_rel_err": err, "argmax_moved": int(moved.sum()),
+           "argmax_of": moved.numel(), "near_ties_only": ties_ok,
+           "int8_launches": int8, "seq_len": seq, "batch": batch}
+    del one, mine, parts, got, want, local, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def start_train_ranks(world: int = 2):
@@ -4566,19 +4741,20 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
     the subprocesses of ``start_train_ranks`` joined through a
     ``FileStore``: on (2, 1) (data parallel, the state split over the data
     axis) and (1, 2) (the state split over the model axis, compute
-    replicated).  After each step, against the one-rank run on the card:
-    on (2, 1) each rank's gradient slices within ``SHARDED_GRAD_REL`` (a
+    head-parallel).  After each step, against the one-rank run on the
+    card: each rank's gradient slices within ``SHARDED_GRAD_REL`` (a
     leaf's relative L2 error), its parameters' mean |diff| within
-    ``SHARDED_MEAN_DIFF`` and their max within ``sharded_tolerance``; on
-    (1, 2) gradient slices and parameters bit-equal; on both the loss
-    within 2**-7 and the grad norm within 5e-2 relative.  The flash
-    kernels launch on each rank; the (2, 1) checkpoint restores on (1, 1)
-    and (1, 2) bit-equal and a step runs.  Then the same ranks train
-    OLMoE-1B-7B under each of ``OLMOE_PLANS`` (``olmoe_rank``,
-    ``olmoe_sharded_check``).  Gloo stages
-    CUDA tensors through host memory, so the collective ms printed are a
-    correctness run's, not a speed.  Returns ``{run: launches}`` of rank
-    0."""
+    ``SHARDED_MEAN_DIFF`` and their max within ``sharded_tolerance``, the
+    loss within 2**-7 and the grad norm within 5e-2 relative; each (1, 2)
+    rank's step peak below its (2, 1) one.  The flash kernels launch on
+    each rank; the (2, 1) checkpoint restores on (1, 1) and (1, 2)
+    bit-equal and a step runs, and its parameters go through the "mpai"
+    serving forward on (1, 2) against one rank (``tp_forward``).  Then
+    the same ranks train OLMoE-1B-7B under each of ``OLMOE_PLANS``
+    (``olmoe_rank``, ``olmoe_sharded_check``).  Gloo stages CUDA tensors
+    through host memory, so the collective ms printed are a correctness
+    run's, not a speed.  Returns ``({run: launches}`` of rank 0, ``{run:
+    [step-only peak bytes a rank]})`` for the dry run's check."""
     t0 = time.perf_counter()
     (d / "go").touch()
     for p in procs:
@@ -4605,11 +4781,6 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
                 diff = mine["max_abs_diff"][s]
                 if not diff <= got["bound"][s]:   # NaN fails too
                     wrong.append(f"{at}: params {diff} > {got['bound'][s]}")
-                if name == "1x2":     # the one-rank arithmetic
-                    if diff != 0 or not mine["grad_equal"][s]:
-                        wrong.append(f"{at}: not bit-equal (params {diff}, "
-                                     f"gradient equal "
-                                     f"{mine['grad_equal'][s]})")
                 if not mine["grad_rel_err"][s] <= SHARDED_GRAD_REL:
                     wrong.append(f"{at}: gradient {mine['grad_rel_err'][s]}"
                                  f" > {SHARDED_GRAD_REL}")
@@ -4636,6 +4807,17 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
             if rs["step"] != SHARDED_STEPS or not rs["bit_equal"] or \
                     not np.isfinite(rs["next_loss"]):
                 wrong.append(f"restore on {name} rank {r['rank']}: {rs}")
+        # head-parallel: each rank holds half the weights and gradients
+        # and gathers none, so its step's peak falls below (2, 1)'s
+        tp, dp = r["meshes"]["1x2"], r["meshes"]["2x1"]
+        if not tp["step_peak_bytes"] < dp["step_peak_bytes"]:
+            wrong.append(f"rank {r['rank']}: (1, 2) step peak "
+                         f"{tp['step_peak_bytes']} not below (2, 1)'s "
+                         f"{dp['step_peak_bytes']}")
+        f = r["tp_forward"]
+        if not (f["layer0_bit_equal"] and f["logits_rel_err"] <= TP_LOGITS_REL
+                and f["near_ties_only"] and f["int8_launches"]):
+            wrong.append(f"rank {r['rank']}: the (1, 2) mpai forward {f}")
     if wrong:
         raise AssertionError(f"train_sharded_2rank: {wrong}")
     for name, got in ranks[0]["meshes"].items():
@@ -4663,10 +4845,18 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
              collective_ms_each=[r["meshes"][name]["collective_ms"]
                                  for r in ranks],
              save_snapshot_s=got.get("save_snapshot_s"),
-             peak_gb=[r["meshes"][name]["peak_gb"] for r in ranks],
+             compute=("head-parallel" if name == "1x2" else "replicated"),
+             step_peak_gb=[r["meshes"][name]["step_peak_bytes"] / 1e9
+                           for r in ranks],
+             step_only_peak_gb=[r["meshes"][name]["step_only_peak_bytes"]
+                                / 1e9 for r in ranks],
              launches=[r["meshes"][name]["launches"] for r in ranks],
              note="gloo stages CUDA tensors through host memory: "
                   "correctness runs, not speeds")
+    emit("tp_forward", card=card, config="stablelm-1.6b", plan="mpai",
+         mesh=[1, 2], layers=SHARDED_LAYERS, weights="the (2, 1) run's",
+         logits_rel_bound=TP_LOGITS_REL,
+         ranks=[r["tp_forward"] for r in ranks])
     emit("train_sharded_restore", card=card, saved_on=[2, 1],
          restores={f"rank{r['rank']}": r["restores"] for r in ranks},
          stage_s={f"rank{r['rank']}": r["stage_s"] for r in ranks},
@@ -4674,26 +4864,39 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
     out = {f"stablelm-1.6b/train_sharded_2rank/{name}": got["launches"]
            for name, got in ranks[0]["meshes"].items()}
     for p in OLMOE_PLANS:
-        out["olmoe-1b-7b/train_sharded_2rank/2x1"
-            + ("" if p == "mpai" else f"/{p}")] = olmoe_sharded_check(
-                card, [r["olmoe"][p] for r in ranks], p)
-    return out
+        for mesh, n in olmoe_sharded_check(
+                card, [r["olmoe"][p] for r in ranks], p).items():
+            out[f"olmoe-1b-7b/train_sharded_2rank/{mesh}"
+                + ("" if p == "mpai" else f"/{p}")] = n
+    measured = {f"stablelm-1.6b/{name}": [
+        r["meshes"][name]["step_only_peak_bytes"] for r in ranks]
+        for name in ranks[0]["meshes"]}
+    for p in OLMOE_PLANS:
+        for mesh in OLMOE_MESHES:
+            measured[f"olmoe-1b-7b/{mesh}/{p}"] = [
+                r["olmoe"][p]["runs"][mesh]["step_only_peak_bytes"]
+                for r in ranks]
+    return out, measured
 
 
 def olmoe_sharded_check(card: str, ranks: list, plan_name: str) -> dict:
     """``olmoe_sharded_2rank`` under ``plan_name``: each rank's two-rank
-    run against its one-rank run (``olmoe_rank``).  Each held step (from the one-rank run's
-    state): the loss within ``OLMOE_LOSS_REL`` and each MoE call's aux loss
-    within ``OLMOE_AUX_REL`` relative, the grad norm within 5e-2 relative,
-    each gradient slice within ``SHARDED_GRAD_REL``, every MoE call through
-    the per-row path in both runs, each row's dropped slots equal but at a
+    runs against its one-rank run (``olmoe_rank``).  Each held step (from
+    the one-rank run's state) of (2, 1) and of (1, 2) (expert-parallel,
+    on the one-rank run's experts; its own router's picks part from them
+    only at near-ties): the loss within ``OLMOE_LOSS_REL`` and each MoE
+    call's aux loss within
+    ``OLMOE_AUX_REL`` relative, the grad norm within 5e-2 relative, each
+    gradient slice within ``SHARDED_GRAD_REL``, every MoE call through the
+    per-row path in both runs, each row's dropped slots equal but at a
     near-tie (``route_differences``), the ranks' histories equal and the
     flash kernels launched; after each step but the last, the parameters'
     max |diff| within ``sharded_tolerance`` and their mean within
-    ``SHARDED_MEAN_DIFF``.  Each free step (from the two-rank state): the
+    ``SHARDED_MEAN_DIFF``.  Each (1, 2) step's peak lies below (2, 1)'s
+    on each rank.  Each free step of (2, 1) (from the two-rank state): the
     per-row path, the loss within 2**-7 and the grad norm within 5e-2
     relative; its routes and gradient are reported beside where the
-    parameters parted.  Returns rank 0's launches."""
+    parameters parted.  Returns rank 0's launches by mesh."""
     from repro_torch.configs.base import TrainConfig
     tc = TrainConfig(total_steps=OLMOE_STEPS)
     wrong = []
@@ -4701,25 +4904,42 @@ def olmoe_sharded_check(card: str, ranks: list, plan_name: str) -> dict:
     def near(got, want, rel):
         return abs(got - want) <= rel * abs(want)
     for r, res in enumerate(ranks):
-        one, mesh = res["runs"]["1x1"], res["runs"]["2x1"]
-        free = mesh["free"]
-        wrong += [f"rank {r}: {w}" for w in res["route_wrong"]]
-        for s in range(OLMOE_STEPS):
-            at = f"rank {r} step {s + 1}"
-            if not near(mesh["loss"][s], one["loss"][s], OLMOE_LOSS_REL):
-                wrong.append(f"{at}: loss {mesh['loss'][s]} against "
-                             f"{one['loss'][s]}")
-            if len(mesh["aux"][s]) != len(one["aux"][s]) or not all(
-                    near(a, b, OLMOE_AUX_REL)
-                    for a, b in zip(mesh["aux"][s], one["aux"][s])):
-                wrong.append(f"{at}: aux {mesh['aux'][s]} against "
-                             f"{one['aux'][s]}")
-            if not near(mesh["grad_norm"][s], one["grad_norm"][s], 5e-2):
-                wrong.append(f"{at}: grad norm {mesh['grad_norm'][s]} "
-                             f"against {one['grad_norm'][s]}")
-            if not mesh["grad_rel_err"][s] <= SHARDED_GRAD_REL:
-                wrong.append(f"{at}: gradient {mesh['grad_rel_err'][s]} > "
-                             f"{SHARDED_GRAD_REL}")
+        one = res["runs"]["1x1"]
+        for name in OLMOE_MESHES:
+            mesh = res["runs"][name]
+            wrong += [f"rank {r} {name}: {w}" for w in res["route_wrong"][name]]
+            for s in range(OLMOE_STEPS):
+                at = f"rank {r} {name} step {s + 1}"
+                if not near(mesh["loss"][s], one["loss"][s], OLMOE_LOSS_REL):
+                    wrong.append(f"{at}: loss {mesh['loss'][s]} against "
+                                 f"{one['loss'][s]}")
+                if len(mesh["aux"][s]) != len(one["aux"][s]) or not all(
+                        near(a, b, OLMOE_AUX_REL)
+                        for a, b in zip(mesh["aux"][s], one["aux"][s])):
+                    wrong.append(f"{at}: aux {mesh['aux'][s]} against "
+                                 f"{one['aux'][s]}")
+                if not near(mesh["grad_norm"][s], one["grad_norm"][s], 5e-2):
+                    wrong.append(f"{at}: grad norm {mesh['grad_norm'][s]} "
+                                 f"against {one['grad_norm'][s]}")
+                if not mesh["grad_rel_err"][s] <= SHARDED_GRAD_REL:
+                    wrong.append(f"{at}: gradient {mesh['grad_rel_err'][s]}"
+                                 f" > {SHARDED_GRAD_REL}")
+            for s, (hi, mean) in enumerate(zip(mesh["max_abs_diff"],
+                                               mesh["mean_abs_diff"])):
+                bound = sharded_tolerance(tc, s + 1)
+                if not (hi <= bound and mean <= SHARDED_MEAN_DIFF):
+                    wrong.append(f"rank {r} {name} after step {s + 1}: "
+                                 f"params max |diff| {hi} (bound {bound}), "
+                                 f"mean {mean} (bound {SHARDED_MEAN_DIFF})")
+            if not mesh["per_row"] or not all(mesh["per_row"]):
+                wrong.append(f"rank {r} {name}: dispatch per row "
+                             f"{mesh['per_row']}")
+            n = mesh["launches"]
+            if not n["flash_attention"] or not n["flash_attention_bwd"]:
+                wrong.append(f"rank {r} {name}: launches {n}")
+            if mesh["loss"] != ranks[0]["runs"][name]["loss"]:
+                wrong.append(f"{name}: the ranks' losses differ")
+        free = res["runs"]["2x1"]["free"]
         for i, s in enumerate(range(1, OLMOE_STEPS)):
             at = f"rank {r} free step {s + 1}"
             if not near(free["loss"][i], one["loss"][s], 2 ** -7):
@@ -4731,65 +4951,67 @@ def olmoe_sharded_check(card: str, ranks: list, plan_name: str) -> dict:
         if not free["per_row"] or not all(free["per_row"]):
             wrong.append(f"rank {r}: free dispatch per row "
                          f"{free['per_row']}")
-        for s, (hi, mean) in enumerate(zip(mesh["max_abs_diff"],
-                                           mesh["mean_abs_diff"])):
-            bound = sharded_tolerance(tc, s + 1)
-            if not (hi <= bound and mean <= SHARDED_MEAN_DIFF):
-                wrong.append(f"rank {r} after step {s + 1}: params max "
-                             f"|diff| {hi} (bound {bound}), mean {mean} "
-                             f"(bound {SHARDED_MEAN_DIFF})")
-        if not mesh["per_row"] or not all(mesh["per_row"]):
-            wrong.append(f"rank {r}: dispatch per row {mesh['per_row']}")
-        n = mesh["launches"]
-        if not n["flash_attention"] or not n["flash_attention_bwd"]:
-            wrong.append(f"rank {r}: launches {n}")
-        if mesh["loss"] != ranks[0]["runs"]["2x1"]["loss"]:
-            wrong.append("the ranks' losses differ")
+        tp, dp = res["runs"]["1x2"], res["runs"]["2x1"]
+        if not tp["step_peak_bytes"] < dp["step_peak_bytes"]:
+            wrong.append(f"rank {r}: (1, 2) step peak {tp['step_peak_bytes']}"
+                         f" not below (2, 1)'s {dp['step_peak_bytes']}")
     if wrong:
         raise AssertionError(f"olmoe_sharded_2rank: {wrong}")
-    one, mesh = ranks[0]["runs"]["1x1"], ranks[0]["runs"]["2x1"]
+    one = ranks[0]["runs"]["1x1"]
     free = [r["runs"]["2x1"]["free"] for r in ranks]
-    emit("olmoe_sharded_2rank", card=card, config="olmoe-1b-7b",
-         plan=plan_name,
-         mesh=[2, 1], backend="gloo", world=2, layers=OLMOE_LAYERS,
-         shape={"seq_len": OLMOE_SHAPE[0], "batch": OLMOE_SHAPE[1]},
-         reduced=[f"layers 16 -> {OLMOE_LAYERS}",
-                  f"train_4k's 256 x 4096 -> {OLMOE_SHAPE[1]} x "
-                  f"{OLMOE_SHAPE[0]} (t * k 8192: the per-row path, which "
-                  f"a rank's 4096 alone would not take)"],
-         held="each later two-rank step starts from the one-rank run's "
-              "state; it is also run freely from the two-rank state "
-              "(free_*)",
-         loss=mesh["loss"], one_rank_loss=one["loss"],
-         loss_rel_bound=OLMOE_LOSS_REL,
-         grad_norm=mesh["grad_norm"], one_rank_grad_norm=one["grad_norm"],
-         aux=mesh["aux"], one_rank_aux=one["aux"],
-         aux_rel_bound=OLMOE_AUX_REL,
-         grad_rel_err=[r["runs"]["2x1"]["grad_rel_err"] for r in ranks],
-         grad_rel_bound=SHARDED_GRAD_REL,
-         max_abs_param_diff=[r["runs"]["2x1"]["max_abs_diff"] for r in ranks],
-         mean_abs_param_diff=[r["runs"]["2x1"]["mean_abs_diff"]
-                              for r in ranks],
-         mean_abs_param_bound=SHARDED_MEAN_DIFF,
-         parting_after_step=[r["runs"]["2x1"]["parting"] for r in ranks],
-         free_loss=free[0]["loss"], free_grad_norm=free[0]["grad_norm"],
-         free_aux=free[0]["aux"],
-         free_grad_rel_err=[f["grad_rel_err"] for f in free],
-         free_routes=[f["routes"] for f in free],
-         dropped_slots_by_call=[r["runs"]["2x1"]["dropped"] for r in ranks],
-         near_ties=[r["near_ties"] for r in ranks],
-         near_tie_bound=ROUTE_NEAR_TIE,
-         step_ms_each=[r["runs"]["2x1"]["step_ms"] for r in ranks],
-         free_step_ms_each=[f["step_ms"] for f in free],
-         one_rank_step_ms=one["step_ms"],
-         collective_ms_each=[r["runs"]["2x1"]["collective_ms"]
-                             for r in ranks],
-         peak_gb=[r["runs"]["2x1"]["peak_gb"] for r in ranks],
-         launches=[r["runs"]["2x1"]["launches"] for r in ranks],
-         note="gloo stages CUDA tensors through host memory: a "
-              "correctness run, not a speed; the routing record syncs "
-              "the host at each MoE call")
-    return mesh["launches"]
+    for name in OLMOE_MESHES:
+        mesh = ranks[0]["runs"][name]
+        runs = [r["runs"][name] for r in ranks]
+        extra = {} if name != "2x1" else dict(
+            held="each later two-rank step starts from the one-rank run's "
+                 "state; it is also run freely from the two-rank state "
+                 "(free_*)",
+            parting_after_step=[x["parting"] for x in runs],
+            free_loss=free[0]["loss"], free_grad_norm=free[0]["grad_norm"],
+            free_aux=free[0]["aux"],
+            free_grad_rel_err=[f["grad_rel_err"] for f in free],
+            free_routes=[f["routes"] for f in free],
+            free_step_ms_each=[f["step_ms"] for f in free])
+        if name == "1x2":
+            extra["held"] = ("each later step starts from the one-rank run's "
+                             "state; every step takes the one-rank run's "
+                             "experts, its own router's picks are checked "
+                             "apart (near_ties)")
+        emit("olmoe_sharded_2rank", card=card, config="olmoe-1b-7b",
+             plan=plan_name, mesh=[int(x) for x in name.split("x")],
+             compute=("expert-parallel" if name == "1x2" else "replicated"),
+             backend="gloo", world=2, layers=OLMOE_LAYERS,
+             shape={"seq_len": OLMOE_SHAPE[0], "batch": OLMOE_SHAPE[1]},
+             reduced=[f"layers 16 -> {OLMOE_LAYERS}",
+                      f"train_4k's 256 x 4096 -> {OLMOE_SHAPE[1]} x "
+                      f"{OLMOE_SHAPE[0]} (t * k 8192: the per-row path, "
+                      f"which a rank's 4096 alone would not take)"],
+             loss=mesh["loss"], one_rank_loss=one["loss"],
+             loss_rel_bound=OLMOE_LOSS_REL,
+             grad_norm=mesh["grad_norm"],
+             one_rank_grad_norm=one["grad_norm"],
+             aux=mesh["aux"], one_rank_aux=one["aux"],
+             aux_rel_bound=OLMOE_AUX_REL,
+             grad_rel_err=[x["grad_rel_err"] for x in runs],
+             grad_rel_bound=SHARDED_GRAD_REL,
+             max_abs_param_diff=[x["max_abs_diff"] for x in runs],
+             mean_abs_param_diff=[x["mean_abs_diff"] for x in runs],
+             mean_abs_param_bound=SHARDED_MEAN_DIFF,
+             dropped_slots_by_call=[x["dropped"] for x in runs],
+             near_ties=[r["near_ties"][name] for r in ranks],
+             near_tie_bound=ROUTE_NEAR_TIE,
+             step_ms_each=[x["step_ms"] for x in runs],
+             one_rank_step_ms=one["step_ms"],
+             collective_ms_each=[x["collective_ms"] for x in runs],
+             step_peak_gb=[x["step_peak_bytes"] / 1e9 for x in runs],
+             step_only_peak_gb=[x["step_only_peak_bytes"] / 1e9
+                                for x in runs],
+             launches=[x["launches"] for x in runs],
+             note="gloo stages CUDA tensors through host memory: a "
+                  "correctness run, not a speed; the routing record syncs "
+                  "the host at each MoE call", **extra)
+    return {name: ranks[0]["runs"][name]["launches"]
+            for name in OLMOE_MESHES}
 
 
 RWKV_TRAIN_STEPS = 3
@@ -4855,7 +5077,7 @@ def rwkv_train_full_width_phase(dev, card: str, wk, keep=None) -> dict:
 DRYRUN_PEAK_BAND = 0.10         # predicted peak within 10% of the measured
 
 
-def dryrun_phase(card: str, measured: dict) -> None:
+def dryrun_phase(card: str, measured: dict, two_rank: dict) -> None:
     """The dry run (``repro_torch.launch.dryrun``, a fake world of one rank
     on the CPU, no device) of the two bf16 training runs just measured:
     StableLM-2 1.6B at ``TRAIN_SHAPE`` and RWKV-6 3B at ``RWKV_TRAIN_SHAPE``
@@ -4865,7 +5087,7 @@ def dryrun_phase(card: str, measured: dict) -> None:
     ``torch.cuda.max_memory_allocated()``.  Prints the roofline's terms,
     ``model_flops`` over the measured median step as a share of the bf16
     peak, and the dry run's seconds.  ``measured``: ``{arch: train_plans'
-    keep}``."""
+    keep}``.  Then ``dryrun_two_rank``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import MeshConfig, ShapeConfig
     from repro_torch.launch import dryrun, specs
@@ -4911,6 +5133,46 @@ def dryrun_phase(card: str, measured: dict) -> None:
             raise AssertionError(f"dryrun {arch}: predicted peak "
                                  f"{st['peak_bytes']} bytes, measured "
                                  f"{run['peak_bytes']} ({peak_err:+.1%})")
+    dryrun_two_rank(card, two_rank)
+
+
+def dryrun_two_rank(card: str, two_rank: dict) -> None:
+    """The (1, 2) runs of ``train_sharded_2rank``, which compute head- and
+    expert-parallel, through the dry run as rank 0 of a fake world of two:
+    the traced peak within ``DRYRUN_PEAK_BAND`` of the largest measured
+    step of a rank, less what the rank held beside its state
+    (``step_peak_end``; ``two_rank``: ``{run: [bytes a rank]}``)."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig
+    from repro_torch.configs.olmoe_1b_7b import FULL as OLMOE
+    from repro_torch.configs.stablelm_1_6b import FULL as STABLELM
+    from repro_torch.launch import dryrun
+    tp_mesh = MeshConfig((1, 2), ("data", "model"))
+    for key, cfg, (seq, batch), plan in (
+            ("stablelm-1.6b/1x2", STABLELM.with_(
+                num_layers=SHARDED_LAYERS, fsdp=True,
+                grad_accum=SHARDED_ACCUM), TRAIN_SHAPE, "bf16"),
+            *((f"olmoe-1b-7b/1x2/{p}", OLMOE.with_(num_layers=OLMOE_LAYERS),
+               OLMOE_SHAPE, p) for p in OLMOE_PLANS)):
+        shape = ShapeConfig("two_rank", seq, batch, "train")
+        t0 = time.perf_counter()
+        with dryrun.fake_world(2):
+            st = dryrun.trace_cell(cfg, shape, tp_mesh, plan)
+        seconds = time.perf_counter() - t0
+        got = max(two_rank[key])
+        peak_err = st["peak_bytes"] / got - 1
+        emit("dryrun", card=card, config=cfg.name, run=key,
+             shape={"seq_len": seq, "batch": batch}, mesh="1x2", plan=plan,
+             execution=st["execution"], dryrun_s=seconds,
+             peak_bytes_predicted=st["peak_bytes"],
+             peak_bytes_measured_each=two_rank[key],
+             peak_relative_err=peak_err, peak_band=DRYRUN_PEAK_BAND,
+             collective_counts=st["collective_counts"],
+             collective_bytes_by_link=st["collective_bytes_by_link"],
+             kernel_calls=st["kernel_calls"])
+        if abs(peak_err) > DRYRUN_PEAK_BAND:
+            raise AssertionError(f"dryrun {key}: predicted peak "
+                                 f"{st['peak_bytes']} bytes, measured "
+                                 f"{got} ({peak_err:+.1%})")
 
 
 # the train launcher on the card, each a main path of its own: the audio
@@ -5034,6 +5296,31 @@ def run_twin(fn, *args):
     torch.cuda.synchronize()
     return res, out.getvalue().splitlines(), launch_counts(), \
         time.perf_counter() - t0
+
+
+def uninterrupted_100m(twin, cfg, state, steps: int, dev):
+    """``train_100m``'s run without the fault, continued from ``state`` (the
+    faulted run's checkpointed state) to ``steps``, with the twin's
+    trainer: ``(state, the history of those steps)``."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.core import qat
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.runtime.train_loop import Trainer
+    shape = ShapeConfig("train", 512, 8, "train")
+    tc = TrainConfig(learning_rate=6e-4, warmup_steps=30, total_steps=steps,
+                     checkpoint_every=25)
+    tr = Trainer(cfg, shape, MeshConfig((1, 1), ("data", "model")), tc,
+                 plan=qat.train_plan(PartitionPlan.mpai(cfg.num_layers)),
+                 device=dev)
+    hist = []
+
+    def observe(s, st, m):
+        hist.append({"step": s + 1, "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"])})
+    state, _ = tr.run(state, lambda s: lm_batch(cfg, shape, s, device=dev),
+                      steps - int(state.step), on_step=observe)
+    return state, hist
 
 
 def to_cpu(tree):
@@ -5165,21 +5452,33 @@ def examples_phase(dev, card: str, fa) -> dict:
     with contextlib.redirect_stdout(None):
         cfg = twin.model_config(640, 12, 50304)
     (ROOT / "build").mkdir(exist_ok=True)
-    runs = {}
-    for fault in (True, False):
-        d = tempfile.mkdtemp(prefix="example_100m_", dir=ROOT / "build")
-        try:
-            runs[fault] = run_twin(twin.train, cfg, 512, 8,
-                                   EXAMPLE_100M_STEPS, d, fault, dev)
-        finally:
-            shutil.rmtree(d, ignore_errors=True)
-    (a, hist_a, restarts_a), _, n_a, wall_a = runs[True]
-    (b, hist_b, restarts_b), _, n_b, wall_b = runs[False]
+    # the faulted run, its step-FAULT_AT checkpoint kept in memory as it is
+    # saved; then the uninterrupted twin runs on from that state (the steps
+    # before it are the faulted run's, bit for bit, by determinism)
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tree import tree_map
+    saved = {}
+
+    def keep(self, step, state, *a, **kw):
+        if step == twin.FAULT_AT and step not in saved:
+            saved[step] = tree_map(torch.clone, state)
+        return real_save(self, step, state, *a, **kw)
+    d = tempfile.mkdtemp(prefix="example_100m_", dir=ROOT / "build")
+    try:
+        with patched(CheckpointManager, "save", keep) as real_save:
+            (a, hist_a, restarts_a), _, n_a, wall_a = run_twin(
+                twin.train, cfg, 512, 8, EXAMPLE_100M_STEPS, d, True, dev)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (b, hist_b), _, n_b, wall_b = run_twin(
+        uninterrupted_100m, twin, cfg, saved.pop(twin.FAULT_AT),
+        EXAMPLE_100M_STEPS, dev)
     equal = all(torch.equal(x, y) for x, y in zip(
         tree_leaves((a.params, a.opt)), tree_leaves((b.params, b.opt))))
-    if (restarts_a, restarts_b) != (1, 0) or not equal or \
-            hist_a != hist_b or int(a.step) != EXAMPLE_100M_STEPS:
-        wrong.append(f"train_100m: restarts {restarts_a}/{restarts_b}, "
+    if restarts_a != 1 or not equal or \
+            hist_a[twin.FAULT_AT:] != hist_b or \
+            int(a.step) != EXAMPLE_100M_STEPS:
+        wrong.append(f"train_100m: restarts {restarts_a}, "
                      f"bit-equal {equal}, step {int(a.step)}")
     row = FLASH_BWD_ROWS[fa.bwd_route(torch.bfloat16,
                                       cfg.resolved_head_dim())][0]
@@ -5188,11 +5487,12 @@ def examples_phase(dev, card: str, fa) -> dict:
          params=cfg.param_count(), d_model=cfg.d_model,
          layers=cfg.num_layers, vocab=cfg.vocab_size, seq_len=512, batch=8, steps=EXAMPLE_100M_STEPS, fault_at=25,
          restarts=restarts_a, bit_equal_to_uninterrupted=equal,
+         uninterrupted_from_step=twin.FAULT_AT,
          loss=[h["loss"] for h in hist_a[::5]] + [hist_a[-1]["loss"]],
          wall_s_faulted=wall_a, wall_s_uninterrupted=wall_b)
     out["examples/train_100m"] = n_a
     out["examples/train_100m/uninterrupted"] = n_b
-    del a, b, runs
+    del a, b
     gc.collect()
     torch.cuda.empty_cache()
     if wrong:
@@ -5285,8 +5585,8 @@ def main() -> int:
                                                    one_device).items():
             for name, n in by_kernel.items():
                 launches[name][f"stablelm-1.6b/train_sharded/{plan}"] = n
-        for run, by_kernel in train_sharded_2rank_phase(card,
-                                                        *ranks).items():
+        by_run, two_rank = train_sharded_2rank_phase(card, *ranks)
+        for run, by_kernel in by_run.items():
             for name, n in by_kernel.items():
                 launches[name][run] = n
     finally:
@@ -5296,7 +5596,7 @@ def main() -> int:
             dev, card, wk, measured["rwkv6-3b"]).items():
         for name, n in by_kernel.items():
             launches[name][f"rwkv6-3b/train/{plan}"] = n
-    dryrun_phase(card, measured)
+    dryrun_phase(card, measured, two_rank)
     for config, by_kernel in launch_train_phase(card).items():
         for name, n in by_kernel.items():
             launches[name][f"{config}/launch_train"] = n

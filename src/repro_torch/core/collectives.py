@@ -1,5 +1,6 @@
-"""The batch group: the ranks among which a mesh step splits its global
-batch, as the model's functions see them.
+"""The batch group and the model group: the ranks among which a mesh step
+splits its global batch, and the ranks among which it splits the model's
+heads, vocab and experts, as the model's functions see them.
 
 The reference's jitted step on a mesh reads whole tensors: a per-tensor
 activation scale takes the absmax of the global batch, and MoE routing
@@ -19,6 +20,29 @@ group:
   of rows, so the global token count is the rank's times this, with no
   collective and no wait for the host.
 
+The model group (:func:`model_group`) is the model axis under
+``sharding_mode == "tp"``: each rank holds its part of the attention
+heads, the dense MLPs' hidden units, the vocab and the MoE experts, and
+computes on that part alone (``sharding.head_parallel``).  Every other
+value (the residual stream, norms, the router, the loss) is replicated:
+the same bits on every rank of the group.  Megatron's conjugate pair keeps
+it so:
+
+* :func:`to_model` — identity forward, all-reduce of the gradient in the
+  backward: the input of a column-parallel block, whose gradient each
+  rank holds only the part of that its columns give;
+* :func:`from_model` — all-reduce forward, identity backward: the output
+  of a row-parallel block, whose partial sums each rank holds;
+
+with :func:`model_max` (an exact ``MAX`` of a scale's absmax, no
+gradient), :func:`model_gather` (an all-gather along a dim, whose
+backward keeps the rank's part) and :func:`model_rank` /
+:func:`model_ranks`.  ``core/quantization.pdot`` folds the pair into
+its split products, in f32: a column-parallel product all-reduces its
+input's gradient, a row-parallel one its output.  The ring all-reduces
+of gloo and NCCL hand every rank the same bits, so what is replicated
+stays identical.
+
 Outside a group (one device, or a mesh whose batch is whole on every rank)
 every function returns its input and the model runs exactly as it does
 alone.  A group of one rank is no group.  Every rank of a group runs the
@@ -33,6 +57,9 @@ import torch
 
 _GROUP = None          # the process group of the batch axes, or None
 _RANKS = 1
+_MGROUP = None         # the process group of the model axis, or None
+_MRANKS = 1
+_MRANK = 0
 
 
 @contextlib.contextmanager
@@ -87,3 +114,117 @@ def batch_sum(t: torch.Tensor) -> torch.Tensor:
     if _GROUP is None:
         return t
     return _SumOverGroup.apply(t, _GROUP)
+
+
+# ---------------------------------------------------------------------------
+# The model group
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def model_group(group, ranks: int, rank: int):
+    """While inside, the model's head-parallel functions compute on this
+    rank's part (``rank`` of ``ranks``, in ``group``'s order) of the model
+    axis; ``ranks == 1`` enters no group."""
+    global _MGROUP, _MRANKS, _MRANK
+    saved = _MGROUP, _MRANKS, _MRANK
+    _MGROUP, _MRANKS, _MRANK = ((group, ranks, rank) if ranks > 1
+                                else (None, 1, 0))
+    try:
+        yield
+    finally:
+        _MGROUP, _MRANKS, _MRANK = saved
+
+
+def model_ranks() -> int:
+    """The number of ranks that split the model (1 outside a group)."""
+    return _MRANKS
+
+
+def model_rank() -> int:
+    """This rank's part of the model axis (0 outside a group)."""
+    return _MRANK
+
+
+def model_process_group():
+    """The model group's process group (None outside a group)."""
+    return _MGROUP
+
+
+def model_max(amax: torch.Tensor) -> torch.Tensor:
+    """``amax`` (a detached absmax) all-reduced with ``MAX`` over the
+    model group, in place; ``amax`` itself outside one."""
+    if _MGROUP is not None:
+        import torch.distributed as dist
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=_MGROUP)
+    return amax
+
+
+def _all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    import torch.distributed as dist
+    out = t.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _ToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _all_reduce(g, ctx.group), None
+
+
+class _FromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g, None
+
+
+def to_model(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (replicated) as the input of a column-parallel block: its
+    gradient is summed over the model group's ranks; ``t`` itself outside
+    a group."""
+    if _MGROUP is None:
+        return t
+    return _ToModel.apply(t, _MGROUP)
+
+
+def from_model(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the model group of each rank's partial ``t`` (a
+    row-parallel block's output), replicated; the gradient passes as it
+    is.  ``t`` itself outside a group."""
+    if _MGROUP is None:
+        return t
+    return _FromModel.apply(t, _MGROUP)
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dim: int, group, ranks: int,
+                rank: int) -> torch.Tensor:
+        import torch.distributed as dist
+        ctx.dim, ctx.rank, ctx.size = dim, rank, t.shape[dim]
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(ranks)]
+        dist.all_gather(parts, t, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        lo = ctx.rank * ctx.size
+        return g.narrow(ctx.dim, lo, ctx.size), None, None, None, None
+
+
+def model_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' parts ``t`` concatenated along ``dim`` in rank order
+    (an all-gather), replicated; the gradient of a replicated consumer is
+    the rank's part of the incoming one.  ``t`` itself outside a group."""
+    if _MGROUP is None:
+        return t
+    return _GatherModel.apply(t, dim, _MGROUP, _MRANKS, _MRANK)

@@ -13,22 +13,28 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
 
 * train cells run ``Trainer._sharded_step`` on a ``TrainState`` of the
   rank's parts (``sharding.param_specs``), built from ``specs.
-  param_structs`` without ``init_state``: it gathers the parameters, runs
-  forward and backward on the rank's rows of the batch inside the batch
-  group (``core/collectives.py``: per-tensor activation scales and MoE
-  routing over the global batch), all-reduces the gradients and runs
-  AdamW on the rank's slices;
+  param_structs`` without ``init_state``: it gathers the parameters'
+  data-axis parts (the head-parallel leaves, ``sharding.head_parallel``,
+  keep their model-axis part; Mamba and RWKV-6 leaves are gathered whole),
+  runs forward and backward on the rank's rows of the batch inside the
+  batch group and the model group (``core/collectives.py``: per-tensor
+  activation scales and MoE routing over the global batch; column- and
+  row-parallel projections, head-local attention, a vocab-parallel
+  embedding, head and loss, expert-parallel MoE), all-reduces the
+  gradients over the batch's ranks and runs AdamW on the rank's slices;
 * prefill and decode cells lay the parameters out the same way (int8
   structs under ``--plan mpai``, bf16 otherwise) and the cache by
-  ``sharding.cache_specs``, gather the parameters (and the cache's heads)
-  and run ``T.forward`` / ``T.decode_step`` on the rank's rows, inside
-  the same batch group over the batch's axes (under ``--plan mpai`` the
-  scales' all-reduces; an MoE layer's dispatch path on the global token
-  count, and its load-balancing sums, which XLA drops from the
-  reference's serving cells as unused).
+  ``sharding.cache_specs``, gather the same parts (the attention cache
+  keeps the rank's heads; Mamba and RWKV-6 states are gathered over the
+  model axis) and run ``T.forward`` / ``T.decode_step`` on the rank's
+  rows inside the same two groups (under ``--plan mpai`` the scales'
+  all-reduces; an MoE layer's dispatch path on the global token count,
+  and its load-balancing sums, which XLA drops from the reference's
+  serving cells as unused).
 
-So every row describes replicated compute with gathered parameters
-(``"execution"``).
+Every row says so (``"execution"``).  A tensor-parallel all-reduce is
+counted like any collective, on the link ``roofline.link_of`` gives its
+ranks: on 16 x 16 the 16-rank model axis spans two 8-card nodes.
 
 While a cell is traced each front door of ``kernels/ops.py`` is a
 stand-in that allocates what the kernel's wrapper allocates on the card
@@ -80,7 +86,8 @@ from repro_torch.launch.mesh import (make_mesh_from_config,
 from repro_torch.models import transformer as T
 from repro_torch.runtime.train_loop import Trainer
 
-EXECUTION = "replicated compute, parameters gathered"
+EXECUTION = ("head-parallel compute on the model axis; data-axis parts "
+             "gathered")
 CARD_BYTES = 80e9            # an H100 80GB's memory, as fits_80gb reads it
 SMS = 132                    # H100 SXM5 streaming multiprocessors
 
@@ -123,6 +130,8 @@ class Tally:
         self.coll_bytes: Dict[str, float] = {}
         self.coll_counts: Dict[str, int] = {}
         self.link_bytes = {k: 0.0 for k in roofline.LINK_BW}
+        # (kind, operand shape, the group's ranks) in call order
+        self.coll_calls = []
 
     def kernel(self, name: str, **shapes) -> None:
         flops, nbytes, _ = roofline.kernel_work(name, **shapes)
@@ -130,10 +139,12 @@ class Tally:
         self.kernel_bytes += nbytes
         self.kernel_calls.append((name, shapes))
 
-    def collective(self, kind: str, operand_bytes: int, group) -> None:
+    def collective(self, kind: str, operand_bytes: int, group,
+                   shape=()) -> None:
         import torch.distributed as dist
         ranks = dist.get_process_group_ranks(group) if group is not None \
             else list(range(dist.get_world_size()))
+        self.coll_calls.append((kind, tuple(shape), tuple(ranks)))
         self.coll_bytes[kind] = self.coll_bytes.get(kind, 0) + operand_bytes
         self.coll_counts[kind] = self.coll_counts.get(kind, 0) + 1
         self.link_bytes[roofline.link_of(ranks)] += roofline.wire_bytes(
@@ -166,11 +177,11 @@ def counted_collectives(tally: Tally):
     import torch.distributed as dist
 
     def all_gather(out, t, group=None, async_op=False):
-        tally.collective("all-gather", _nbytes(t), group)
+        tally.collective("all-gather", _nbytes(t), group, t.shape)
         return real["all_gather"](out, t, group=group, async_op=async_op)
 
     def all_reduce(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
-        tally.collective("all-reduce", _nbytes(t), group)
+        tally.collective("all-reduce", _nbytes(t), group, t.shape)
         return real["all_reduce"](t, op=op, group=group, async_op=async_op)
 
     wrappers = {"all_gather": all_gather, "all_reduce": all_reduce}
@@ -377,21 +388,26 @@ def _local(like: torch.Tensor, spec, mesh_cfg: MeshConfig, coord,
                        dtype=like.dtype, device=device)
 
 
+_ATTENTION_CACHE = ("k", "v", "k_scale", "v_scale")
+
+
 class _CacheLayout:
     """The decode cache as ``specs.cache_structs`` stacks it, its specs
     (``sharding.cache_specs``), the same specs with the batch entry whole
-    (the rank keeps its rows and gathers its heads) and ``T.init_cache``'s
-    structure, which ``T.decode_step`` takes (per-super-block lists for the
-    recurrent sublayers)."""
+    (the rank keeps its rows and gathers its heads; with ``head_local`` an
+    attention cache keeps its heads too, and only the recurrent states are
+    gathered) and ``T.init_cache``'s structure, which ``T.decode_step``
+    takes (per-super-block lists for the recurrent sublayers)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
-                 mesh_cfg: MeshConfig, tp: int):
+                 mesh_cfg: MeshConfig, tp: int, head_local: bool = False):
         self.structs = S.cache_structs(cfg, shape, tp)
         self.specs = shard.cache_specs(cfg, self.structs, shape, mesh_cfg)
         b_ax = shard.P(shard.batch_axes(shape.global_batch, mesh_cfg))[0]
-        self.rows = tree_map(lambda sp: shard.P(*(
-            None if e == b_ax and e is not None else e for e in sp)),
-            self.specs)
+        self.rows = shard._map_with_path(lambda path, sp: shard.P(*(
+            None if e == b_ax and e is not None
+            or head_local and shard._leaf_name(path) in _ATTENTION_CACHE
+            else e for e in sp)), self.specs)
         self.like = T.init_cache(cfg, 1, 1, tp, device="meta")
         self.mesh_cfg = mesh_cfg
 
@@ -401,8 +417,8 @@ class _CacheLayout:
                         self.structs, self.specs)
 
     def gathered(self, parts, pl: shard.Placement):
-        """The rows' cache, every head gathered, in ``T.init_cache``'s
-        structure."""
+        """The rows' cache, its heads gathered as ``self.rows`` says, in
+        ``T.init_cache``'s structure."""
         whole = tree_map(lambda t, sp: shard.unshard(
             t, sp, _rows_shape(t, sp, self.mesh_cfg), self.mesh_cfg,
             pl.group), parts, self.rows)
@@ -458,8 +474,15 @@ class Cell:
         self.specs = shard.param_specs(cfg, self.like, mesh_cfg)
         self.params = shard.TreeSharding(self.placement, self.specs,
                                          self.like)
+        # the model group the serving step enters, as the Trainer does
+        self.head_parallel = shard.head_parallel(cfg, self.like, mesh_cfg)
+        self.model_ranks = (1 if self.head_parallel is None else
+                            self.placement.group_size((shard.MODEL,)))
+        self.model_group = (self.placement.group((shard.MODEL,))
+                            if self.model_ranks > 1 else None)
         if shape.kind == "decode":
-            self.cache = _CacheLayout(cfg, shape, mesh_cfg, self.tp)
+            self.cache = _CacheLayout(cfg, shape, mesh_cfg, self.tp,
+                                      head_local=self.model_ranks > 1)
             b_ax = shard.P(shard.batch_axes(shape.global_batch, mesh_cfg))
         else:
             b_ax = shard.data_specs(cfg, shape, mesh_cfg)["tokens"]
@@ -491,21 +514,25 @@ class Cell:
         """The step on the rank's parts; returns what it outputs."""
         if self.shape.kind == "train":
             return self.trainer._sharded_step(*args)
-        with collectives.batch_group(self.batch_group, self.batch_ranks):
+        with collectives.batch_group(self.batch_group, self.batch_ranks), \
+                collectives.model_group(
+                    self.model_group, self.model_ranks,
+                    self.placement.coord.get(shard.MODEL, 0)):
             return self._serve_step(*args)
 
     def _serve_step(self, *args):
         """Prefill or decode on the rank's rows."""
         cfg, plan, tp = self.cfg, self.plan, self.tp
+        hp = self.head_parallel
         if self.shape.kind == "prefill":
             params, batch = args
-            full = self.params.unshard(params)
+            full = self.params.unshard(params, keep_model=hp)
             return T.forward(full, cfg, batch["tokens"], plan, tp,
                              frontend_embeds=batch.get("frontend_embeds")
                              ).logits
         params, tokens, parts = args
         cache = self.cache.gathered(parts, self.placement)
-        full = self.params.unshard(params)
+        full = self.params.unshard(params, keep_model=hp)
         logits = T.decode_step(full, cfg, tokens, cache, plan, tp).logits
         # the reference donates the cache: the step's new cache is the
         # rank's parts, rewritten

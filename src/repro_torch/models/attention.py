@@ -21,6 +21,15 @@ Paths:
   * dense decode — against a :class:`KVCache` (the windowed loop; ring
     buffer under a sliding window, int8 KV written by the row-wise quant
     kernel's fused KV write)
+
+Inside the model group (``core/collectives.py``) attention is head-local:
+``wq`` / ``wk`` / ``wv`` are column-parallel, so the rank holds ``KVp /
+tp`` kv slots and, since the layout puts each slot's q heads under it,
+exactly their ``Hp / tp`` q heads; q/k norms and rope act per head (the
+norms' replicated scales through ``to_model``, so their gradients sum
+over the ranks' heads), a dense cache holds the rank's kv heads and
+``wo`` is row-parallel.  The paged paths belong to the one-device engine
+and refuse a group.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 from repro_torch.kernels import ops as kops
@@ -181,12 +191,16 @@ def _project_qkv(params, cfg: ModelConfig, x, positions,
                  policy: PrecisionPolicy):
     hd = cfg.resolved_head_dim()
     b, s, _ = x.shape
-    q = pdot(x, params["wq"], policy).reshape(b, s, -1, hd)
-    k = pdot(x, params["wk"], policy).reshape(b, s, -1, hd)
-    v = pdot(x, params["wv"], policy).reshape(b, s, -1, hd)
+    q = pdot(x, params["wq"], policy, split="col").reshape(b, s, -1, hd)
+    k = pdot(x, params["wk"], policy, split="col").reshape(b, s, -1, hd)
+    v = pdot(x, params["wv"], policy, split="col").reshape(b, s, -1, hd)
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        # a replicated scale over the rank's heads: its gradient sums the
+        # ranks' parts
+        q = rmsnorm({"scale": collectives.to_model(params["q_norm"]["scale"])},
+                    q, cfg.norm_eps)
+        k = rmsnorm({"scale": collectives.to_model(params["k_norm"]["scale"])},
+                    k, cfg.norm_eps)
     if cfg.rope_theta:          # theta == 0 -> no positional rotation (Jamba)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -222,7 +236,7 @@ def attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
         attend = chunked_attention if chunked else full_attention
         out = attend(q, k, v, pos1, pos1, window)
     out = out.reshape(b, s, -1)
-    return pdot(out, params["wo"], policy), k, v
+    return pdot(out, params["wo"], policy, split="row"), k, v
 
 
 class KVCache(NamedTuple):
@@ -251,15 +265,17 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
                   lead: Tuple[int, ...] = (), device="cuda") -> KVCache:
     """A fresh dense cache (``lead`` prepends stacking axes, e.g. the
     super-block axis): bf16 k/v, or int8 k/v with f32 scales of one when
-    ``cfg.kv_cache_dtype == "int8"``; a sliding window bounds its length."""
+    ``cfg.kv_cache_dtype == "int8"``; a sliding window bounds its length.
+    Inside the model group it holds the rank's ``KVp / tp`` kv heads."""
     lay = head_layout(cfg.num_heads, cfg.num_kv_heads, tp)
     hd = cfg.resolved_head_dim()
     length = (min(max_len, cfg.sliding_window) if cfg.sliding_window
               else max_len)
-    shape = (*lead, batch, length, lay.KVp, hd)
+    heads = lay.KVp // collectives.model_ranks()
+    shape = (*lead, batch, length, heads, hd)
     pos = torch.zeros(lead, dtype=torch.int32, device=device)
     if cfg.kv_cache_dtype == "int8":
-        sshape = (*lead, batch, length, lay.KVp, 1)
+        sshape = (*lead, batch, length, heads, 1)
         return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
                        torch.zeros(shape, dtype=torch.int8, device=device),
                        pos,
@@ -313,7 +329,15 @@ def decode_attention_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bkgst,btkd->bskgd", w,
                        _cache_deq(cache.v, cache.v_scale))
     out = out.to(x.dtype).reshape(b, 1, -1)
-    return pdot(out, params["wo"], policy)
+    return pdot(out, params["wo"], policy, split="row")
+
+
+def _one_device(what: str) -> None:
+    """The paged paths serve the one-device engine: inside a model group
+    of several ranks they would attend over part of the heads."""
+    if collectives.model_ranks() > 1:
+        raise ValueError(f"{what} runs on one device; it is inside a model "
+                         f"group of {collectives.model_ranks()} ranks")
 
 
 def paged_decode_attention_apply(params: Dict, cfg: ModelConfig,
@@ -329,6 +353,7 @@ def paged_decode_attention_apply(params: Dict, cfg: ModelConfig,
     The new token is appended into the slot's current block (in place)
     and attention walks the block table in the kernel — the full KV is
     never materialized."""
+    _one_device("paged decode")
     b = x.shape[0]
     hd = cfg.resolved_head_dim()
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
@@ -338,7 +363,7 @@ def paged_decode_attention_apply(params: Dict, cfg: ModelConfig,
     out = kops.paged_attention(qh, state.k_pool, state.v_pool,
                                state.block_table, state.lengths)
     out = out.reshape(b, 1, -1).to(x.dtype)
-    return pdot(out, params["wo"], policy)
+    return pdot(out, params["wo"], policy, split="row")
 
 
 def paged_chunk_attention_apply(params: Dict, cfg: ModelConfig,
@@ -354,6 +379,7 @@ def paged_chunk_attention_apply(params: Dict, cfg: ModelConfig,
     sequence's blocks first (in place), then attention reads the pool back
     through the block-table walk — queries see the paged prefix written by
     earlier chunks plus the in-chunk causal triangle."""
+    _one_device("paged chunk prefill")
     b, c, _ = x.shape
     hd = cfg.resolved_head_dim()
     q, k, v = _project_qkv(params, cfg, x, positions, policy)
@@ -363,4 +389,4 @@ def paged_chunk_attention_apply(params: Dict, cfg: ModelConfig,
     out = kops.paged_chunk_attention(qh, state.k_pool, state.v_pool,
                                      state.block_table[seq], positions[0])
     out = out.reshape(b, c, -1).to(x.dtype)
-    return pdot(out, params["wo"], policy)
+    return pdot(out, params["wo"], policy, split="row")

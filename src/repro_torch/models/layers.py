@@ -4,6 +4,12 @@ Every matmul routes through :func:`repro_torch.core.quantization.pdot` so
 the MPAI precision policy of the enclosing segment applies uniformly.
 Norms and rotary phases always run in fp32.  Parameters are f32 masters,
 cast (or quantized) at use, as in the reference.
+
+Inside the model group (``core/collectives.py``) the MLP, the embedding,
+the LM head and the loss compute on the rank's part: ``w_in`` / ``w_gate``
+column-parallel and ``w_out`` row-parallel, the table's rows of the
+rank's vocab slice, logits of its vocab columns and a vocab-parallel
+cross-entropy that never gathers them.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 
@@ -164,12 +171,12 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str = "silu",
               glu: bool = True,
               policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
     a = silu if act == "silu" else gelu
-    h = pdot(x, params["w_in"], policy)
+    h = pdot(x, params["w_in"], policy, split="col")
     if glu:
-        h = a(pdot(x, params["w_gate"], policy)) * h
+        h = a(pdot(x, params["w_gate"], policy, split="col")) * h
     else:
         h = a(h)
-    return pdot(h, params["w_out"], policy)
+    return pdot(h, params["w_out"], policy, split="row")
 
 
 # ---------------------------------------------------------------------------
@@ -182,19 +189,32 @@ def embedding_init(vocab: int, d_model: int, generator: torch.Generator,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
+    """The rows of ``tokens``, cast to ``dtype``.  Inside the model group
+    ``table`` is the rank's vocab slice: each rank looks up the tokens it
+    owns (the others' rows zeroed) and an all-reduce in f32 sums one row
+    and zeros, exactly, before the cast; the backward touches only the
+    owned rows."""
     # gather the rows first, then cast: the same values as the reference's
     # table.astype(dtype)[tokens] without a bf16 copy of the whole table.
     # F.embedding, not table[tokens]: the gradient of an index is an
     # index_put_ with atomics on the card, embedding's backward sums each
     # row in a fixed order, so a training step repeats bit for bit
-    return F.embedding(tokens, table).to(dtype)
+    if collectives.model_ranks() == 1:
+        return F.embedding(tokens, table).to(dtype)
+    vocab = table.shape[0]
+    local = tokens - collectives.model_rank() * vocab
+    own = (local >= 0) & (local < vocab)
+    rows = F.embedding(local.clamp(0, vocab - 1), table).float()
+    rows = torch.where(own[..., None], rows, 0.0)
+    return collectives.from_model(rows).to(dtype)
 
 
 def lm_logits(table: torch.Tensor, x: torch.Tensor,
               policy: PrecisionPolicy = DEFAULT_POLICY) -> torch.Tensor:
-    """Logits against the (possibly tied) embedding table [V, D]."""
-    dt = policy.precision.compute_dtype
-    return torch.matmul(x.to(dt), table.to(dt).T)
+    """Logits against the (possibly tied) embedding table [V, D]: inside
+    the model group, the rank's vocab columns."""
+    # a raw product in the policy's compute dtype, whatever its mode
+    return pdot(x, table.T, PrecisionPolicy(policy.precision), split="col")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -203,8 +223,25 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logits tensor from being gathered); one logit plus zeros is that logit
     exactly, so a gather gives the same value without the [tokens, vocab]
     mask and its gradient (2 x 6.6 GB at StableLM-2's 16,384 tokens x
-    100,352)."""
+    100,352).
+
+    Inside the model group ``logits`` are the rank's vocab columns and the
+    loss is vocab-parallel: the local max then ``model_max``, the local sum
+    of exponentials then an all-reduce, and the gold logit from the rank
+    that owns it then an all-reduce; the log-sum-exp then sums in another
+    order than ``torch.logsumexp``."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    if collectives.model_ranks() == 1:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+        return torch.mean(lse - gold)
+    vocab = logits.shape[-1]
+    m = collectives.model_max(logits.detach().amax(dim=-1))
+    total = collectives.from_model(
+        torch.exp(logits - m[..., None]).sum(dim=-1))
+    lse = m + torch.log(total)
+    local = labels.long() - collectives.model_rank() * vocab
+    own = (local >= 0) & (local < vocab)
+    gold = torch.gather(logits, -1, local.clamp(0, vocab - 1)[..., None])
+    gold = collectives.from_model(torch.where(own, gold[..., 0], 0.0))
     return torch.mean(lse - gold)

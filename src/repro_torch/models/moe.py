@@ -15,6 +15,15 @@ capacity and slots are its own in the per-row path and nothing is dropped
 in the flat one, and the load-balancing loss takes its assignment counts
 and mean probabilities over the group.
 
+Inside the model group (``core/collectives.py``) the experts are
+expert-parallel: a rank holds ``E / tp`` of them.  The router stays
+replicated, so routing, slots, capacity and the load-balancing loss come
+out identical on every rank; the rank runs its experts on its slice of
+the dispatch buffer, all-gathers their outputs over the expert dim and
+combines as one device does, so the forward is one device's, bit for bit
+where the experts' products are.  The dispatch input goes through
+``to_model``: the gradient a rank's experts give it is all-reduced.
+
 Routers run in f32 and are never quantized.  The expert products are bf16
 einsums in the policy's compute dtype, as in the reference (XLA code
 there, not a Pallas kernel), so ``"mpai"`` leaves them unquantized; a
@@ -58,7 +67,9 @@ def moe_init(n: int, d_model: int, moe: MoEConfig, glu: bool,
 
 def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
                 policy: PrecisionPolicy) -> torch.Tensor:
-    """buf: [E, C, D] or [G, E, C, D] -> same, through each expert's MLP."""
+    """buf: [E, C, D] or [G, E, C, D] -> same, through each expert's MLP.
+    Inside the model group ``params`` and ``buf`` hold the rank's experts,
+    and the fake-quant scales span every rank's (``model_max``)."""
     a = silu if act == "silu" else functools.partial(F.gelu,
                                                      approximate="tanh")
     dt = policy.precision.compute_dtype
@@ -67,11 +78,12 @@ def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
     w_gate = dq(params["w_gate"]) if "w_gate" in params else None
     if policy.mode == "fake":
         # one scale per output column across all experts, as the reference
-        w_in = fake_quant(w_in, channel_axis=-1)
-        w_out = fake_quant(w_out, channel_axis=-1)
+        split = collectives.model_ranks() > 1
+        w_in = fake_quant(w_in, channel_axis=-1, split=split)
+        w_out = fake_quant(w_out, channel_axis=-1, split=split)
         if w_gate is not None:
-            w_gate = fake_quant(w_gate, channel_axis=-1)
-        buf = fake_quant(buf, activation=True)
+            w_gate = fake_quant(w_gate, channel_axis=-1, split=split)
+        buf = fake_quant(buf, activation=True, split=split)
     bufc = buf.to(dt)
     g = "g" if buf.ndim == 4 else ""
     h = torch.einsum(f"{g}ecd,edf->{g}ecf", bufc, w_in.to(dt))
@@ -80,6 +92,27 @@ def _expert_ffn(params: Dict, buf: torch.Tensor, act: str, glu: bool,
     else:
         h = a(h)
     return torch.einsum(f"{g}ecf,efd->{g}ecd", h, w_out.to(dt))
+
+
+def route(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor,
+                                                torch.Tensor]:
+    """Each token's ``k`` largest router probabilities and their experts,
+    largest first (``probs``: [T, E])."""
+    return torch.topk(probs, k, dim=-1)
+
+
+def _experts(params: Dict, buf: torch.Tensor, dim: int, act: str,
+             glu: bool, policy: PrecisionPolicy) -> torch.Tensor:
+    """Every expert's output for the dispatch buffer ``buf``, whose expert
+    dim is ``dim``: inside the model group the rank's experts run on its
+    slice and the outputs are all-gathered (module docstring)."""
+    ranks = collectives.model_ranks()
+    if ranks == 1:
+        return _expert_ffn(params, buf, act, glu, policy)
+    n = buf.shape[dim] // ranks
+    mine = buf.narrow(dim, collectives.model_rank() * n, n)
+    return collectives.model_gather(
+        _expert_ffn(params, mine, act, glu, policy), dim)
 
 
 def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
@@ -94,7 +127,7 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
 
     logits = xf.float() @ params["router"].float()
     probs = torch.softmax(logits, dim=-1)                        # [T, E]
-    gate, expert_ids = torch.topk(probs, k, dim=-1)              # [T, k]
+    gate, expert_ids = route(probs, k)                           # [T, k]
     gate = gate / gate.sum(dim=-1, keepdim=True).clamp_min(1e-9)
 
     # the assignment fractions and mean probabilities of the global batch,
@@ -104,6 +137,7 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
         F.one_hot(expert_ids, e).float().mean(dim=(0, 1)),
         probs.mean(dim=0)])) / ranks
     aux = e * torch.sum(m[:e] * m[e:])
+    xd = collectives.to_model(xf)           # what the experts see of x
 
     if t * ranks * k <= FLAT_DISPATCH_MAX:
         # decode / small batches: flat dropless dispatch
@@ -112,10 +146,10 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
         onehot = F.one_hot(flat_e, e)
         slot = (torch.cumsum(onehot, dim=0) - onehot)[
             torch.arange(t * k, device=x.device), flat_e]
-        x_rep = xf[:, None].expand(t, k, d).reshape(t * k, d)    # [T*k, D]
+        x_rep = xd[:, None].expand(t, k, d).reshape(t * k, d)    # [T*k, D]
         buf = torch.zeros((e, cap, d), dtype=xf.dtype, device=x.device)
         buf.index_put_((flat_e, slot), x_rep, accumulate=True)
-        out_buf = _expert_ffn(params, buf, act, glu, policy)     # [E, C, D]
+        out_buf = _experts(params, buf, 0, act, glu, policy)     # [E, C, D]
         gathered = out_buf[flat_e, slot]
         gathered = gathered * gate.reshape(t * k, 1).to(gathered.dtype)
         out = gathered.reshape(t, k, d).sum(dim=1)
@@ -128,7 +162,8 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
         pos = torch.cumsum(onehot, dim=1) - onehot
         slot = torch.gather(pos, -1, eids[..., None])[..., 0]    # [B, S*k]
         keep = slot < cap
-        x_rep = x[:, :, None].expand(b, s, k, d).reshape(b, sk, d)
+        xr = x if xd is xf else xd.view(b, s, d)   # one device: as before
+        x_rep = xr[:, :, None].expand(b, s, k, d).reshape(b, sk, d)
         b_idx = torch.arange(b, device=x.device)[:, None].expand(b, sk)
         # the reference's scatter drops out-of-range writes, torch would
         # raise on them: dropped slots write a spare row past the buffer,
@@ -140,7 +175,7 @@ def moe_apply(params: Dict, moe: MoEConfig, x: torch.Tensor,
         flat.index_put_((dest.reshape(-1),), x_rep.reshape(-1, d),
                         accumulate=True)
         buf = flat[:rows].view(b, e, cap, d)
-        out_buf = _expert_ffn(params, buf, act, glu, policy)     # [B,E,C,D]
+        out_buf = _experts(params, buf, 1, act, glu, policy)     # [B,E,C,D]
         gathered = torch.where(
             keep[..., None],
             out_buf.reshape(rows, d)[dest.clamp(max=rows - 1)], 0)  # fill 0

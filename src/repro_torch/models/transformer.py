@@ -13,6 +13,15 @@ own precision policy.
 Training (``loss_fn`` under autograd) recomputes each super-block in the
 backward pass when ``cfg.remat``, as the reference's ``jax.checkpoint``
 does (``torch.utils.checkpoint``; ``remat_group`` adds the outer groups).
+
+Inside the model group (``core/collectives.py``, entered by the mesh
+``Trainer`` and the dry run under ``sharding_mode == "tp"``) the
+parameters of attention, dense and MoE MLPs, the embedding and the head
+are the rank's parts (``sharding.head_parallel``), and those layers
+compute head-, vocab- and expert-parallel; Mamba and RWKV-6 mixers get
+their parameters whole and compute replicated.  The logits are then the
+rank's vocab columns (the reference's ``logits_spec``) and ``loss_fn``'s
+cross-entropy is vocab-parallel.
 """
 from __future__ import annotations
 
@@ -404,7 +413,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
       positions ``start .. start+C-1`` (see :func:`prefill_paged_chunk`)
 
     Under autograd without a cache, ``cfg.remat`` recomputes each
-    super-block in the backward pass.  The reference's ``remat_policy=
+    super-block in the backward pass.  Inside the model group the logits
+    are the rank's vocab columns (module docstring).  The reference's ``remat_policy=
     "dots"`` (keep the matmul outputs) is not copied: it changes no value,
     only what is kept, and here every super-block is recomputed whole.
     """
@@ -461,7 +471,8 @@ def loss_fn(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Mean next-token cross-entropy plus ``AUX_LOSS_COEF`` times the MoE
     load-balancing losses; the frontend positions carry no loss.
     Differentiable on CPU tensors and on the card, through the backward
-    kernels of flash attention, wkv and the selective scan."""
+    kernels of flash attention, wkv and the selective scan.  Inside the
+    model group the loss is vocab-parallel and the same on every rank."""
     out = forward(params, cfg, tokens, plan, tp,
                   frontend_embeds=frontend_embeds)
     logits = out.logits[:, -tokens.shape[1]:]   # skip frontend positions

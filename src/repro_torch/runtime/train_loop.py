@@ -13,29 +13,37 @@ with their parameters — and each step:
 * keeps the rank's rows of the global batch (``sharding.data_specs``):
   its share of each global microbatch, so that microbatch m is the
   reference's rows ``[m * mb, (m + 1) * mb)`` across the ranks;
-* gathers the whole parameters (an all-gather over each split dim's axes);
-* runs the one-device forward and backward on those rows, inside the
-  batch group of the ranks that split the batch (``core/collectives.py``):
-  per-tensor activation scales take the global batch's absmax, and MoE
-  routing chooses its path on the global token count and takes its
-  load-balancing loss over the global batch, as the reference's jitted
-  step does on the whole batch;
+* gathers the parameters (an all-gather over each split dim's axes).
+  Under ``sharding_mode == "tp"`` on a model axis of several ranks the
+  leaves that ``sharding.head_parallel`` names (attention, dense and MoE
+  MLPs, the embedding and the head) gather only their data-axis parts
+  and keep the rank's model-axis part; the others (norms, the router,
+  Mamba and RWKV-6 mixers) are gathered whole;
+* runs the forward and backward on those rows inside the batch group of
+  the ranks that split the batch and the model group of the model axis
+  (``core/collectives.py``).  The batch group makes per-tensor activation
+  scales take the global batch's absmax, and MoE routing choose its path
+  on the global token count and take its load-balancing loss over the
+  global batch, as the reference's jitted step does on the whole batch.
+  The model group makes the head-parallel leaves compute as the
+  reference's pjit step partitions them: column- and row-parallel
+  projections with an all-reduce, head-local attention, a vocab-parallel
+  embedding, head and loss, expert-parallel MoE.  What stays replicated
+  (the residual stream, norms, the router, the loss) is the same on every
+  model rank, and so are the gradients of the replicated leaves;
 * all-reduces each gradient over the ranks that split the batch (an
-  ``all_reduce`` then a slice, on gloo and NCCL alike: the gradient is
-  whole on every rank, since compute is) and divides by their count;
-* takes the global norm of that whole gradient (no collective: every rank
-  holds it), then keeps the rank's slices;
+  ``all_reduce`` then a slice, on gloo and NCCL alike) and divides by
+  their count; the model axis needs no reduction;
+* takes the global norm from each leaf's squared sum, all-reduced over
+  the model group for a head-parallel leaf (whose gradient each model
+  rank holds a part of), added in ``tree_leaves`` order, then keeps the
+  rank's slices;
 * runs AdamW on the rank's slices, in place, clipped by that norm.
 
 A collective over one rank is an identity and is skipped, so on a mesh of
 one device the step does the one-device step's arithmetic, bit for bit.
-
-The model axis shards state (and, under ``sharding_mode == "fsdp"``, the
-batch); compute along it runs replicated.  Head-parallel compute —
-column- and row-parallel projections with an all-reduce, head-local
-attention, expert-parallel MoE — needs collectives inside the models'
-layers and is ROADMAP.md queue 1 item 7b's next step; its gradients are
-parts on each rank, so the global norm will then need an all-reduce.
+Under ``sharding_mode == "fsdp"`` the model axis splits the batch too
+and compute stays replicated along it.
 
 Partition-aware QAT is just a plan argument — the same loop trains
 baseline and MPAI variants.  On the card the step differentiates through
@@ -192,6 +200,9 @@ class Trainer:
         if uneven:
             raise ValueError(f"mesh {mesh_cfg.shape}: parameters that do "
                              f"not split evenly: {uneven[:4]}")
+        # the leaves computed on the rank's model-axis part, or None where
+        # the model axis computes replicated
+        self.head_parallel = shard.head_parallel(cfg, like.params, mesh_cfg)
         tok = self.data_specs["tokens"]
         self.batch_axes = shard.dim_axes(tok, 1)[0]
         self.batch_ranks = pl.group_size(self.batch_axes)
@@ -199,7 +210,7 @@ class Trainer:
         # every group of more than one rank the step uses, made once by
         # every rank in one order (``dist.new_group`` is collective); a
         # collective over one rank is skipped
-        used = {self.batch_axes}
+        used = {self.batch_axes, (shard.MODEL,)}
         for s, sp in zip(shapes, specs):
             used.update(shard.dim_axes(sp, len(s)))
         for axes in sorted((a for a in used if pl.group_size(a) > 1),
@@ -225,13 +236,17 @@ class Trainer:
 
     def _sharded_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         import torch.distributed as dist
-        pl, mesh_cfg = self.placement, self.mesh_cfg
+        pl, hp = self.placement, self.head_parallel
         ga = self.cfg.grad_accum
         rows = {k: v.unflatten(0, (ga, -1))[:, self.rows].flatten(0, 1)
                 for k, v in batch.items()}
-        full = self.param_shardings.unshard(state.params)
+        full = self.param_shardings.unshard(state.params, keep_model=hp)
         group = pl.group(self.batch_axes) if self.batch_ranks > 1 else None
-        with collectives.batch_group(group, self.batch_ranks):
+        mranks = 1 if hp is None else pl.group_size((shard.MODEL,))
+        mgroup = pl.group((shard.MODEL,)) if mranks > 1 else None
+        with collectives.batch_group(group, self.batch_ranks), \
+                collectives.model_group(mgroup, mranks,
+                                        pl.coord.get(shard.MODEL, 0)):
             l, grads = self._grads_of(full, rows)
         del full
         if group is not None:
@@ -241,13 +256,31 @@ class Trainer:
                 return t.div_(self.batch_ranks)
             l = mean(l.clone())
             grads = tree_map(mean, grads)
-        gnorm = adamw.global_norm(grads)
-        grads = tree_map(lambda g, sp: shard.shard(g, sp, mesh_cfg, pl.coord),
-                         grads, self.param_specs)
+        gnorm = self._global_norm(grads, mgroup)
+        grads = self.param_shardings.shard(grads, keep_model=hp)
         new, opt, gnorm = adamw.apply_updates(
             state.params, grads, state.opt, self.tc, donate=True, gnorm=gnorm)
         return (TrainState(new, opt, state.step + 1),
                 {"loss": l, "grad_norm": gnorm})
+
+    def _global_norm(self, grads, mgroup) -> torch.Tensor:
+        """The global norm of the step's gradient: each leaf's squared sum
+        (a head-parallel leaf's all-reduced over the model group, in one
+        call), added in ``tree_leaves`` order, as ``adamw.global_norm``."""
+        sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+        if mgroup is not None:
+            import torch.distributed as dist
+            split = [i for i, (h, sp, g) in enumerate(zip(
+                tree_leaves(self.head_parallel), tree_leaves(self.param_specs),
+                tree_leaves(grads)))
+                if h and any(shard.MODEL in ax
+                             for ax in shard.dim_axes(sp, g.ndim))]
+            if split:
+                parts = torch.stack([sq[i] for i in split])
+                dist.all_reduce(parts, group=mgroup)
+                for j, i in enumerate(split):
+                    sq[i] = parts[j]
+        return torch.sqrt(sum(sq))
 
     def _init_state(self, device) -> TrainState:
         """The port's own seeded init (``T.model_init`` from

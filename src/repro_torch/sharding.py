@@ -21,6 +21,9 @@ reference's ``NamedSharding(mesh, spec).devices_indices_map(shape)``;
 ``shard`` and ``unshard`` (an all-gather over the axes a dim is split on)
 build on it, and :class:`TreeSharding` applies them to a whole tree, as
 the reference's ``make_shardings`` gives a tree of ``NamedSharding``.
+Both can act on some axes only (``axes``): a step that computes
+head-parallel gathers a leaf's data-axis parts and keeps its model-axis
+part, the leaves that :func:`head_parallel` names.
 """
 from __future__ import annotations
 
@@ -208,6 +211,35 @@ def param_specs(cfg: ModelConfig, params_shape,
     return _map_with_path(spec, params_shape)
 
 
+# the leaves that the model axis splits compute over under ``sharding_mode
+# == "tp"``, by the sublayer part they sit in: attention's projections
+# (``mixer``), the dense MLPs and MoE experts (``mlp``, the shared expert
+# too); with ``embed`` and ``lm_head``.  Mamba and RWKV-6 leaves have other
+# names: they keep their compute replicated (ROADMAP.md queue 1, 7c)
+HEAD_PARALLEL = {"mixer": ("wq", "wk", "wv", "wo"),
+                 "mlp": ("w_in", "w_gate", "w_out")}
+
+
+def head_parallel(cfg: ModelConfig, params_shape, mesh_cfg: MeshConfig):
+    """A tree of bools matching ``params_shape``: True where a leaf is
+    computed on the rank's model-axis part (column- and row-parallel
+    projections, head-local attention, the vocab-parallel embedding and
+    head, expert-parallel MoE; ``models/*``).  None where the model axis
+    computes replicated: it has one rank, or ``cfg.sharding_mode ==
+    "fsdp"`` (pure ZeRO-3 splits the batch over it)."""
+    sizes = dict(zip(mesh_cfg.axes, mesh_cfg.shape))
+    if cfg.sharding_mode != "tp" or sizes.get(MODEL, 1) == 1:
+        return None
+
+    def pred(path, leaf) -> bool:
+        keys = [str(n) for kind, n in path if kind == "key"]
+        if keys[0] in ("embed", "lm_head"):
+            return True
+        return (keys[0] == "layers" and len(keys) >= 4
+                and _leaf_name(path) in HEAD_PARALLEL.get(keys[2], ()))
+    return _map_with_path(pred, params_shape)
+
+
 # ---------------------------------------------------------------------------
 # Data / cache / logits specs
 # ---------------------------------------------------------------------------
@@ -326,10 +358,28 @@ def uneven_dims(spec: PartitionSpec, global_shape: Sequence[int],
     return out
 
 
+def over_axes(spec: PartitionSpec, ndim: int,
+              axes: Sequence[str]) -> PartitionSpec:
+    """``spec`` with only the splits over ``axes``: a dim split over other
+    axes reads as whole (a dim split over both is refused)."""
+    out = []
+    for dim_ax in dim_axes(spec, ndim):
+        inside = tuple(a for a in dim_ax if a in axes)
+        if inside and len(inside) != len(dim_ax):
+            raise ValueError(f"{spec} splits a dim over {dim_ax}: acting on "
+                             f"{tuple(axes)} alone would cut it")
+        out.append(inside or None)
+    return P(*out)
+
+
 def shard(full: torch.Tensor, spec: PartitionSpec, mesh_cfg: MeshConfig,
-          coord) -> torch.Tensor:
+          coord, axes: Optional[Sequence[str]] = None) -> torch.Tensor:
     """The part of ``full`` that the device at ``coord`` holds, in storage
-    of its own (``full`` itself where the spec splits nothing)."""
+    of its own (``full`` itself where the spec splits nothing).  With
+    ``axes``, only the splits over those axes are cut (``full`` is whole
+    along them, and already the rank's part along the others)."""
+    if axes is not None:
+        spec = over_axes(spec, full.ndim, axes)
     sl = shard_slices(spec, full.shape, mesh_cfg, coord)
     if all(s.stop - s.start == d for s, d in zip(sl, full.shape)):
         return full
@@ -338,27 +388,37 @@ def shard(full: torch.Tensor, spec: PartitionSpec, mesh_cfg: MeshConfig,
 
 def unshard(local: torch.Tensor, spec: PartitionSpec,
             global_shape: Sequence[int], mesh_cfg: MeshConfig,
-            group_of: Callable) -> torch.Tensor:
+            group_of: Callable,
+            axes: Optional[Sequence[str]] = None) -> torch.Tensor:
     """The whole tensor from this rank's part ``local``: for each split
     dim an all-gather over the process group of its axes
     (``group_of(axes)``, whose ranks are in the part order), concatenated
-    along the dim.  ``local`` itself where nothing is split.  Needs even
+    along the dim.  ``local`` itself where nothing is split.  With
+    ``axes``, only the splits over those axes are gathered: the result is
+    whole along them and the rank's part along the others.  Needs even
     splits (``uneven_dims`` empty)."""
     sizes = dict(zip(mesh_cfg.axes, mesh_cfg.shape))
+    if axes is not None:            # the shape along the other axes: parts
+        n = len(global_shape)
+        whole = dim_axes(spec, n)
+        spec = over_axes(spec, n, axes)
+        global_shape = tuple(
+            d if act == ax else d // int(np.prod([sizes[a] for a in ax]))
+            for d, ax, act in zip(global_shape, whole, dim_axes(spec, n)))
     out = local
-    for i, axes in enumerate(dim_axes(spec, len(global_shape))):
+    for i, dim_ax in enumerate(dim_axes(spec, len(global_shape))):
         parts = 1
-        for a in axes:
+        for a in dim_ax:
             parts *= sizes[a]
         if parts == 1:
             continue
-        if list(axes) != sorted(axes, key=mesh_cfg.axes.index):
+        if list(dim_ax) != sorted(dim_ax, key=mesh_cfg.axes.index):
             # a group's ranks run in the mesh's axis order
-            raise ValueError(f"unshard: {spec} splits a dim over {axes}, "
+            raise ValueError(f"unshard: {spec} splits a dim over {dim_ax}, "
                              f"not in the mesh's order {mesh_cfg.axes}")
         out = out.contiguous()
         bufs = [torch.empty_like(out) for _ in range(parts)]
-        torch.distributed.all_gather(bufs, out, group=group_of(axes))
+        torch.distributed.all_gather(bufs, out, group=group_of(dim_ax))
         out = torch.cat(bufs, dim=i)
     if tuple(out.shape) != tuple(global_shape):
         raise ValueError(f"unshard: gathered {tuple(out.shape)}, expected "
@@ -433,13 +493,29 @@ class TreeSharding:
         pl = self.placement
         return shard_slices(spec, global_shape, pl.mesh_cfg, pl.coord)
 
-    def shard(self, full):
-        pl = self.placement
-        return tree_map(lambda t, sp: shard(t, sp, pl.mesh_cfg, pl.coord),
-                        full, self.specs)
+    def _axes(self, keep_model):
+        """Per leaf, the axes to act on: all (None), or every axis but the
+        model axis where ``keep_model`` (a tree of bools, e.g.
+        :func:`head_parallel`'s) is True."""
+        if keep_model is None:
+            return tree_map(lambda sp: None, self.specs)
+        rest = tuple(a for a in self.placement.mesh_cfg.axes if a != MODEL)
+        return tree_map(lambda keep: rest if keep else None, keep_model)
 
-    def unshard(self, local):
+    def shard(self, full, keep_model=None):
+        """This rank's part of each leaf of ``full``; where ``keep_model``
+        is True the leaf is already the rank's model-axis part and only
+        its other axes are cut."""
         pl = self.placement
-        return tree_map(lambda t, sp, like: unshard(
-            t, sp, like.shape, pl.mesh_cfg, pl.group), local, self.specs,
-            self.shapes)
+        return tree_map(lambda t, sp, ax: shard(t, sp, pl.mesh_cfg, pl.coord,
+                                                ax),
+                        full, self.specs, self._axes(keep_model))
+
+    def unshard(self, local, keep_model=None):
+        """Every leaf gathered whole; where ``keep_model`` is True only
+        its non-model axes are gathered (collective: every rank calls
+        it)."""
+        pl = self.placement
+        return tree_map(lambda t, sp, like, ax: unshard(
+            t, sp, like.shape, pl.mesh_cfg, pl.group, ax), local, self.specs,
+            self.shapes, self._axes(keep_model))

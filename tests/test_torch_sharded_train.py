@@ -25,7 +25,11 @@ when its sum is taken in another order.  The bounds are those x 4.  The
 sharded step changes only the order of the sums over ranks (the gradient
 mean, the global norm and, where the clip bites, its scale): it agrees
 with the one-device step within 2.3e-7 on average and 1.5e-5 of a leaf's
-norm (measured; bound 1e-6 and 1e-4).  Under bf16 the bounds are
+norm (measured; bound 1e-6 and 1e-4).  A model axis of two ranks computes
+head-parallel (``sharding.head_parallel``): its row-parallel products,
+vocab-parallel log-sum-exp and per-leaf norm sums add the same f32 terms
+in another order, which stays inside the same bounds.  Under bf16 and the
+training plan's fake quantization (``"mpai"``) the bounds are
 ``tests/test_torch_train.py``'s ``STEP_TOL``: an early Adam step is
 ``+-lr`` a weight whatever the gradient's size.
 """
@@ -41,6 +45,7 @@ import torch
 from repro_torch import bridge
 from repro_torch.configs.base import (MeshConfig, ModelConfig, MoEConfig,
                                       ShapeConfig, TrainConfig)
+from repro_torch.core import qat
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_leaves
@@ -52,17 +57,21 @@ ROOT = Path(__file__).resolve().parents[1]
 B, S = 8, 32
 STEPS = 3
 TC_KW = dict(learning_rate=1e-2, warmup_steps=2, total_steps=50, seed=0)
-# (name, mesh shape, plan, grad_accum): held to the reference
+# (name, mesh shape, plan, grad_accum): held to the reference.  A mesh
+# with a model axis of two ranks computes head-parallel
 CASES = [("2x2x2", (2, 2, 2), "f32", 1), ("2x1", (2, 1), "f32", 1),
          ("1x2", (1, 2), "f32", 1), ("4x1", (4, 1), "f32", 1),
-         ("2x1-ga2", (2, 1), "f32", 2), ("2x1-bf16", (2, 1), "bf16", 1)]
-WORLD_CASES = {8: ["2x2x2"], 4: ["4x1"],
-               2: ["2x1", "1x2", "2x1-ga2", "2x1-bf16"]}
+         ("2x1-ga2", (2, 1), "f32", 2), ("2x1-bf16", (2, 1), "bf16", 1),
+         ("2x2", (2, 2), "f32", 1), ("1x2-mpai", (1, 2), "mpai", 1)]
+WORLD_CASES = {8: ["2x2x2"], 4: ["4x1", "2x2"],
+               2: ["2x1", "1x2", "2x1-ga2", "2x1-bf16", "1x2-mpai"]}
 # (loss rtol, grad-norm rtol, max |param diff|, mean |param diff|, leaf
 # error over its norm) after three steps (module docstring)
 BF16_TOL = (2 ** -7, 5e-2, 2.2 * TC_KW["learning_rate"] * STEPS, 2e-3, None)
-REF_TOL = {"f32": (1e-6, 1e-5, 1e-3, 5e-6, 3e-4), "bf16": BF16_TOL}
-ONE_TOL = {"f32": (1e-6, 1e-5, 1e-3, 1e-6, 1e-4), "bf16": BF16_TOL}
+REF_TOL = {"f32": (1e-6, 1e-5, 1e-3, 5e-6, 3e-4), "bf16": BF16_TOL,
+           "mpai": BF16_TOL}
+ONE_TOL = {"f32": (1e-6, 1e-5, 1e-3, 1e-6, 1e-4), "bf16": BF16_TOL,
+           "mpai": BF16_TOL}
 
 
 def _axes(shape):
@@ -80,6 +89,10 @@ def _cfg(name="tiny", **kw):
 
 
 def _plan(pname, n):
+    """The f32 plan, the training plan's fake quantization (``"mpai"``:
+    an int8 backbone, the last layer bf16) or bf16 (None)."""
+    if pname == "mpai":
+        return qat.train_plan(PartitionPlan.mpai(n))
     return PartitionPlan.uniform(n, PrecisionPolicy.fp32()) \
         if pname == "f32" else None
 
@@ -143,6 +156,7 @@ def _reference(d):
     from repro.configs.base import ModelConfig as JConfig
     from repro.configs.base import ShapeConfig as JShape
     from repro.configs.base import TrainConfig as JTrain
+    from repro.core import qat as jqat
     from repro.core.partition import PartitionPlan as JPlan
     from repro.core.precision import PrecisionPolicy as JPolicy
     from repro.data.pipeline import lm_batch as jbatch
@@ -158,12 +172,14 @@ def _reference(d):
     tc = JTrain(**TC_KW)
     res = {}
     runs = [(f"{p}/{ga}", JConfig(**base, grad_accum=ga), "tiny", p, STEPS)
-            for p, ga in (("f32", 1), ("f32", 2), ("bf16", 1))]
+            for p, ga in (("f32", 1), ("f32", 2), ("bf16", 1), ("mpai", 1))]
     runs.append(("rwkv", get_config("rwkv6-3b", smoke=True), "rwkv", "f32",
                  1))
     for key, cfg, wkey, pname, steps in runs:
-        plan = JPlan.uniform(cfg.num_layers, JPolicy.fp32()) \
-            if pname == "f32" else None
+        plan = (jqat.train_plan(JPlan.mpai(cfg.num_layers))
+                if pname == "mpai" else
+                JPlan.uniform(cfg.num_layers, JPolicy.fp32())
+                if pname == "f32" else None)
         params = jax.tree_util.tree_map(jnp.asarray, _unflatten(w, wkey))
         step = jax.jit(make_step_fn(cfg, tc, plan, 1))
         state = TrainState(params, jadamw.init(params, jnp.float32),
@@ -281,7 +297,8 @@ def _rank(rank: int, world: int, d: str):
                 _run_case(res, name, w, rank)
             _world2(rank, d, w, res)
         elif world == 4:
-            _run_case(res, "4x1", w, rank)
+            for name in WORLD_CASES[4]:
+                _run_case(res, name, w, rank)
         else:
             _world8(rank, d, w, res)
         np.savez(os.path.join(d, f"w{world}_rank{rank}.npz"), **res)
@@ -474,8 +491,10 @@ def test_moe_on_a_batch_split_mesh_equals_one_device(runs):
 
 
 def test_moe_on_the_model_axis_equals_one_device(runs):
-    """(1, 2) splits no batch row, so routing sees the global batch; the
-    steps agree with the one-device Trainer's within ``ONE_TOL``."""
+    """(1, 2) splits no batch row, so routing sees the global batch, and
+    runs the experts expert-parallel (two of the four a rank, their outputs
+    all-gathered); the steps agree with the one-device Trainer's within
+    ``ONE_TOL``."""
     got = runs[1][2][0]
     cfg = _cfg("moe", fsdp=False, moe=MoEConfig(num_experts=4, top_k=2,
                                                 d_ff_expert=64))
