@@ -36,9 +36,11 @@ it so:
 
 with :func:`model_max` (an exact ``MAX`` of a scale's absmax, no
 gradient), :func:`model_gather` (an all-gather along a dim, whose
-backward keeps the rank's part) and :func:`model_rank` /
-:func:`model_ranks`.  ``core/quantization.pdot`` folds the pair into
-its split products, in f32: a column-parallel product all-reduces its
+backward keeps the rank's part), :func:`model_halves` (an all-to-all
+over an explicit group that re-lays a weight whose split dim holds two
+halves, Mamba's ``in_proj``) and :func:`model_rank` / :func:`model_ranks`.
+``core/quantization.pdot`` folds the pair into its split products, in
+f32: a column-parallel product all-reduces its
 input's gradient, a row-parallel one its output.  The ring all-reduces
 of gloo and NCCL hand every rank the same bits, so what is replicated
 stays identical.
@@ -228,3 +230,58 @@ def model_gather(t: torch.Tensor, dim: int) -> torch.Tensor:
     if _MGROUP is None:
         return t
     return _GatherModel.apply(t, dim, _MGROUP, _MRANKS, _MRANK)
+
+
+def _halves_route(n: int, j: int, back: bool):
+    """The all-to-all of :func:`model_halves` on rank ``j`` of ``n``.  The
+    whole dim is ``2n`` pieces (``a`` is pieces ``0 .. n-1``, ``b`` the
+    rest); rank ``j`` stores pieces ``2j, 2j + 1`` and computes on ``j, n
+    + j``.  Returns (the rank's two pieces in the order they are sent, the
+    rank each goes to, the rank each of the two it keeps comes from)."""
+    held, want = ((2 * j, 2 * j + 1), (j, n + j))[::-1 if back else 1]
+    stored_on, computed_on = (lambda c: c // 2), (lambda c: c % n)
+    to, frm = ((computed_on, stored_on) if not back
+               else (stored_on, computed_on))
+    send = sorted(range(2), key=lambda i: to(held[i]))
+    return send, [to(held[i]) for i in send], [frm(c) for c in want]
+
+
+def _halves_pack(t: torch.Tensor, n: int, j: int, back: bool):
+    """What rank ``j`` of ``n`` sends in :func:`model_halves`: its two
+    pieces of ``t``, stacked on dim 0 in the order of the ranks they go
+    to, and the all-to-all's (output, input) split sizes."""
+    send, to, frm = _halves_route(n, j, back)
+    q = t.shape[-1] // 2
+    buf = t.detach().reshape(-1, 2, q).transpose(0, 1)[send].contiguous()
+    return (buf, [frm.count(r) for r in range(n)],
+            [to.count(r) for r in range(n)])
+
+
+def _halves_unpack(got: torch.Tensor, n: int, j: int, back: bool,
+                   shape) -> torch.Tensor:
+    """Rank ``j``'s re-laid tensor of ``shape`` from the two pieces it
+    received, which arrive in the order of the ranks they come from."""
+    frm = _halves_route(n, j, back)[2]
+    order = sorted(range(2), key=lambda i: frm[i])
+    got = got[[order.index(i) for i in range(2)]]
+    return got.transpose(0, 1).reshape(shape)
+
+
+def model_halves(t: torch.Tensor, group, ranks: int, rank: int,
+                 back: bool = False) -> torch.Tensor:
+    """Re-lay a weight whose last dim is two halves ``[a | b]`` split over
+    the model group contiguously (Mamba's ``in_proj``, ``[x | z]``): from
+    the rank's stored part (the ``ranks`` equal parts of the whole dim, so
+    that at two ranks rank 0 holds ``a`` and rank 1 ``b``) to the rank's
+    part of each half, ``[a_r | b_r]``, which the model computes on;
+    ``back`` lays such a tensor (the weight's gradient) back as it is
+    stored.  One ``all_to_all_single`` over ``group`` (the model axis's
+    ``ranks`` ranks, this one ``rank``), in which each rank sends and
+    receives the two halves of its part; no gradient.
+    ``sharding.TreeSharding`` calls it where it gathers or cuts such a
+    leaf with ``keep_model``."""
+    import torch.distributed as dist
+    buf, out_splits, in_splits = _halves_pack(t, ranks, rank, back)
+    got = torch.empty_like(buf)
+    dist.all_to_all_single(got, buf, out_splits, in_splits, group=group)
+    return _halves_unpack(got, ranks, rank, back, t.shape)

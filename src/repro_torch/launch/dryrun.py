@@ -15,26 +15,29 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
   rank's parts (``sharding.param_specs``), built from ``specs.
   param_structs`` without ``init_state``: it gathers the parameters'
   data-axis parts (the head-parallel leaves, ``sharding.head_parallel``,
-  keep their model-axis part; Mamba and RWKV-6 leaves are gathered whole),
-  runs forward and backward on the rank's rows of the batch inside the
-  batch group and the model group (``core/collectives.py``: per-tensor
-  activation scales and MoE routing over the global batch; column- and
-  row-parallel projections, head-local attention, a vocab-parallel
+  keep their model-axis part, Mamba's ``in_proj`` re-laid by an
+  all-to-all), runs forward and backward on the rank's rows of the batch
+  inside the batch group and the model group (``core/collectives.py``:
+  per-tensor activation scales and MoE routing over the global batch;
+  column- and row-parallel projections, head-local attention, the
+  recurrent mixers on the rank's heads and channels, a vocab-parallel
   embedding, head and loss, expert-parallel MoE), all-reduces the
   gradients over the batch's ranks and runs AdamW on the rank's slices;
 * prefill and decode cells lay the parameters out the same way (int8
   structs under ``--plan mpai``, bf16 otherwise) and the cache by
-  ``sharding.cache_specs``, gather the same parts (the attention cache
-  keeps the rank's heads; Mamba and RWKV-6 states are gathered over the
-  model axis) and run ``T.forward`` / ``T.decode_step`` on the rank's
-  rows inside the same two groups (under ``--plan mpai`` the scales'
+  ``sharding.cache_specs``, gather the same parts (the cache keeps the
+  rank's kv heads, RWKV-6 state heads and Mamba channels) and run
+  ``T.forward`` / ``T.decode_step`` on the rank's rows inside the same
+  two groups (under ``--plan mpai`` the scales'
   all-reduces; an MoE layer's dispatch path on the global token count,
   and its load-balancing sums, which XLA drops from the reference's
   serving cells as unused).
 
-Every row says so (``"execution"``).  A tensor-parallel all-reduce is
-counted like any collective, on the link ``roofline.link_of`` gives its
-ranks: on 16 x 16 the 16-rank model axis spans two 8-card nodes.
+Under ``sharding_mode == "fsdp"``, or on a model axis of one rank, the
+model axis computes replicated.  Every row says so (``"execution"``).  A
+tensor-parallel all-reduce is counted like any collective, on the link
+``roofline.link_of`` gives its ranks: on 16 x 16 the 16-rank model axis
+spans two 8-card nodes.
 
 While a cell is traced each front door of ``kernels/ops.py`` is a
 stand-in that allocates what the kernel's wrapper allocates on the card
@@ -86,8 +89,8 @@ from repro_torch.launch.mesh import (make_mesh_from_config,
 from repro_torch.models import transformer as T
 from repro_torch.runtime.train_loop import Trainer
 
-EXECUTION = ("head-parallel compute on the model axis; data-axis parts "
-             "gathered")
+EXECUTION = ("head-parallel compute on the model axis (attention, MLPs, "
+             "MoE, Mamba and RWKV-6 mixers); data-axis parts gathered")
 CARD_BYTES = 80e9            # an H100 80GB's memory, as fits_80gb reads it
 SMS = 132                    # H100 SXM5 streaming multiprocessors
 
@@ -170,10 +173,10 @@ class _GemmBytes(torch.utils._python_dispatch.TorchDispatchMode):
 
 @contextlib.contextmanager
 def counted_collectives(tally: Tally):
-    """The collectives a step makes (``torch.distributed.all_gather`` and
-    ``all_reduce``), counted into ``tally`` by their operands (an
-    all-gather's input part, an all-reduce's tensor), for the length of
-    the block."""
+    """The collectives a step makes (``torch.distributed.all_gather``,
+    ``all_reduce`` and ``all_to_all_single``), counted into ``tally`` by
+    their operands (an all-gather's input part, an all-reduce's tensor, an
+    all-to-all's input), for the length of the block."""
     import torch.distributed as dist
 
     def all_gather(out, t, group=None, async_op=False):
@@ -184,7 +187,14 @@ def counted_collectives(tally: Tally):
         tally.collective("all-reduce", _nbytes(t), group, t.shape)
         return real["all_reduce"](t, op=op, group=group, async_op=async_op)
 
-    wrappers = {"all_gather": all_gather, "all_reduce": all_reduce}
+    def all_to_all_single(out, t, out_splits=None, in_splits=None,
+                          group=None, async_op=False):
+        tally.collective("all-to-all", _nbytes(t), group, t.shape)
+        return real["all_to_all_single"](out, t, out_splits, in_splits,
+                                         group=group, async_op=async_op)
+
+    wrappers = {"all_gather": all_gather, "all_reduce": all_reduce,
+                "all_to_all_single": all_to_all_single}
     real = {name: getattr(dist, name) for name in wrappers}
     for name, f in wrappers.items():
         setattr(dist, name, f)
@@ -388,16 +398,18 @@ def _local(like: torch.Tensor, spec, mesh_cfg: MeshConfig, coord,
                        dtype=like.dtype, device=device)
 
 
-_ATTENTION_CACHE = ("k", "v", "k_scale", "v_scale")
+# the cache leaves that hold a rank's heads or channels (``sharding.
+# cache_specs`` splits them over the model axis)
+_HEAD_LOCAL_CACHE = ("k", "v", "k_scale", "v_scale", "h", "conv", "s")
 
 
 class _CacheLayout:
     """The decode cache as ``specs.cache_structs`` stacks it, its specs
     (``sharding.cache_specs``), the same specs with the batch entry whole
-    (the rank keeps its rows and gathers its heads; with ``head_local`` an
-    attention cache keeps its heads too, and only the recurrent states are
-    gathered) and ``T.init_cache``'s structure, which ``T.decode_step``
-    takes (per-super-block lists for the recurrent sublayers)."""
+    (the rank keeps its rows and gathers its heads; with ``head_local`` it
+    keeps its kv heads, state heads and channels too) and
+    ``T.init_cache``'s structure, which ``T.decode_step`` takes
+    (per-super-block lists for the recurrent sublayers)."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig,
                  mesh_cfg: MeshConfig, tp: int, head_local: bool = False):
@@ -406,7 +418,7 @@ class _CacheLayout:
         b_ax = shard.P(shard.batch_axes(shape.global_batch, mesh_cfg))[0]
         self.rows = shard._map_with_path(lambda path, sp: shard.P(*(
             None if e == b_ax and e is not None
-            or head_local and shard._leaf_name(path) in _ATTENTION_CACHE
+            or head_local and shard._leaf_name(path) in _HEAD_LOCAL_CACHE
             else e for e in sp)), self.specs)
         self.like = T.init_cache(cfg, 1, 1, tp, device="meta")
         self.mesh_cfg = mesh_cfg

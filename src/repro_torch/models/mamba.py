@@ -11,6 +11,16 @@ also returns the final state for the decode cache.  Decode takes one exact
 step in plain PyTorch, as the reference has no kernel there.  The conv taps
 keep the reference's forms: a sum in tap order at prefill, an einsum at
 decode.
+
+Inside the model group (``core/collectives.py``) the mixer computes on the
+rank's ``d_inner / tp`` channels: ``in_proj`` is column-parallel and comes
+in the compute layout ``[x_r | z_r]``, the rank's channels of both halves
+(``sharding.TreeSharding.unshard``; it is stored as the reference splits
+it), the conv taps, ``dt_bias``, ``A_log`` and ``D`` are the rank's
+channels, the scan runs on them, ``x_proj`` and ``out_proj`` are
+row-parallel and ``dt_proj`` column-parallel.  ``dt_r``, ``B`` and ``C`` are replicated and
+feed every rank's channels, so their gradient sums over the ranks
+(``to_model``); a decode cache holds the rank's channels.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 from repro_torch.kernels import ops as kops
@@ -30,6 +41,11 @@ def _dims(cfg: ModelConfig) -> Tuple[MambaConfig, int, int, int]:
     mc = cfg.mamba or MambaConfig()
     return (mc, mc.expand * cfg.d_model, mc.d_state,
             mc.resolved_dt_rank(cfg.d_model))
+
+
+def _local_channels(cfg: ModelConfig) -> int:
+    """The rank's ``d_inner`` channels (all of them outside a group)."""
+    return _dims(cfg)[1] // collectives.model_ranks()
 
 
 def mamba_init(cfg: ModelConfig, n: int, generator: torch.Generator,
@@ -64,8 +80,10 @@ class MambaCache(NamedTuple):
 
 def init_mamba_cache(cfg: ModelConfig, batch: int,
                      device="cuda") -> MambaCache:
-    """A fresh f32 cache (the reference's default dtype)."""
-    mc, di, ns, _ = _dims(cfg)
+    """A fresh f32 cache (the reference's default dtype), of the rank's
+    channels inside the model group."""
+    mc, _, ns, _ = _dims(cfg)
+    di = _local_channels(cfg)
     return MambaCache(
         torch.zeros((batch, di, ns), dtype=torch.float32, device=device),
         torch.zeros((batch, mc.d_conv - 1, di), dtype=torch.float32,
@@ -82,7 +100,10 @@ def _ssm_params(params: Dict, cfg: ModelConfig, xc: torch.Tensor,
                 policy: PrecisionPolicy):
     """xc: [B, L, di] (post-conv) -> dt, B_t, C_t (f32, selective)."""
     _, _, ns, r = _dims(cfg)
-    proj = pdot(xc, params["x_proj"], policy).float()
+    proj = pdot(xc, params["x_proj"], policy, split="row").float()
+    # replicated and read by the rank's channels alone: the gradient sums
+    # over the ranks (in f32, then rounded once by the cast's backward)
+    proj = collectives.to_model(proj)
     dt_r, b_t, c_t = torch.split(proj, [r, ns, ns], dim=-1)
     dt = _softplus(dt_r @ params["dt_proj"].float() + params["dt_bias"])
     return dt, b_t, c_t                       # [B,L,di], [B,L,N], [B,L,N]
@@ -96,7 +117,7 @@ def mamba_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     ``return_state``)."""
     mc = cfg.mamba or MambaConfig()
     s = x.shape[1]
-    xz = pdot(x, params["in_proj"], policy)
+    xz = pdot(x, params["in_proj"], policy, split="col")
     xr, z = torch.chunk(xz, 2, dim=-1)
 
     # depthwise causal conv over the sequence, taps summed in order
@@ -111,7 +132,7 @@ def mamba_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     y, h_fin = kops.selective_scan(xcf, dt, b_t, c_t, a.float(),
                                    params["D"].float())
     y = y.to(x.dtype) * silu(z)
-    out = pdot(y, params["out_proj"], policy)
+    out = pdot(y, params["out_proj"], policy, split="row")
     if return_state:
         conv_tail = xr[:, -(mc.d_conv - 1):].float()
         return out, MambaCache(h_fin, conv_tail)
@@ -123,7 +144,7 @@ def mamba_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                       policy: PrecisionPolicy = DEFAULT_POLICY
                       ) -> Tuple[torch.Tensor, MambaCache]:
     """One-token step.  x: [B, 1, D] -> ([B, 1, D], new cache)."""
-    xz = pdot(x[:, 0], params["in_proj"], policy)        # [B, 2*di]
+    xz = pdot(x[:, 0], params["in_proj"], policy, split="col")  # [B, 2*di]
     xr, z = torch.chunk(xz, 2, dim=-1)
 
     hist = torch.cat([cache.conv, xr[:, None].to(cache.conv.dtype)], dim=1)
@@ -139,4 +160,5 @@ def mamba_decode_step(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     h = a_bar * cache.h + (dt * xcf)[..., None] * b_t[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, c_t) + xcf * params["D"]
     y = (y.to(x.dtype) * silu(z))[:, None]
-    return pdot(y, params["out_proj"], policy), MambaCache(h, hist[:, 1:])
+    return (pdot(y, params["out_proj"], policy, split="row"),
+            MambaCache(h, hist[:, 1:]))

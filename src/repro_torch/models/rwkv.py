@@ -15,6 +15,17 @@ stream is bf16 while the token-shift mixes and decays are f32 arrays, so
 a step's result type is what JAX's promotion gives (a bf16 / f32 pair is
 f32).  TP padding: heads pad to a multiple of the TP degree with
 zero-weight projections; padded heads emit exact zeros.
+
+Inside the model group (``core/collectives.py``) the time mix computes on
+the rank's ``Hp / tp`` heads: ``w_r`` / ``w_k`` / ``w_v`` / ``w_g`` and the
+decay LoRA's ``wB`` are column-parallel (the LoRA's replicated input
+through ``to_model``), ``w0``, ``u`` and the per-head group norm are the
+rank's channels, wkv runs on the rank's heads and ``w_o`` is
+row-parallel; a decode cache holds the rank's state heads.  The channel
+mix is column-parallel in ``w_kc`` and row-parallel in ``w_vc``; its
+receptance ``w_rc`` is column-parallel over ``d_model``, so ``r`` is
+gathered (``model_gather``) before it gates the whole ``v``.  The token
+shift, its mixing LoRA and the previous tokens stay replicated.
 """
 from __future__ import annotations
 
@@ -23,6 +34,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig
+from repro_torch.core import collectives
 from repro_torch.core.precision import DEFAULT_POLICY, PrecisionPolicy
 from repro_torch.core.quantization import pdot
 from repro_torch.kernels import ops as kops
@@ -40,6 +52,14 @@ def rwkv_dims(cfg: ModelConfig, tp: int) -> Tuple[int, int, int]:
     rc = cfg.rwkv or RWKVConfig()
     hp = _padded_heads(cfg, tp)
     return hp, rc.head_size, hp * rc.head_size     # Hp, N, Dp
+
+
+def _local_dims(cfg: ModelConfig, tp: int) -> Tuple[int, int, int]:
+    """``rwkv_dims`` of the rank's part: inside the model group its
+    ``Hp / tp`` heads and their channels."""
+    hp, n, dp = rwkv_dims(cfg, tp)
+    ranks = collectives.model_ranks()
+    return hp // ranks, n, dp // ranks
 
 
 def _pad_last(w: torch.Tensor, width: int) -> torch.Tensor:
@@ -108,7 +128,7 @@ class RWKVCache(NamedTuple):
 
 def init_rwkv_cache(cfg: ModelConfig, batch: int, tp: int = 1,
                     dtype=torch.float32, device="cuda") -> RWKVCache:
-    hp, n, _ = rwkv_dims(cfg, tp)
+    hp, n, _ = _local_dims(cfg, tp)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
     return RWKVCache(zeros(batch, hp, n, n), zeros(batch, cfg.d_model),
                      zeros(batch, cfg.d_model))
@@ -152,7 +172,9 @@ def _group_norm(params: Dict, y: torch.Tensor, n: int,
 def _decay(params: Dict, xw: torch.Tensor) -> torch.Tensor:
     """Data-dependent decay in (0, 1), f32, over the padded channels."""
     lora = torch.tanh(torch.matmul(*promoted(xw.float(), params["wA"])))
-    ww = params["w0"] + torch.matmul(*promoted(lora, params["wB"]))
+    # a column-parallel wB: the replicated lora's gradient sums the ranks'
+    ww = params["w0"] + torch.matmul(*promoted(collectives.to_model(lora),
+                                               params["wB"]))
     return torch.exp(-torch.exp(ww))
 
 
@@ -161,22 +183,22 @@ def time_mix_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                    policy: PrecisionPolicy = DEFAULT_POLICY):
     """x: [B, S, D]; x_prev: [B, D] (the token before this window).
     Returns (out [B, S, D], final state [B, Hp, N, N], last token [B, D])."""
-    hp, n, dp = rwkv_dims(cfg, tp)
+    hp, n, dp = _local_dims(cfg, tp)
     b, s, _ = x.shape
     mixed, _ = _ddlerp(params, x, _shift(x, x_prev))
     xr, xk, xv, xw, xg = mixed.unbind(0)
 
     def heads(a):
         return a.reshape(b, s, hp, n).float()
-    r = heads(pdot(xr, params["w_r"], policy))
-    k = heads(pdot(xk, params["w_k"], policy))
-    v = heads(pdot(xv, params["w_v"], policy))
-    g = silu(pdot(xg, params["w_g"], policy))
+    r = heads(pdot(xr, params["w_r"], policy, split="col"))
+    k = heads(pdot(xk, params["w_k"], policy, split="col"))
+    v = heads(pdot(xv, params["w_v"], policy, split="col"))
+    g = silu(pdot(xg, params["w_g"], policy, split="col"))
     w = heads(_decay(params, xw))
     # u meets f32 operands, so a bf16 u is promoted, as in the reference
     y, s_fin = kops.wkv(r, k, v, w, params["u"].reshape(hp, n).float())
     y = _group_norm(params, y.reshape(b, s, dp), n).to(x.dtype) * g
-    return pdot(y, params["w_o"], policy), s_fin, x[:, -1]
+    return pdot(y, params["w_o"], policy, split="row"), s_fin, x[:, -1]
 
 
 def time_mix_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
@@ -184,24 +206,24 @@ def time_mix_decode(params: Dict, cfg: ModelConfig, x: torch.Tensor,
                     policy: PrecisionPolicy = DEFAULT_POLICY):
     """One token.  x: [B, D].  The exact one-step recurrence, no kernel.
     Returns (out [B, D], new state, x)."""
-    hp, n, dp = rwkv_dims(cfg, tp)
+    hp, n, dp = _local_dims(cfg, tp)
     b = x.shape[0]
     mixed, _ = _ddlerp(params, x[:, None], x_prev[:, None])
     xr, xk, xv, xw, xg = mixed[:, :, 0].unbind(0)
 
     def heads(a):
         return a.reshape(b, hp, n).float()
-    r = heads(pdot(xr, params["w_r"], policy))
-    k = heads(pdot(xk, params["w_k"], policy))
-    v = heads(pdot(xv, params["w_v"], policy))
-    g = silu(pdot(xg, params["w_g"], policy))
+    r = heads(pdot(xr, params["w_r"], policy, split="col"))
+    k = heads(pdot(xk, params["w_k"], policy, split="col"))
+    v = heads(pdot(xv, params["w_v"], policy, split="col"))
+    g = silu(pdot(xg, params["w_g"], policy, split="col"))
     w = heads(_decay(params, xw))
     u = params["u"].reshape(hp, n)
     kv = k[..., None] * v[..., None, :]                    # [B, Hp, N, N]
     y = torch.einsum("bhn,bhnm->bhm", r, cache_s + u[None, ..., None] * kv)
     s_new = w[..., None] * cache_s + kv
     y = _group_norm(params, y.reshape(b, dp), n).to(x.dtype) * g
-    return pdot(y, params["w_o"], policy), s_new, x
+    return pdot(y, params["w_o"], policy, split="row"), s_new, x
 
 
 def channel_mix_apply(params: Dict, x: torch.Tensor, x_prev: torch.Tensor,
@@ -210,9 +232,13 @@ def channel_mix_apply(params: Dict, x: torch.Tensor, x_prev: torch.Tensor,
     shifted = _shift(x, x_prev)
     xk = x + (shifted - x) * params["mu_k"]
     xr = x + (shifted - x) * params["mu_r"]
-    k = torch.square(torch.relu(pdot(xk, params["w_kc"], policy)))
-    v = pdot(k, params["w_vc"], policy)
-    return sigmoid(pdot(xr, params["w_rc"], policy)) * v, x[:, -1]
+    k = torch.square(torch.relu(pdot(xk, params["w_kc"], policy,
+                                     split="col")))
+    v = pdot(k, params["w_vc"], policy, split="row")
+    # the rank's receptance columns, gathered: ``v`` is whole
+    r = collectives.model_gather(pdot(xr, params["w_rc"], policy,
+                                      split="col"), -1)
+    return sigmoid(r) * v, x[:, -1]
 
 
 def channel_mix_decode(params: Dict, x: torch.Tensor, x_prev: torch.Tensor,

@@ -18,9 +18,11 @@ Inside the model group (``core/collectives.py``, entered by the mesh
 ``Trainer`` and the dry run under ``sharding_mode == "tp"``) the
 parameters of attention, dense and MoE MLPs, the embedding and the head
 are the rank's parts (``sharding.head_parallel``), and those layers
-compute head-, vocab- and expert-parallel; Mamba and RWKV-6 mixers get
-their parameters whole and compute replicated.  The logits are then the
-rank's vocab columns (the reference's ``logits_spec``) and ``loss_fn``'s
+compute head-, vocab- and expert-parallel; so do Mamba and RWKV-6 mixers,
+on the rank's channels and heads (Mamba's ``in_proj`` in the layout
+``sharding.TreeSharding.unshard`` gives it), and a decode cache holds the
+rank's kv heads and recurrent states.  The logits are then the rank's
+vocab columns (the reference's ``logits_spec``) and ``loss_fn``'s
 cross-entropy is vocab-parallel.
 """
 from __future__ import annotations
@@ -123,7 +125,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1,
     dtypes follow the reference's, which change from the f32 zeros of a
     fresh RWKV cache to the residual stream's at the first prefill).  The
     reference broadcasts one cache over the stack; here each super-block
-    owns its storage.
+    owns its storage.  Inside the model group every cache holds the
+    rank's heads (kv heads, RWKV-6 state heads) or Mamba channels.
     """
     pat = sublayer_pattern(cfg)
     n = cfg.num_layers // len(pat)

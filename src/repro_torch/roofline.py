@@ -48,14 +48,18 @@ def link_of(ranks: Sequence[int]) -> str:
 
 
 def wire_bytes(kind: str, operand_bytes: float, ranks: int) -> float:
-    """Bytes one rank sends for a ring ``all-gather`` or ``all-reduce``
-    over ``ranks`` ranks, from its operand: an all-gather passes the other
-    ranks' parts on, ``(n - 1)`` parts; an all-reduce is a reduce-scatter
-    and an all-gather, ``2 (n - 1) / n`` of the tensor."""
+    """Bytes one rank sends for a ring ``all-gather`` or ``all-reduce``,
+    or an ``all-to-all``, over ``ranks`` ranks, from its operand: an
+    all-gather passes the other ranks' parts on, ``(n - 1)`` parts; an
+    all-reduce is a reduce-scatter and an all-gather, ``2 (n - 1) / n`` of
+    the tensor; an all-to-all sends what is not its own, ``(n - 1) / n``
+    of its input as an even one does."""
     if ranks <= 1:
         return 0.0
     if kind == "all-gather":
         return (ranks - 1) * operand_bytes
+    if kind == "all-to-all":
+        return (ranks - 1) / ranks * operand_bytes
     return 2.0 * (ranks - 1) / ranks * operand_bytes
 
 

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.tree import tree_map
 from repro_torch.models import transformer as T
@@ -1716,7 +1717,9 @@ class CoProcServer:
 class WindowedBaselineServer:
     """The windowed batching loop (greedy-only).  Serves the stacks paged
     decode cannot: recurrent and hybrid mixers, sliding windows, int8
-    KV."""
+    KV.  It runs on one device: inside a model group of several ranks it
+    would compute part of the heads and pick tokens from part of the
+    vocab, so a step there raises."""
 
     def __init__(self, params, cfg: ModelConfig,
                  plan: Optional[PartitionPlan] = None, tp: int = 1,
@@ -1770,6 +1773,10 @@ class WindowedBaselineServer:
         Active window: run one decode step.  Returns [] until the window's
         last decode step, at which point the whole batch is finalized.
         """
+        if collectives.model_ranks() > 1:
+            raise ValueError(f"the windowed server runs on one device; it is "
+                             f"inside a model group of "
+                             f"{collectives.model_ranks()} ranks")
         if self._active is None:
             if not self.queue:
                 return []

@@ -16,9 +16,12 @@ with their parameters — and each step:
 * gathers the parameters (an all-gather over each split dim's axes).
   Under ``sharding_mode == "tp"`` on a model axis of several ranks the
   leaves that ``sharding.head_parallel`` names (attention, dense and MoE
-  MLPs, the embedding and the head) gather only their data-axis parts
-  and keep the rank's model-axis part; the others (norms, the router,
-  Mamba and RWKV-6 mixers) are gathered whole;
+  MLPs, Mamba's and RWKV-6's mixers and channel mix, the embedding and
+  the head) gather only their data-axis parts and keep the rank's
+  model-axis part, Mamba's ``in_proj`` re-laid to the rank's channels of
+  its two halves (an all-to-all in ``TreeSharding.unshard``; its gradient
+  goes back the same way in ``TreeSharding.shard``); the others (norms,
+  the router, the token shifts' mixes) are gathered whole;
 * runs the forward and backward on those rows inside the batch group of
   the ranks that split the batch and the model group of the model axis
   (``core/collectives.py``).  The batch group makes per-tensor activation
@@ -27,10 +30,12 @@ with their parameters — and each step:
   global batch, as the reference's jitted step does on the whole batch.
   The model group makes the head-parallel leaves compute as the
   reference's pjit step partitions them: column- and row-parallel
-  projections with an all-reduce, head-local attention, a vocab-parallel
-  embedding, head and loss, expert-parallel MoE.  What stays replicated
-  (the residual stream, norms, the router, the loss) is the same on every
-  model rank, and so are the gradients of the replicated leaves;
+  projections with an all-reduce, head-local attention, the wkv and
+  selective-scan kernels (and their backwards) on the rank's heads and
+  channels, a vocab-parallel embedding, head and loss, expert-parallel
+  MoE.  What stays replicated (the residual stream, norms, the router,
+  the loss) is the same on every model rank, and so are the gradients of
+  the replicated leaves;
 * all-reduces each gradient over the ranks that split the batch (an
   ``all_reduce`` then a slice, on gloo and NCCL alike) and divides by
   their count; the model axis needs no reduction;

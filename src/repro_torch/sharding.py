@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MeshConfig, ModelConfig, ShapeConfig
+from repro_torch.core import collectives
 from repro_torch.core.tree import tree_map
 
 MODEL = "model"
@@ -212,19 +213,41 @@ def param_specs(cfg: ModelConfig, params_shape,
 
 
 # the leaves that the model axis splits compute over under ``sharding_mode
-# == "tp"``, by the sublayer part they sit in: attention's projections
-# (``mixer``), the dense MLPs and MoE experts (``mlp``, the shared expert
-# too); with ``embed`` and ``lm_head``.  Mamba and RWKV-6 leaves have other
-# names: they keep their compute replicated (ROADMAP.md queue 1, 7c)
-HEAD_PARALLEL = {"mixer": ("wq", "wk", "wv", "wo"),
-                 "mlp": ("w_in", "w_gate", "w_out")}
+# == "tp"``, by the sublayer part they sit in: attention's projections, and
+# Mamba's and RWKV-6's time-mix leaves (``mixer``); the dense MLPs, MoE
+# experts (the shared expert too) and RWKV-6's channel mix (``mlp``); with
+# ``embed`` and ``lm_head``.  Under ``sharding_mode == "fsdp"``, or on a
+# model axis of one rank, every leaf computes replicated
+HEAD_PARALLEL = {"mixer": ("wq", "wk", "wv", "wo",
+                           # Mamba
+                           "in_proj", "x_proj", "dt_proj", "conv_w",
+                           "conv_b", "dt_bias", "A_log", "D", "out_proj",
+                           # RWKV-6 time mix
+                           "w_r", "w_k", "w_v", "w_g", "wB", "w0", "u",
+                           "gn_scale", "gn_bias", "w_o"),
+                 "mlp": ("w_in", "w_gate", "w_out",
+                         # RWKV-6 channel mix
+                         "w_kc", "w_vc", "w_rc")}
+# head-parallel leaves whose split dim is two halves that the model splits
+# apart after the product: Mamba's ``in_proj`` (``[x | z]``, each
+# ``d_inner`` wide).  The spec cuts the dim contiguously, so a rank stores
+# no part of both halves: ``TreeSharding.unshard`` re-lays it where it
+# keeps the model-axis part, and ``TreeSharding.shard`` lays it back
+HALVES = {"mixer": ("in_proj",)}
+
+
+def _in_layer_part(path, names) -> bool:
+    keys = [str(n) for kind, n in path if kind == "key"]
+    return (keys[:1] == ["layers"] and len(keys) >= 4
+            and _leaf_name(path) in names.get(keys[2], ()))
 
 
 def head_parallel(cfg: ModelConfig, params_shape, mesh_cfg: MeshConfig):
     """A tree of bools matching ``params_shape``: True where a leaf is
     computed on the rank's model-axis part (column- and row-parallel
-    projections, head-local attention, the vocab-parallel embedding and
-    head, expert-parallel MoE; ``models/*``).  None where the model axis
+    projections, head-local attention, the recurrent mixers on the rank's
+    heads and channels, the vocab-parallel embedding and head,
+    expert-parallel MoE; ``models/*``).  None where the model axis
     computes replicated: it has one rank, or ``cfg.sharding_mode ==
     "fsdp"`` (pure ZeRO-3 splits the batch over it)."""
     sizes = dict(zip(mesh_cfg.axes, mesh_cfg.shape))
@@ -232,11 +255,9 @@ def head_parallel(cfg: ModelConfig, params_shape, mesh_cfg: MeshConfig):
         return None
 
     def pred(path, leaf) -> bool:
-        keys = [str(n) for kind, n in path if kind == "key"]
-        if keys[0] in ("embed", "lm_head"):
+        if str(path[0][1]) in ("embed", "lm_head"):
             return True
-        return (keys[0] == "layers" and len(keys) >= 4
-                and _leaf_name(path) in HEAD_PARALLEL.get(keys[2], ()))
+        return _in_layer_part(path, HEAD_PARALLEL)
     return _map_with_path(pred, params_shape)
 
 
@@ -479,6 +500,12 @@ class TreeSharding:
         self.placement = placement
         self.specs = specs
         self.shapes = shapes
+        # the leaves whose model-axis part is two halves' (``HALVES``; a
+        # QTensor's per-tensor scale is not split)
+        self.halves = tree_map(
+            lambda m, sp, t: m and MODEL in dim_axes(sp, t.ndim)[-1],
+            _map_with_path(lambda path, t: _in_layer_part(path, HALVES),
+                           shapes), specs, shapes)
 
     @property
     def is_writer(self) -> bool:
@@ -502,20 +529,37 @@ class TreeSharding:
         rest = tuple(a for a in self.placement.mesh_cfg.axes if a != MODEL)
         return tree_map(lambda keep: rest if keep else None, keep_model)
 
+    def _relay(self, tree, keep_model, back: bool):
+        """``tree`` with each kept leaf of ``self.halves`` re-laid from the
+        rank's stored model-axis part to its part of each half, or back
+        (``collectives.model_halves``, an all-to-all over the model axis)."""
+        pl = self.placement
+        if keep_model is None or pl.group_size((MODEL,)) == 1:
+            return tree
+        group = pl.group((MODEL,))
+        ranks, rank = pl.group_size((MODEL,)), pl.coord[MODEL]
+        return tree_map(lambda t, keep, m: collectives.model_halves(
+            t, group, ranks, rank, back) if keep and m else t,
+            tree, keep_model, self.halves)
+
     def shard(self, full, keep_model=None):
         """This rank's part of each leaf of ``full``; where ``keep_model``
-        is True the leaf is already the rank's model-axis part and only
-        its other axes are cut."""
+        is True the leaf is already the rank's model-axis part, laid as
+        ``unshard`` lays it, and only its other axes are cut (collective
+        where a kept leaf is two halves' part: every rank calls it)."""
         pl = self.placement
+        full = self._relay(full, keep_model, back=True)
         return tree_map(lambda t, sp, ax: shard(t, sp, pl.mesh_cfg, pl.coord,
                                                 ax),
                         full, self.specs, self._axes(keep_model))
 
     def unshard(self, local, keep_model=None):
         """Every leaf gathered whole; where ``keep_model`` is True only
-        its non-model axes are gathered (collective: every rank calls
+        its non-model axes are gathered, and a part of two halves
+        (``HALVES``, Mamba's ``in_proj``) is re-laid to the rank's part of
+        each, as the model computes on it (collective: every rank calls
         it)."""
         pl = self.placement
-        return tree_map(lambda t, sp, like, ax: unshard(
+        return self._relay(tree_map(lambda t, sp, like, ax: unshard(
             t, sp, like.shape, pl.mesh_cfg, pl.group, ax), local, self.specs,
-            self.shapes, self._axes(keep_model))
+            self.shapes, self._axes(keep_model)), keep_model, back=False)

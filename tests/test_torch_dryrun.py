@@ -276,18 +276,25 @@ def test_collective_bytes_equal_a_real_mesh_step(gloo_counts, world, mesh):
     assert stats["collective_bytes"] == sum(want_bytes.values()) > 0
 
 
-@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+@pytest.mark.parametrize("arch", ["dense", "moe", "rwkv", "mamba"])
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
-def test_no_model_axis_gather_of_a_head_parallel_leaf(kind, moe):
+def test_no_model_axis_gather_of_a_head_parallel_leaf(kind, arch):
     """On a fake (2, 2) mesh with ``fsdp`` on, a cell gathers its leaves'
-    data-axis parts and no model-axis part: a dense cell all-gathers
-    nothing over the model group, an MoE cell only its experts' outputs
-    (one call a layer); the tensor-parallel all-reduces are counted."""
-    from repro_torch.configs.base import MoEConfig
-    cfg = dataclasses.replace(
-        _tiny(), fsdp=True,
-        moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=32) if moe
-        else None)
+    data-axis parts and no model-axis part.  Over the model group it makes
+    only the collectives its design adds: a dense cell all-gathers nothing;
+    an MoE cell its experts' outputs, an RWKV-6 cell its channel mix's
+    receptance (one call a layer each); a Mamba cell all-gathers nothing
+    and re-lays its stacked ``in_proj`` by one all-to-all (and its
+    gradient by another in a train cell).  The tensor-parallel all-reduces
+    are counted."""
+    from repro_torch.configs.base import MambaConfig, MoEConfig, RWKVConfig
+    extra = {"dense": {},
+             "moe": dict(moe=MoEConfig(num_experts=4, top_k=2,
+                                       d_ff_expert=32)),
+             "rwkv": dict(mixer="rwkv6", rwkv=RWKVConfig(
+                 head_size=16, decay_lora=8, mix_lora=8)),
+             "mamba": dict(mixer="mamba", mamba=MambaConfig(d_state=4))}
+    cfg = dataclasses.replace(_tiny(), fsdp=True, **extra[arch])
     shape = ShapeConfig("t", 16, 8, kind)
     with D.fake_world(MESH_2X2.num_devices):
         stats = D.trace_cell(cfg, shape, MESH_2X2)
@@ -295,7 +302,12 @@ def test_no_model_axis_gather_of_a_head_parallel_leaf(kind, moe):
             D.Cell(cfg, shape, MESH_2X2).placement.group(("model",))))
     calls = stats["tally"].coll_calls
     over_model = [c for c in calls if c[0] == "all-gather" and c[2] == model]
-    assert len(over_model) == (cfg.num_layers if moe else 0), over_model
+    gathers = cfg.num_layers if arch in ("moe", "rwkv") else 0
+    assert len(over_model) == gathers, over_model
+    to_all = [c for c in calls if c[0] == "all-to-all"]
+    assert all(c[2] == model for c in to_all)
+    relays = 0 if arch != "mamba" else 2 if kind == "train" else 1
+    assert len(to_all) == relays, to_all
     assert any(c[0] == "all-gather" and c[2] != model for c in calls)
     assert any(c[0] == "all-reduce" and c[2] == model for c in calls)
     assert stats["execution"] == D.EXECUTION
@@ -419,8 +431,9 @@ def test_cli_writes_the_reference_keys(tmp_path, capsys):
     row = json.loads(
         (tmp_path / "stablelm-1.6b__decode_32k__single.json").read_text())
     assert REFERENCE_KEYS | {"execution", "fits_80gb"} <= set(row)
-    assert row["execution"] == ("head-parallel compute on the model axis; "
-                                "data-axis parts gathered")
+    assert row["execution"] == ("head-parallel compute on the model axis "
+                                "(attention, MLPs, MoE, Mamba and RWKV-6 "
+                                "mixers); data-axis parts gathered")
     assert set(row["roofline"]) == {
         "arch", "shape", "mesh", "chips", "hlo_gflops", "hlo_gbytes",
         "coll_gbytes", "compute_ms", "memory_ms", "collective_ms",
