@@ -500,6 +500,10 @@ OLMOE_FLASH = (1, 512, 16, 1, 128)
 # "mpai" serving forward (``tp_forward``, 2 x 512) and OLMoE-1B-7B's step
 # (2 x 512, 8 of the 16 heads)
 TP_FLASH = ((2, 4096, 16, 1, 64), (2, 512, 16, 1, 64), (2, 512, 8, 1, 128))
+# (B, S, KVp, gp, hd) on a rank of the per-block (2, 1) run
+# (``layer_gather_2rank``: one row of the 2 x 512 global batch, StableLM-2's
+# 32 heads of 64), under bf16 and f32
+LAYER_GATHER_FLASH = (1, 512, 32, 1, 64)
 
 
 def flash_attention_phase(timer, fa, dev) -> dict:
@@ -508,20 +512,21 @@ def flash_attention_phase(timer, fa, dev) -> dict:
     hd = 128), at Jamba's attention prefill (B = 8, S = 128, gp = 4), at a
     2048-token Qwen3 prefill, at a ragged S, and at the example twins'
     shapes (``EXAMPLE_FLASH``) and the two-rank runs' (``OLMOE_FLASH``,
-    ``TP_FLASH``); beside each, one
-    ``scaled_dot_product_attention`` call at the same shapes (timed only
-    here: the port never calls it)."""
+    ``TP_FLASH``, ``LAYER_GATHER_FLASH``, the last also in f32); beside
+    each, one ``scaled_dot_product_attention`` call at the same shapes
+    (timed only here: the port never calls it)."""
     g = torch.Generator(device=dev).manual_seed(4)
     rows, errs = {}, []
-    for b, s, kvp, gp, hd in (
-            (QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5, 128),
-            (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 8, 4, 128),
-            (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH,
-            OLMOE_FLASH, *TP_FLASH):
-        q = torch.randn((b, s, kvp, gp, hd), generator=g,
-                        device=dev).bfloat16()
-        k = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
-        v = torch.randn((b, s, kvp, hd), generator=g, device=dev).bfloat16()
+    cases = [(*c, torch.bfloat16) for c in (
+        (QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5, 128),
+        (JAMBA_SERVE["max_slots"], JAMBA_SERVE["prompt_len"], 8, 4, 128),
+        (1, 2048, 8, 5, 128), (2, 301, 8, 5, 128), *EXAMPLE_FLASH,
+        OLMOE_FLASH, *TP_FLASH, LAYER_GATHER_FLASH)]
+    for b, s, kvp, gp, hd, dt in cases + [(*LAYER_GATHER_FLASH,
+                                           torch.float32)]:
+        q = torch.randn((b, s, kvp, gp, hd), generator=g, device=dev).to(dt)
+        k = torch.randn((b, s, kvp, hd), generator=g, device=dev).to(dt)
+        v = torch.randn((b, s, kvp, hd), generator=g, device=dev).to(dt)
         out = fa.flash_attention(q, k, v)
         torch.cuda.synchronize()
         ref = fa.flash_attention_plain(q, k, v)
@@ -543,11 +548,13 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             lib_ms, lib_note = None, str(e).splitlines()[0]
         else:
             lib_note = None
+        size = q.element_size()
         flops, _, _ = roofline.kernel_work("flash_attention", b=b, s=s,
-                                           kvp=kvp, gp=gp, hd=hd, itemsize=2)
+                                           kvp=kvp, gp=gp, hd=hd,
+                                           itemsize=size)
         bound = roofline.kernel_bound("flash_attention", b=b, s=s, kvp=kvp,
-                                      gp=gp, hd=hd, itemsize=2)
-        rows[(b, s, kvp, gp, hd)] = {
+                                      gp=gp, hd=hd, itemsize=size)
+        rows[(b, s, kvp, gp, hd, dt)] = {
             "ms": timer.ms(lambda: fa.flash_attention(q, k, v)),
             "device_ms": timer.device_ms(lambda: fa.flash_attention(q, k, v)),
             "plain_ms": timer.ms(lambda: fa.flash_attention_plain(q, k, v)),
@@ -556,11 +563,12 @@ def flash_attention_phase(timer, fa, dev) -> dict:
             "bound_f32_cuda_core_ms": flops / roofline.PEAK_F32 * 1e3,
             "max_abs_err": err}
         emit("kernel_flash_attention", B=b, S=s, KVp=kvp, gp=gp, hd=hd,
-             **rows[(b, s, kvp, gp, hd)], library_note=lib_note,
-             tolerance="2**-6 * |ref| + 2**-10",
-             bound_peak="bf16 tensor cores, 989 TFLOP/s")
+             dtype=str(dt).split(".")[-1], **rows[(b, s, kvp, gp, hd, dt)],
+             library_note=lib_note, tolerance="2**-6 * |ref| + 2**-10",
+             bound_peak=("bf16 tensor cores, 989 TFLOP/s" if size == 2
+                         else "f32, 67 TFLOP/s"))
     adm = rows[(QWEN_SERVE["max_slots"], QWEN_SERVE["prompt_len"], 8, 5,
-                128)]
+                128, torch.bfloat16)]
     return {"name": "flash_attention", "route": "cuda",
             "source": FLASH_ATTENTION_SRC, "replaces": FLASH_ATTENTION_TPU,
             "launches": 0, "max_abs_err": max(errs),
@@ -3611,7 +3619,8 @@ FLASH_BWD_REPLACES = "src/repro/models/attention.py:115"
 # the tiny configs' hd 16 on the mma.sync route, a ragged S in f32; the
 # example twins' training shapes (quickstart's hd 32 on mma.sync,
 # train_100m's hd 64 on wgmma), OLMoE-1B-7B's on a rank of the two-rank run
-# (hd 128 on wgmma)
+# (hd 128 on wgmma), StableLM-2's on a rank of the per-block (2, 1) run (bf16
+# on wgmma, and f32)
 FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (1, 2048, 8, 5, 128, "bfloat16"),
                    (1, 4096, 32, 1, 64, "bfloat16"),
@@ -3623,7 +3632,9 @@ FLASH_BWD_CASES = ((8, 32, 8, 5, 128, "bfloat16"),
                    (8, 64, 4, 1, 32, "bfloat16"),
                    (8, 512, 5, 2, 64, "bfloat16"),
                    (*OLMOE_FLASH, "bfloat16"),
-                   (*TP_FLASH[0], "bfloat16"), (*TP_FLASH[2], "bfloat16"))
+                   (*TP_FLASH[0], "bfloat16"), (*TP_FLASH[2], "bfloat16"),
+                   (*LAYER_GATHER_FLASH, "bfloat16"),
+                   (*LAYER_GATHER_FLASH, "float32"))
 # per gradient: max |err| <= tol * max |ref| and ||err|| <= fro * ||ref||
 # (bf16: P and dS enter their products as bf16)
 FLASH_BWD_TOL = {"bfloat16": (2 ** -6, 2 ** -7), "float32": (2 ** -16, 2 ** -18)}
@@ -3916,9 +3927,12 @@ TRAIN_SHAPE = (4096, 4)          # train_4k's sequence, its batch 256 cut to 4
 TRAIN_STEPS = 4
 FT_LAYERS = 1                    # the restart check's depth (checkpoint I/O)
 FT_FAULT_AT = 2
-FT_EVERY = 2                     # a checkpoint every 2 steps: the fault at
-FT_STEPS = 3                     # step 2 (the third) replays from the one
-#                                  after step 2; two saves of 5.5 GB
+FT_STEPS = 3
+FT_EVERY = FT_STEPS + 1          # no periodic save: the fault at step 2 (the
+#                                  third) restores the runner's step-0
+#                                  baseline and replays three steps; one
+#                                  save of 5.5 GB (two, at every 2 steps,
+#                                  took 19-25 s of the script)
 
 
 def train_full_width_phase(dev, card: str, fa, keep=None) -> dict:
@@ -3932,7 +3946,8 @@ def train_full_width_phase(dev, card: str, fa, keep=None) -> dict:
     checkpoint of the 24-layer state is 19.7 GB of host copy and disk): an
     uninterrupted run of ``FT_STEPS`` against a ``FaultTolerantRunner``
     with a ``FaultInjector`` at step ``FT_FAULT_AT`` and ``checkpoint_every
-    =FT_EVERY``; history and final parameters bit-equal.  ``keep``
+    =FT_EVERY`` (the restore reads the baseline save); history and final
+    parameters bit-equal.  ``keep``
     receives the bf16 run's history, step times and final parameters
     (``train_plans``) for ``train_sharded``."""
     import shutil
@@ -4668,6 +4683,9 @@ def train_rank(rank: int, world: int, d: str) -> None:
             res["recurrent"][key] = {p: recurrent_rank(rank, dev, key, p)
                                      for p in RECURRENT_PLANS}
             mark(key)
+        res["layer_gather"] = {p: layer_gather_rank(rank, dev, p)
+                               for p in LAYER_GATHER_PLANS}
+        mark("layer_gather")
         dist.barrier()
         mark("end")
         res["stage_s"] = marks
@@ -4806,7 +4824,10 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
     bit-equal and a step runs, and its parameters go through the "mpai"
     serving forward on (1, 2) against one rank (``tp_forward``).  Then
     the same ranks train OLMoE-1B-7B under each of ``OLMOE_PLANS``
-    (``olmoe_rank``, ``olmoe_sharded_check``).  Gloo stages CUDA tensors
+    (``olmoe_rank``, ``olmoe_sharded_check``), RWKV-6's and Jamba's Mamba
+    layers head-parallel (``recurrent_rank``), and StableLM-2 four layers
+    deep on (2, 1), its stacked layers gathered one super-block at a time
+    (``layer_gather_rank``, ``layer_gather_check``).  Gloo stages CUDA tensors
     through host memory, so the collective ms printed are a correctness
     run's, not a speed.  Returns ``({run: launches}`` of rank 0, ``{run:
     [step-only peak bytes a rank]})`` for the dry run's check."""
@@ -4933,6 +4954,11 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
                     p).items():
                 out[f"{name}/{key}_sharded_2rank/{mesh}/{p}"] = {
                     k: v for k, v in n.items() if v}
+    for p in LAYER_GATHER_PLANS:
+        for mesh, n in layer_gather_check(
+                card, [r["layer_gather"][p] for r in ranks], p).items():
+            out[f"stablelm-1.6b/layer_gather_2rank/{mesh}/{p}"] = {
+                k: v for k, v in n.items() if v}
     measured = {f"stablelm-1.6b/{name}": [
         r["meshes"][name]["step_only_peak_bytes"] for r in ranks]
         for name in ranks[0]["meshes"]}
@@ -4945,6 +4971,11 @@ def train_sharded_2rank_phase(card: str, procs, d: Path) -> dict:
             measured[f"olmoe-1b-7b/{mesh}/{p}"] = [
                 r["olmoe"][p]["runs"][mesh]["step_only_peak_bytes"]
                 for r in ranks]
+    per_block = [r["layer_gather"][LAYER_GATHER_TRACED]["2x1"] for r in ranks]
+    measured[f"stablelm-1.6b/layer_gather/2x1/{LAYER_GATHER_TRACED}"] = [
+        x["step_only_peak_bytes"] for x in per_block]
+    measured[f"stablelm-1.6b/layer_gather/2x1/{LAYER_GATHER_TRACED}"
+             "/all_gathers"] = [len(x["gathers"]) for x in per_block]
     return out, measured
 
 
@@ -5391,6 +5422,198 @@ def recurrent_sharded_check(card: str, ranks: list, key: str,
     return {name: ranks[0][name]["launches"] for name in ("1x1", "1x2")}
 
 
+LAYER_GATHER_LAYERS = 4          # the per-block run's depth (4 blocks)
+LAYER_GATHER_SHAPE = (512, 2)    # seq, global batch: a row a rank
+LAYER_GATHER_PLANS = ("f32", "bf16")
+# a (2, 1) step against the one-rank step from the same state: the
+# recurrent runs' bounds (f32 holds the split tightly; bf16 at OLMoE's)
+LAYER_GATHER_BOUNDS = {"f32": _F32_HOLD, "bf16": _BF16_HOLD}
+# the plan whose run the dry run traces (it has no f32 plan)
+LAYER_GATHER_TRACED = "bf16"
+
+
+def layer_gather_config():
+    """StableLM-2 1.6B at full width (d 2048, 32 heads of 64, d_ff 5632,
+    vocab 100352, remat) with ``fsdp=True``, ``LAYER_GATHER_LAYERS``
+    deep: on (2, 1) the data axis splits every projection of the stacked
+    layers, so the step gathers them one super-block at a time."""
+    from repro_torch.configs.stablelm_1_6b import FULL
+    return FULL.with_(num_layers=LAYER_GATHER_LAYERS, fsdp=True)
+
+
+def layer_gather_rank(rank: int, dev, plan_name: str) -> dict:
+    """One rank of ``layer_gather_2rank`` (``layer_gather_config()``): one
+    step of ``plan_name`` on the 2 x 512 global batch on one device, then
+    one on (2, 1) from the same seeded state, its stacked layers gathered a
+    super-block at a time: each step's loss, grad norm, step ms, the
+    collectives' ms, the step-only peak; on (2, 1) each data-axis
+    all-gather's operand shape (``launch.dryrun.counted_collectives``),
+    the stacked leaves' shapes, the largest relative L2 error of a
+    gradient slice as AdamW gets it against the same slice of the
+    one-device gradient, and the parameters' max and mean |diff| after
+    the step.  Both ranks run the one-device step at once (~11 GB each).
+    Returns what the parent checks."""
+    from repro_torch.configs.base import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.core.precision import PrecisionPolicy
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import lm_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.runtime.train_loop import Trainer
+
+    cfg = layer_gather_config()
+    shape = ShapeConfig("layer_gather_2x512", *LAYER_GATHER_SHAPE, "train")
+    tc = TrainConfig(total_steps=1)
+    plan = (PartitionPlan.uniform(cfg.num_layers, PrecisionPolicy.fp32())
+            if plan_name == "f32" else None)
+    axes = ("data", "model")
+    dp = Trainer(cfg, shape, MeshConfig((2, 1), axes), tc, plan=plan,
+                 device=dev)
+    one = Trainer(cfg, shape, MeshConfig((1, 1), axes), tc, plan=plan,
+                  device=dev)
+    specs = tree_leaves(dp.param_specs)
+    batch = lm_batch(cfg, shape, 0, device=dev)
+    runs, want = {}, {}
+    for name, tr in (("1x1", one), ("2x1", dp)):
+        st = one.init_state()
+        if name == "2x1":
+            st = dp.state_shardings.shard(st)
+        names = leaf_names(st.params)
+        spent, seen, tally = [], [], dryrun.Tally()
+        torch.cuda.synchronize()
+        held = step_peak_start(st)
+        zero_counts()                 # this rank's main path starts here
+        t0 = time.perf_counter()
+        with timed_collectives(spent), kept_grads(seen), \
+                dryrun.counted_collectives(tally):
+            st, m = tr.step_fn(st, batch)
+        torch.cuda.synchronize()
+        run = runs[name] = {"step_ms": (time.perf_counter() - t0) * 1e3,
+                            "collective_ms": sum(spent),
+                            "loss": [float(m["loss"])],
+                            "grad_norm": [float(m["grad_norm"])]}
+        step_peak_end(run, held)
+        run["launches"] = launch_counts()
+        if name == "1x1":
+            # this rank's (2, 1) slices of the gradient and parameters
+            want["grads"] = [g[dp.param_shardings.slices(sp, g.shape)].clone()
+                             for g, sp in zip(seen[0], specs)]
+            want["params"] = [p[dp.param_shardings.slices(sp, p.shape)]
+                              .clone() for p, sp in
+                              zip(tree_leaves(st.params), specs)]
+        else:
+            errs = [float(torch.linalg.vector_norm(g.float() - w.float())
+                          / torch.linalg.vector_norm(w.float()))
+                    for g, w in zip(seen[0], want["grads"])]
+            i = int(np.argmax(errs))
+            run["grad_rel_err"], run["worst_leaf"] = [errs[i]], [names[i]]
+            diffs = [(a.float() - b.float()).abs() for a, b in
+                     zip(tree_leaves(st.params), want["params"])]
+            run["max_abs_diff"] = [max(float(x.max()) for x in diffs)]
+            run["mean_abs_diff"] = [sum(float(x.sum()) for x in diffs)
+                                    / sum(x.numel() for x in diffs)]
+            data = tuple(torch.distributed.get_process_group_ranks(
+                dp.placement.group(("data",))))
+            run["gathers"] = [list(shp) for kind, shp, ranks
+                              in tally.coll_calls
+                              if kind == "all-gather" and ranks == data]
+            run["stacked"] = [list(t.shape) for t, blk in zip(
+                tree_leaves(st.params), tree_leaves(dp.blocks.leaves))
+                if blk]
+            del diffs
+        del st, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want, dp, one, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def layer_gather_passes(cfg) -> int:
+    """How often one microbatch gathers each super-block: once in the
+    forward, once in remat's recompute (no ``remat_group`` here)."""
+    return 2 * cfg.num_layers if cfg.remat else cfg.num_layers
+
+
+def layer_gather_check(card: str, ranks: list, plan_name: str) -> dict:
+    """``layer_gather_2rank`` under ``plan_name``: each rank's (2, 1) step
+    against its one-device step (``layer_gather_rank``).  The step within
+    ``LAYER_GATHER_BOUNDS[plan_name]`` (``held_step_faults``: loss, grad
+    norm, each gradient slice), the parameters after it within
+    ``sharded_tolerance`` and the bound's mean; every data-axis
+    all-gather's operand one super-block's part of a stacked leaf, each
+    leaf's blocks gathered ``layer_gather_passes`` times and no stacked
+    leaf gathered; the ranks' losses equal; the flash kernels launched;
+    each rank's step-only peak below the one-device step's.  Emits the
+    run's line, then raises if a check failed.  Returns rank 0's launches
+    by mesh."""
+    from repro_torch.configs.base import TrainConfig
+    cfg = layer_gather_config()
+    tc = TrainConfig(total_steps=1)
+    bound = LAYER_GATHER_BOUNDS[plan_name]
+    wrong = []
+    for r, res in enumerate(ranks):
+        one, mesh = res["1x1"], res["2x1"]
+        at = f"rank {r}"
+        wrong += held_step_faults(at, mesh, one, 0, bound["loss"],
+                                  bound["grad_norm"], bound["leaf"])
+        wrong += held_params_faults(at, mesh, tc, bound["mean"])
+        want = {}
+        for shp in mesh["stacked"]:
+            key = tuple(shp[1:])
+            want[key] = want.get(key, 0) + layer_gather_passes(cfg)
+        got = {}
+        for shp in mesh["gathers"]:
+            got[tuple(shp)] = got.get(tuple(shp), 0) + 1
+        if not mesh["stacked"] or got != want:
+            wrong.append(f"{at}: data-axis all-gathers {got}, not {want}")
+        for name in ("1x1", "2x1"):
+            if not res[name]["launches"]["flash_attention"]:
+                wrong.append(f"{at} {name}: launches {res[name]['launches']}")
+        if mesh["loss"] != ranks[0]["2x1"]["loss"]:
+            wrong.append("the ranks' losses differ")
+        if not mesh["step_only_peak_bytes"] < one["step_only_peak_bytes"]:
+            wrong.append(f"{at}: (2, 1) step peak "
+                         f"{mesh['step_only_peak_bytes']} not below one "
+                         f"device's {one['step_only_peak_bytes']}")
+    runs = [r["2x1"] for r in ranks]
+    emit("layer_gather_2rank", card=card, config=cfg.name, plan=plan_name,
+         mesh=[2, 1], fsdp=True, backend="gloo", world=2,
+         layers=LAYER_GATHER_LAYERS,
+         execution="data-axis parts gathered one super-block at a time",
+         shape={"seq_len": LAYER_GATHER_SHAPE[0],
+                "batch": LAYER_GATHER_SHAPE[1]},
+         reduced=[f"layers 24 -> {LAYER_GATHER_LAYERS}",
+                  f"train_4k's 256 x 4096 -> {LAYER_GATHER_SHAPE[1]} x "
+                  f"{LAYER_GATHER_SHAPE[0]}"],
+         held="the step starts from the one-device run's state",
+         loss=runs[0]["loss"], one_rank_loss=ranks[0]["1x1"]["loss"],
+         grad_norm=runs[0]["grad_norm"],
+         one_rank_grad_norm=ranks[0]["1x1"]["grad_norm"],
+         grad_rel_err=[x["grad_rel_err"] for x in runs],
+         worst_leaf=[x["worst_leaf"] for x in runs], bounds=bound,
+         max_abs_param_diff=[x["max_abs_diff"] for x in runs],
+         param_bound=sharded_tolerance(tc, 1),
+         mean_abs_param_diff=[x["mean_abs_diff"] for x in runs],
+         block_all_gathers=[len(x["gathers"]) for x in runs],
+         stacked_leaves=len(runs[0]["stacked"]),
+         passes_a_block=layer_gather_passes(cfg),
+         step_ms_each=[x["step_ms"] for x in runs],
+         one_rank_step_ms=[r["1x1"]["step_ms"] for r in ranks],
+         collective_ms_each=[x["collective_ms"] for x in runs],
+         step_peak_gb=[x["step_peak_bytes"] / 1e9 for x in runs],
+         step_only_peak_gb=[x["step_only_peak_bytes"] / 1e9 for x in runs],
+         one_rank_step_only_peak_gb=[r["1x1"]["step_only_peak_bytes"] / 1e9
+                                     for r in ranks],
+         launches=[x["launches"] for x in runs], failed=wrong,
+         note="gloo stages CUDA tensors through host memory: a "
+              "correctness run, not a speed")
+    if wrong:
+        raise AssertionError(f"layer_gather_2rank {plan_name}: {wrong}")
+    return {name: ranks[0][name]["launches"] for name in ("1x1", "2x1")}
+
+
 RWKV_TRAIN_STEPS = 3
 RWKV_REPEAT_LAYERS = 2           # the repeated step's depth (two states)
 
@@ -5517,44 +5740,60 @@ def dryrun_two_rank(card: str, two_rank: dict) -> None:
     """The (1, 2) runs of ``train_sharded_2rank``, which compute head- and
     expert-parallel (StableLM-2, OLMoE-1B-7B, and RWKV-6 and Jamba's Mamba
     layers on the rank's heads and channels, under ``RECURRENT_TRACED``),
-    through the dry run as rank
-    0 of a fake world of two:
-    the traced peak within ``DRYRUN_PEAK_BAND`` of the largest measured
-    step of a rank, less what the rank held beside its state
-    (``step_peak_end``; ``two_rank``: ``{run: [bytes a rank]}``)."""
+    and the per-block (2, 1) run of ``layer_gather_2rank`` (under
+    ``LAYER_GATHER_TRACED``), through the dry run as rank 0 of a fake
+    world of two: the traced peak within ``DRYRUN_PEAK_BAND`` of the
+    largest measured step of a rank, less what the rank held beside its
+    state (``step_peak_end``; ``two_rank``: ``{run: [bytes a rank]}``),
+    and where ``two_rank`` has ``{run}/all_gathers``, the traced
+    all-gathers as many as each rank made."""
     from repro_torch.configs.base import MeshConfig, ShapeConfig
     from repro_torch.configs.olmoe_1b_7b import FULL as OLMOE
     from repro_torch.configs.stablelm_1_6b import FULL as STABLELM
     from repro_torch.launch import dryrun
     tp_mesh = MeshConfig((1, 2), ("data", "model"))
-    for key, cfg, (seq, batch), plan in (
+    dp_mesh = MeshConfig((2, 1), ("data", "model"))
+    per_block = f"stablelm-1.6b/layer_gather/2x1/{LAYER_GATHER_TRACED}"
+    for key, cfg, (seq, batch), plan, mesh in (
             ("stablelm-1.6b/1x2", STABLELM.with_(
                 num_layers=SHARDED_LAYERS, fsdp=True,
-                grad_accum=SHARDED_ACCUM), TRAIN_SHAPE, "bf16"),
+                grad_accum=SHARDED_ACCUM), TRAIN_SHAPE, "bf16", tp_mesh),
             *((f"olmoe-1b-7b/1x2/{p}", OLMOE.with_(num_layers=OLMOE_LAYERS),
-               OLMOE_SHAPE, p) for p in OLMOE_PLANS),
+               OLMOE_SHAPE, p, tp_mesh) for p in OLMOE_PLANS),
             *((f"{key}/1x2/{RECURRENT_TRACED}", recurrent_config(key),
-               RECURRENT_SHAPE, RECURRENT_TRACED) for key in RECURRENT_RUNS)):
+               RECURRENT_SHAPE, RECURRENT_TRACED, tp_mesh)
+              for key in RECURRENT_RUNS),
+            (per_block, layer_gather_config(), LAYER_GATHER_SHAPE,
+             LAYER_GATHER_TRACED, dp_mesh)):
         shape = ShapeConfig("two_rank", seq, batch, "train")
         t0 = time.perf_counter()
         with dryrun.fake_world(2):
-            st = dryrun.trace_cell(cfg, shape, tp_mesh, plan)
+            st = dryrun.trace_cell(cfg, shape, mesh, plan)
         seconds = time.perf_counter() - t0
         got = max(two_rank[key])
         peak_err = st["peak_bytes"] / got - 1
         emit("dryrun", card=card, config=cfg.name, run=key,
-             shape={"seq_len": seq, "batch": batch}, mesh="1x2", plan=plan,
+             shape={"seq_len": seq, "batch": batch},
+             mesh="x".join(map(str, mesh.shape)), plan=plan,
              execution=st["execution"], dryrun_s=seconds,
              peak_bytes_predicted=st["peak_bytes"],
              peak_bytes_measured_each=two_rank[key],
              peak_relative_err=peak_err, peak_band=DRYRUN_PEAK_BAND,
              collective_counts=st["collective_counts"],
+             all_gathers_measured_each=two_rank.get(f"{key}/all_gathers"),
              collective_bytes_by_link=st["collective_bytes_by_link"],
              kernel_calls=st["kernel_calls"])
         if abs(peak_err) > DRYRUN_PEAK_BAND:
             raise AssertionError(f"dryrun {key}: predicted peak "
                                  f"{st['peak_bytes']} bytes, measured "
                                  f"{got} ({peak_err:+.1%})")
+        gathers = two_rank.get(f"{key}/all_gathers")
+        if gathers is not None and any(
+                n != st["collective_counts"].get("all-gather", 0)
+                for n in gathers):
+            raise AssertionError(f"dryrun {key}: traced all-gathers "
+                                 f"{st['collective_counts']}, measured "
+                                 f"{gathers} a rank")
 
 
 # the train launcher on the card, each a main path of its own: the audio

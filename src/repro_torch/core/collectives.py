@@ -45,6 +45,15 @@ input's gradient, a row-parallel one its output.  The ring all-reduces
 of gloo and NCCL hand every rank the same bits, so what is replicated
 stays identical.
 
+The layer gather (:func:`layer_gather`) is the FSDP split of the stacked
+layers: where a data axis splits a ``layers`` leaf, each rank holds its
+part of every super-block, and the model reads super-block ``i`` through
+:func:`layer_block`, which all-gathers that block's parts as the forward,
+remat's recompute and the backward reach it (``sharding.BlockGather``).
+Its backward all-reduces the gathered block's gradient over the batch
+group and keeps the rank's part, so a whole stacked leaf is never
+gathered and its gradient is the rank's slice, reduced.
+
 Outside a group (one device, or a mesh whose batch is whole on every rank)
 every function returns its input and the model runs exactly as it does
 alone.  A group of one rank is no group.  Every rank of a group runs the
@@ -57,11 +66,14 @@ import contextlib
 
 import torch
 
+from repro_torch.core.tree import tree_map
+
 _GROUP = None          # the process group of the batch axes, or None
 _RANKS = 1
 _MGROUP = None         # the process group of the model axis, or None
 _MRANKS = 1
 _MRANK = 0
+_BLOCK = None          # (layers, i) -> super-block i, gathered; or None
 
 
 @contextlib.contextmanager
@@ -285,3 +297,50 @@ def model_halves(t: torch.Tensor, group, ranks: int, rank: int,
     got = torch.empty_like(buf)
     dist.all_to_all_single(got, buf, out_splits, in_splits, group=group)
     return _halves_unpack(got, ranks, rank, back, t.shape)
+
+
+# ---------------------------------------------------------------------------
+# The layer gather
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def layer_gather(block):
+    """While inside, :func:`layer_block` reads super-block ``i`` of the
+    stacked layers as ``block(layers, i)`` (a ``sharding.BlockGather``:
+    the leaves a data axis splits are the rank's parts, gathered block by
+    block); ``block`` None enters nothing."""
+    global _BLOCK
+    saved = _BLOCK
+    _BLOCK = block
+    try:
+        yield
+    finally:
+        _BLOCK = saved
+
+
+def layer_block(layers, i: int):
+    """Super-block ``i`` of the stacked ``layers``: each leaf's ``a[i]``,
+    or inside :func:`layer_gather` the block its gather gives."""
+    if _BLOCK is None:
+        return tree_map(lambda a: a[i], layers)
+    return _BLOCK(layers, i)
+
+
+class _GatherBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, part: torch.Tensor, gather, cut, group) -> torch.Tensor:
+        ctx.cut, ctx.group = cut, group
+        return gather(part)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        if ctx.group is not None:
+            g = _all_reduce(g, ctx.group)
+        return ctx.cut(g), None, None, None
+
+
+def gather_block(part: torch.Tensor, gather, cut) -> torch.Tensor:
+    """``gather(part)``, one super-block's leaf gathered from the rank's
+    ``part`` (its all-gathers); the backward all-reduces the gathered
+    gradient over the batch group (the sum of every rank's rows) and
+    returns ``cut(g)``, the rank's part of it."""
+    return _GatherBlock.apply(part, gather, cut, _GROUP)

@@ -16,7 +16,11 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
   param_structs`` without ``init_state``: it gathers the parameters'
   data-axis parts (the head-parallel leaves, ``sharding.head_parallel``,
   keep their model-axis part, Mamba's ``in_proj`` re-laid by an
-  all-to-all), runs forward and backward on the rank's rows of the batch
+  all-to-all), a stacked ``layers`` leaf's one super-block at a time as
+  the forward, remat's recompute and the backward reach it
+  (``sharding.BlockGather``: its gradient all-reduced there and cut to
+  the rank's slice, the microbatch accumulator holding slices), runs
+  forward and backward on the rank's rows of the batch
   inside the batch group and the model group (``core/collectives.py``:
   per-tensor activation scales and MoE routing over the global batch;
   column- and row-parallel projections, head-local attention, the
@@ -25,8 +29,9 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
   gradients over the batch's ranks and runs AdamW on the rank's slices;
 * prefill and decode cells lay the parameters out the same way (int8
   structs under ``--plan mpai``, bf16 otherwise) and the cache by
-  ``sharding.cache_specs``, gather the same parts (the cache keeps the
-  rank's kv heads, RWKV-6 state heads and Mamba channels) and run
+  ``sharding.cache_specs``, gather the same parts, the stacked layers'
+  a super-block at a time (the cache keeps the rank's kv heads, RWKV-6
+  state heads and Mamba channels) and run
   ``T.forward`` / ``T.decode_step`` on the rank's rows inside the same
   two groups (under ``--plan mpai`` the scales'
   all-reduces; an MoE layer's dispatch path on the global token count,
@@ -34,7 +39,12 @@ What runs is the port's one mesh execution, the mesh ``Trainer``'s:
   serving cells as unused).
 
 Under ``sharding_mode == "fsdp"``, or on a model axis of one rank, the
-model axis computes replicated.  Every row says so (``"execution"``).  A
+model axis computes replicated.  Every row says so (``"execution"``;
+``EXECUTION`` where a data axis splits the stacked layers, so they are
+gathered a super-block at a time, ``EXECUTION_WHOLE`` where none does).
+A per-block cell makes one all-gather a split leaf, block and pass (the
+forward and each remat recompute) and one all-reduce of its gradient a
+block and microbatch, where a whole-stack step made one a leaf.  A
 tensor-parallel all-reduce is counted like any collective, on the link
 ``roofline.link_of`` gives its ranks: on 16 x 16 the 16-rank model axis
 spans two 8-card nodes.
@@ -89,8 +99,13 @@ from repro_torch.launch.mesh import (make_mesh_from_config,
 from repro_torch.models import transformer as T
 from repro_torch.runtime.train_loop import Trainer
 
-EXECUTION = ("head-parallel compute on the model axis (attention, MLPs, "
-             "MoE, Mamba and RWKV-6 mixers); data-axis parts gathered")
+# a row's execution: where a data axis splits the stacked layers, their
+# parts are gathered a super-block at a time (``sharding.BlockGather``)
+EXECUTION_WHOLE = ("head-parallel compute on the model axis (attention, "
+                   "MLPs, MoE, Mamba and RWKV-6 mixers); data-axis parts "
+                   "gathered")
+EXECUTION = (EXECUTION_WHOLE + " one super-block at a time (an all-gather "
+             "a split leaf, block and pass)")
 CARD_BYTES = 80e9            # an H100 80GB's memory, as fits_80gb reads it
 SMS = 132                    # H100 SXM5 streaming multiprocessors
 
@@ -475,6 +490,7 @@ class Cell:
             self.placement = self.trainer.placement
             self.like = self.trainer.state_like()
             self.specs = self.trainer.state_specs
+            self.blocks = self.trainer.blocks
             return
         self.placement = shard.Placement(
             mesh_cfg, device_mesh or make_mesh_from_config(mesh_cfg))
@@ -492,6 +508,8 @@ class Cell:
                             self.placement.group_size((shard.MODEL,)))
         self.model_group = (self.placement.group((shard.MODEL,))
                             if self.model_ranks > 1 else None)
+        # the layer gather the serving step enters, as the Trainer does
+        self.blocks = self.params.block_gather(self.head_parallel)
         if shape.kind == "decode":
             self.cache = _CacheLayout(cfg, shape, mesh_cfg, self.tp,
                                       head_local=self.model_ranks > 1)
@@ -529,22 +547,28 @@ class Cell:
         with collectives.batch_group(self.batch_group, self.batch_ranks), \
                 collectives.model_group(
                     self.model_group, self.model_ranks,
-                    self.placement.coord.get(shard.MODEL, 0)):
+                    self.placement.coord.get(shard.MODEL, 0)), \
+                collectives.layer_gather(self.blocks):
             return self._serve_step(*args)
+
+    @property
+    def execution(self) -> str:
+        return EXECUTION_WHOLE if self.blocks is None else EXECUTION
 
     def _serve_step(self, *args):
         """Prefill or decode on the rank's rows."""
         cfg, plan, tp = self.cfg, self.plan, self.tp
         hp = self.head_parallel
+        blocks = None if self.blocks is None else self.blocks.leaves
         if self.shape.kind == "prefill":
             params, batch = args
-            full = self.params.unshard(params, keep_model=hp)
+            full = self.params.unshard(params, keep_model=hp, blocks=blocks)
             return T.forward(full, cfg, batch["tokens"], plan, tp,
                              frontend_embeds=batch.get("frontend_embeds")
                              ).logits
         params, tokens, parts = args
         cache = self.cache.gathered(parts, self.placement)
-        full = self.params.unshard(params, keep_model=hp)
+        full = self.params.unshard(params, keep_model=hp, blocks=blocks)
         logits = T.decode_step(full, cfg, tokens, cache, plan, tp).logits
         # the reference donates the cache: the step's new cache is the
         # rank's parts, rewritten
@@ -565,7 +589,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh_cfg: MeshConfig,
     cell = Cell(cfg, shape, mesh_cfg, plan_name, tc, device_mesh)
     stats = {"arch": cfg.name, "shape": shape.name,
              "mesh": "x".join(map(str, mesh_cfg.shape)),
-             "execution": EXECUTION}
+             "execution": cell.execution}
     tally = Tally()
     flops = FlopCounterMode(display=False)
     with FakeTensorMode():

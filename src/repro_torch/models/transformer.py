@@ -24,6 +24,13 @@ on the rank's channels and heads (Mamba's ``in_proj`` in the layout
 rank's kv heads and recurrent states.  The logits are then the rank's
 vocab columns (the reference's ``logits_spec``) and ``loss_fn``'s
 cross-entropy is vocab-parallel.
+
+Inside the layer gather (``core/collectives.py``, entered where a data
+axis splits the stacked layers) a stacked leaf so split is the rank's
+part, and each super-block reads its leaves through
+``collectives.layer_block``: gathered as the forward reaches the block,
+again in remat's recompute, its gradient reduced in the backward, as the
+reference's scan over FSDP-sharded layers gathers one layer at a time.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import collectives
 from repro_torch.core.partition import PartitionPlan
 from repro_torch.core.precision import PrecisionPolicy
 from repro_torch.core.tree import tree_leaves, tree_map
@@ -315,9 +323,11 @@ def _block_apply(layers: Dict, cfg: ModelConfig, pat, x: torch.Tensor,
                  chunk: Optional[Tuple[int, int]]):
     """Super-block ``i`` of the stacked ``layers``: every sublayer of the
     pattern in turn.  Returns ``(x, aux)``, aux the sum of the block's MoE
-    losses (None without MoE)."""
+    losses (None without MoE).  Its leaves come through
+    ``collectives.layer_block``: gathered there where a data axis splits
+    them."""
     aux_total = None
-    blk = tree_map(lambda a: a[i], layers)
+    blk = collectives.layer_block(layers, i)
     for j, (kind, is_moe) in enumerate(pat):
         key = f"sub_{j}"
         c = None if cache is None else cache[key]

@@ -21,7 +21,16 @@ with their parameters — and each step:
   model-axis part, Mamba's ``in_proj`` re-laid to the rank's channels of
   its two halves (an all-to-all in ``TreeSharding.unshard``; its gradient
   goes back the same way in ``TreeSharding.shard``); the others (norms,
-  the router, the token shifts' mixes) are gathered whole;
+  the router, the token shifts' mixes) are gathered whole.  A stacked
+  ``layers`` leaf that those gathers split (FSDP: ``fsdp=True``, or
+  ``sharding_mode == "fsdp"``) is not gathered here: the step keeps the
+  rank's part (``in_proj``'s re-laid) and the model gathers one
+  super-block at a time inside the layer gather
+  (``sharding.BlockGather``, ``core/collectives.layer_gather``), in the
+  forward and in remat's recompute; the block's gradient is all-reduced
+  over the batch's ranks in the backward and cut to the rank's slice,
+  so the microbatch accumulator holds slices, as the reference's
+  sharded ``gsum`` does;
 * runs the forward and backward on those rows inside the batch group of
   the ranks that split the batch and the model group of the model axis
   (``core/collectives.py``).  The batch group makes per-tensor activation
@@ -36,17 +45,22 @@ with their parameters — and each step:
   MoE.  What stays replicated (the residual stream, norms, the router,
   the loss) is the same on every model rank, and so are the gradients of
   the replicated leaves;
-* all-reduces each gradient over the ranks that split the batch (an
-  ``all_reduce`` then a slice, on gloo and NCCL alike) and divides by
-  their count; the model axis needs no reduction;
-* takes the global norm from each leaf's squared sum, all-reduced over
-  the model group for a head-parallel leaf (whose gradient each model
-  rank holds a part of), added in ``tree_leaves`` order, then keeps the
-  rank's slices;
+* all-reduces each other gradient over the ranks that split the batch
+  (an ``all_reduce`` then a slice, on gloo and NCCL alike) and divides
+  every gradient by their count; the model axis needs no reduction;
+* takes the global norm from each leaf's squared sum, a per-block leaf's
+  all-reduced over its data-axis group and a head-parallel leaf's over
+  the model group (whose gradient each rank holds a part of), added in
+  ``tree_leaves`` order, then keeps the rank's slices;
 * runs AdamW on the rank's slices, in place, clipped by that norm.
 
 A collective over one rank is an identity and is skipped, so on a mesh of
-one device the step does the one-device step's arithmetic, bit for bit.
+one device the step does the one-device step's arithmetic, bit for bit;
+a mesh whose data axes split no layer leaf runs no layer gather.  Where
+they do, the sums over ranks and microbatches come in another order
+than the whole-stack step's (each microbatch's block gradient reduced,
+then accumulated): with one microbatch on two batch ranks the slices are
+the same bits.
 Under ``sharding_mode == "fsdp"`` the model axis splits the batch too
 and compute stays replicated along it.
 
@@ -221,6 +235,9 @@ class Trainer:
         for axes in sorted((a for a in used if pl.group_size(a) > 1),
                            key=lambda a: (len(a), a)):
             pl.group(axes)
+        # the stacked leaves a data axis splits, gathered a super-block at
+        # a time inside the step (None: every leaf is gathered whole)
+        self.blocks = self.param_shardings.block_gather(self.head_parallel)
         self._grads_of = make_grad_fn(cfg, self.tc, self.plan, self.tp)
         self.step_fn = self._sharded_step
 
@@ -241,51 +258,73 @@ class Trainer:
 
     def _sharded_step(self, state: TrainState, batch: Dict[str, torch.Tensor]):
         import torch.distributed as dist
-        pl, hp = self.placement, self.head_parallel
+        pl, hp, bg = self.placement, self.head_parallel, self.blocks
+        blocks = None if bg is None else bg.leaves
         ga = self.cfg.grad_accum
         rows = {k: v.unflatten(0, (ga, -1))[:, self.rows].flatten(0, 1)
                 for k, v in batch.items()}
-        full = self.param_shardings.unshard(state.params, keep_model=hp)
+        full = self.param_shardings.unshard(state.params, keep_model=hp,
+                                            blocks=blocks)
         group = pl.group(self.batch_axes) if self.batch_ranks > 1 else None
         mranks = 1 if hp is None else pl.group_size((shard.MODEL,))
         mgroup = pl.group((shard.MODEL,)) if mranks > 1 else None
         with collectives.batch_group(group, self.batch_ranks), \
                 collectives.model_group(mgroup, mranks,
-                                        pl.coord.get(shard.MODEL, 0)):
+                                        pl.coord.get(shard.MODEL, 0)), \
+                collectives.layer_gather(bg):
             l, grads = self._grads_of(full, rows)
         del full
         if group is not None:
 
-            def mean(t):
-                dist.all_reduce(t, group=group)
+            def mean(t, reduced=False):
+                # a per-block leaf's slices were reduced in the backward
+                if not reduced:
+                    dist.all_reduce(t, group=group)
                 return t.div_(self.batch_ranks)
             l = mean(l.clone())
-            grads = tree_map(mean, grads)
+            grads = (tree_map(mean, grads) if bg is None
+                     else tree_map(mean, grads, blocks))
         gnorm = self._global_norm(grads, mgroup)
-        grads = self.param_shardings.shard(grads, keep_model=hp)
+        grads = self.param_shardings.shard(grads, keep_model=hp,
+                                           blocks=blocks)
         new, opt, gnorm = adamw.apply_updates(
             state.params, grads, state.opt, self.tc, donate=True, gnorm=gnorm)
         return (TrainState(new, opt, state.step + 1),
                 {"loss": l, "grad_norm": gnorm})
 
     def _global_norm(self, grads, mgroup) -> torch.Tensor:
-        """The global norm of the step's gradient: each leaf's squared sum
-        (a head-parallel leaf's all-reduced over the model group, in one
-        call), added in ``tree_leaves`` order, as ``adamw.global_norm``."""
-        sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+        """The global norm of the step's gradient: each leaf's squared sum,
+        a per-block leaf's (the rank's slices) all-reduced over the group
+        of each axis its gathers act on, then a head-parallel leaf's over
+        the model group (one call a group), added in ``tree_leaves``
+        order, as ``adamw.global_norm``."""
+        leaves = tree_leaves(grads)
+        sq = [torch.sum(torch.square(g.float())) for g in leaves]
+        by_group = {}
+        if self.blocks is not None:
+            for i, p in enumerate(tree_leaves(self.blocks.plans)):
+                for axes in p.axes:
+                    by_group.setdefault(axes, []).append(i)
+        for axes in sorted(by_group):
+            self._sum_parts(sq, by_group[axes], self.placement.group(axes))
         if mgroup is not None:
-            import torch.distributed as dist
-            split = [i for i, (h, sp, g) in enumerate(zip(
+            self._sum_parts(sq, [i for i, (h, sp, g) in enumerate(zip(
                 tree_leaves(self.head_parallel), tree_leaves(self.param_specs),
-                tree_leaves(grads)))
-                if h and any(shard.MODEL in ax
-                             for ax in shard.dim_axes(sp, g.ndim))]
-            if split:
-                parts = torch.stack([sq[i] for i in split])
-                dist.all_reduce(parts, group=mgroup)
-                for j, i in enumerate(split):
-                    sq[i] = parts[j]
+                leaves)) if h and any(shard.MODEL in ax
+                                      for ax in shard.dim_axes(sp, g.ndim))],
+                mgroup)
         return torch.sqrt(sum(sq))
+
+    @staticmethod
+    def _sum_parts(sq: list, idx: list, group) -> None:
+        """``sq[i]`` for ``i`` in ``idx`` summed over ``group``'s ranks, in
+        one all-reduce."""
+        if idx:
+            import torch.distributed as dist
+            parts = torch.stack([sq[i] for i in idx])
+            dist.all_reduce(parts, group=group)
+            for j, i in enumerate(idx):
+                sq[i] = parts[j]
 
     def _init_state(self, device) -> TrainState:
         """The port's own seeded init (``T.model_init`` from

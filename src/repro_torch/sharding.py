@@ -23,7 +23,10 @@ build on it, and :class:`TreeSharding` applies them to a whole tree, as
 the reference's ``make_shardings`` gives a tree of ``NamedSharding``.
 Both can act on some axes only (``axes``): a step that computes
 head-parallel gathers a leaf's data-axis parts and keeps its model-axis
-part, the leaves that :func:`head_parallel` names.
+part, the leaves that :func:`head_parallel` names.  :class:`BlockGather`
+makes the same gathers one super-block of a stacked ``layers`` leaf at a
+time, inside the model (``core/collectives.layer_gather``), where a data
+axis splits the leaf (FSDP).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ import torch
 
 from repro_torch.configs.base import MeshConfig, ModelConfig, ShapeConfig
 from repro_torch.core import collectives
-from repro_torch.core.tree import tree_map
+from repro_torch.core.tree import tree_leaves, tree_map
 
 MODEL = "model"
 
@@ -542,24 +545,99 @@ class TreeSharding:
             t, group, ranks, rank, back) if keep and m else t,
             tree, keep_model, self.halves)
 
-    def shard(self, full, keep_model=None):
+    def shard(self, full, keep_model=None, blocks=None):
         """This rank's part of each leaf of ``full``; where ``keep_model``
         is True the leaf is already the rank's model-axis part, laid as
         ``unshard`` lays it, and only its other axes are cut (collective
-        where a kept leaf is two halves' part: every rank calls it)."""
+        where a kept leaf is two halves' part: every rank calls it).
+        Where ``blocks`` (``BlockGather.leaves``) is True the leaf is
+        already the rank's part, and is only laid back."""
         pl = self.placement
         full = self._relay(full, keep_model, back=True)
-        return tree_map(lambda t, sp, ax: shard(t, sp, pl.mesh_cfg, pl.coord,
-                                                ax),
-                        full, self.specs, self._axes(keep_model))
+        return tree_map(lambda t, sp, ax, blk: t if blk else shard(
+            t, sp, pl.mesh_cfg, pl.coord, ax), full, self.specs,
+            self._axes(keep_model), self._blocks(blocks))
 
-    def unshard(self, local, keep_model=None):
+    def unshard(self, local, keep_model=None, blocks=None):
         """Every leaf gathered whole; where ``keep_model`` is True only
         its non-model axes are gathered, and a part of two halves
         (``HALVES``, Mamba's ``in_proj``) is re-laid to the rank's part of
         each, as the model computes on it (collective: every rank calls
-        it)."""
+        it).  Where ``blocks`` (``BlockGather.leaves``) is True the leaf
+        stays the rank's part, re-laid where it is two halves': the model
+        gathers it a super-block at a time."""
         pl = self.placement
-        return self._relay(tree_map(lambda t, sp, like, ax: unshard(
-            t, sp, like.shape, pl.mesh_cfg, pl.group, ax), local, self.specs,
-            self.shapes, self._axes(keep_model)), keep_model, back=False)
+        return self._relay(tree_map(lambda t, sp, like, ax, blk: t if blk
+                                    else unshard(t, sp, like.shape,
+                                                 pl.mesh_cfg, pl.group, ax),
+                                    local, self.specs, self.shapes,
+                                    self._axes(keep_model),
+                                    self._blocks(blocks)),
+                           keep_model, back=False)
+
+    def _blocks(self, blocks):
+        return tree_map(lambda sp: False, self.specs) if blocks is None \
+            else blocks
+
+    def block_gather(self, keep_model=None) -> Optional["BlockGather"]:
+        """The per-block gather of this tree's stacked ``layers`` (the
+        leaves ``unshard`` gathers over a split axis, with ``keep_model``
+        as it takes it), or None where no layer leaf is split so."""
+        bg = BlockGather(self, keep_model)
+        return bg if any(tree_leaves(bg.leaves)) else None
+
+
+class _LeafGather:
+    """How ``BlockGather`` reads one leaf of a super-block: ``gather`` and
+    ``cut`` (its all-gathers and the rank's part of a block), and the
+    split axes they act on; ``gather`` None where the leaf is whole."""
+    __slots__ = ("gather", "cut", "axes")
+
+    def __init__(self, gather=None, cut=None, axes=()):
+        self.gather, self.cut, self.axes = gather, cut, axes
+
+
+class BlockGather:
+    """Super-block ``i`` of a stacked ``layers`` tree whose split leaves
+    are this rank's parts (``TreeSharding.unshard(..., blocks=leaves)``
+    leaves them so): each is ``a[i]`` gathered by the all-gathers that
+    ``unshard`` makes for the whole leaf, over the same groups in the
+    same part order (the stack dim is never split, so dim ``d`` of the
+    block is dim ``d + 1`` of the stack), through
+    ``collectives.gather_block``, whose backward all-reduces the block's
+    gradient over the batch group and cuts the rank's part (``shard``).
+    A layer leaf that ``unshard`` gathers over no split axis (a norm, the
+    router, a head-parallel leaf split on the model axis alone) is whole
+    and indexed as it is.  Called through ``collectives.layer_gather``.
+    ``plans`` holds a ``_LeafGather`` for every leaf of the state's tree,
+    ``leaves`` is True where a leaf is gathered so (for ``unshard`` and
+    ``shard``)."""
+
+    def __init__(self, ts: TreeSharding, keep_model=None):
+        pl = ts.placement
+        sizes = dict(zip(pl.mesh_cfg.axes, pl.mesh_cfg.shape))
+
+        def plan(in_layers, sp, like, ax):
+            nd = like.ndim
+            acting = sp if ax is None else over_axes(sp, nd, ax)
+            axes = tuple(d for d in dim_axes(acting, nd)
+                         if int(np.prod([sizes[a] for a in d])) > 1)
+            if not (in_layers and axes):
+                return _LeafGather()
+            if dim_axes(acting, nd)[0]:
+                raise ValueError(f"{sp} splits a stacked leaf's layer dim")
+            spec, shape = P(*tuple(sp)[1:]), tuple(like.shape[1:])
+            return _LeafGather(
+                lambda part: unshard(part, spec, shape, pl.mesh_cfg,
+                                     pl.group, ax),
+                lambda g: shard(g, spec, pl.mesh_cfg, pl.coord, ax), axes)
+        in_layers = _map_with_path(
+            lambda path, t: str(path[0][1]) == "layers", ts.shapes)
+        self.plans = tree_map(plan, in_layers, ts.specs, ts.shapes,
+                              ts._axes(keep_model))
+        self.leaves = tree_map(lambda p: p.gather is not None, self.plans)
+
+    def __call__(self, layers, i: int):
+        return tree_map(lambda a, p: a[i] if p.gather is None else
+                        collectives.gather_block(a[i], p.gather, p.cut),
+                        layers, self.plans["layers"])

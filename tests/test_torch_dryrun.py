@@ -313,6 +313,54 @@ def test_no_model_axis_gather_of_a_head_parallel_leaf(kind, arch):
     assert stats["execution"] == D.EXECUTION
 
 
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_per_block_gathers_lower_the_peak_by_the_rule(kind, monkeypatch):
+    """Llama-3's smoke config with ``fsdp`` on, six super-blocks, on a fake
+    (2, 2) world: gathering the layers' data-axis parts one super-block at
+    a time (``sharding.BlockGather``) lowers rank 0's traced peak, against
+    the same trace with every leaf gathered whole, by at least the rule's
+    share of the gathered stack ``G`` (the split leaves' bytes gathered
+    over the data axis, the model-axis part kept): ``(n - 1) / n`` of it
+    in a serving cell, where ``n`` blocks' gathered parameters become one
+    block's; in a train cell also the whole-stack gradient and, with
+    ``grad_accum > 1``, the whole-leaf accumulator, each ``G`` less the
+    rank's slices ``L``."""
+    from repro_torch import sharding as shard
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models import transformer as T
+    cfg = get_config("llama3-405b", smoke=True).with_(
+        fsdp=True, num_layers=6, remat=True, remat_group=3)
+    shape = ShapeConfig("t", 64, 8, kind)
+    with D.fake_world(MESH_2X2.num_devices):
+        per_block = D.trace_cell(cfg, shape, MESH_2X2)
+        cell = D.Cell(cfg, shape, MESH_2X2)
+        blocks = cell.blocks
+        like, specs = ((cell.like.params, cell.specs.params)
+                       if kind == "train" else (cell.like, cell.specs))
+        sizes = dict(zip(MESH_2X2.axes, MESH_2X2.shape))
+        local = gathered = 0
+        for t, sp, p in zip(tree_leaves(like), tree_leaves(specs),
+                            tree_leaves(blocks.plans)):
+            if p.gather is None:
+                continue
+            n = int(np.prod(shard.local_shape(
+                sp, t.shape, MESH_2X2, cell.placement.coord)))
+            local += n * t.element_size()
+            gathered += n * t.element_size() * int(np.prod(
+                [sizes[a] for axes in p.axes for a in axes]))
+        monkeypatch.setattr(shard.TreeSharding, "block_gather",
+                            lambda self, keep_model=None: None)
+        whole = D.trace_cell(cfg, shape, MESH_2X2)
+    assert per_block["execution"] == D.EXECUTION
+    assert whole["execution"] == D.EXECUTION_WHOLE
+    n = cfg.num_layers // T.pattern_period(cfg)
+    drop = whole["peak_bytes"] - per_block["peak_bytes"]
+    want = (n - 1) * gathered               # times n, in integers
+    if kind == "train":
+        want += n * (gathered - local) * (1 + (cfg.grad_accum > 1))
+    assert local and drop * n >= want, (drop, want / n, gathered, local)
+
+
 # ---------------------------------------------------------------------------
 # FLOPs and kernel calls against a real step
 # ---------------------------------------------------------------------------

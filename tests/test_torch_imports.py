@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: every ``repro_torch`` module (and every
 twin of an example) imports with JAX and ml_dtypes blocked, and no module
-(nor ``chip_smoke.py``, the port's scripts, its example twins or its lint
-launcher) imports JAX, ml_dtypes or the reference package ``repro``.  Its entry points run on
-the card unless the caller asks for the CPU."""
+(nor ``chip_smoke.py``, the port's scripts, its example twins or its
+tools' twins) imports JAX, ml_dtypes or the reference package ``repro``.
+Its entry points run on the card unless the caller asks for the CPU."""
 import ast
 import inspect
 import os
@@ -17,7 +17,8 @@ PORT = ROOT / "src" / "repro_torch"
 TWINS = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "scripts").glob("*.py")) + TWINS
-              + [ROOT / "tools" / "fleetlint_torch.py"])
+              + [ROOT / "tools" / f"{name}_torch.py"
+                 for name in ("fleetlint", "hillclimb", "make_experiments")])
 
 
 def _module_name(path: Path) -> str:
