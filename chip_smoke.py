@@ -225,10 +225,13 @@ WINDOW_GEMMS = [(2560, 2560), (2560, 8960), (8960, 2560), (4096, 16384),
 # torch._int_mm takes M > 16 only: the decode yardstick pads x with zero rows
 INT_MM_PAD_M = 32
 # (M, K, N) of the example twins' int8 GEMMs: serve_partitioned's Qwen3
-# smoke decode (4 slots) and quickstart's StableLM-2 smoke evaluation (a
-# batch of 8 x 64 tokens)
+# smoke decode (4 slots), quickstart's StableLM-2 smoke evaluation (a
+# batch of 8 x 64 tokens) and pose_estimation_mpai's int8 heads
+# (``POSE_EXAMPLE_GEMMS``)
+POSE_EXAMPLE_GEMMS = ((32, 64, 128), (32, 128, 3), (32, 128, 4))
 EXAMPLE_GEMMS = ((4, 64, 32), (4, 64, 64), (4, 64, 128), (4, 128, 64),
-                 (512, 128, 128), (512, 128, 256), (512, 256, 128))
+                 (512, 128, 128), (512, 128, 256), (512, 256, 128),
+                 *POSE_EXAMPLE_GEMMS)
 # (M, K, N) of StableLM-2's int8 GEMMs on a rank of the head-parallel
 # "mpai" forward (``tp_forward``, 2 x 512 tokens, tp 2): column-parallel
 # wq / wk / wv and w_in / w_gate at N / 2, row-parallel wo and w_out at
@@ -5903,6 +5906,9 @@ def load_twin(name: str):
 
 EXAMPLE_QUICKSTART_STEPS = 50        # the example's 200 cut to 50
 EXAMPLE_100M_STEPS = 30              # the fault at step 25, saved at 25
+EXAMPLE_POSE_STEPS = 60              # the example's 400 cut to 60
+EXAMPLE_POSE_BATCH = 32              # the example's own
+EXAMPLE_POSE_EVAL_BATCHES = 8        # ``pose.eval_ursonet``'s
 
 
 def run_twin(fn, *args):
@@ -5973,13 +5979,14 @@ def example_ties(what: str, cfg, cpu_params, plan, prompts, prompt_len: int,
 
 
 def examples_phase(dev, card: str, fa) -> dict:
-    """The five twins of ``examples_torch/`` on the card, in-process, at
+    """The six twins of ``examples_torch/`` on the card, in-process, at
     the examples' widths; each checked as the reference example asserts
     (the cost-model twins assert inside ``main``); ``serve_partitioned``'s
     streams and ``quickstart``'s eval losses and stream held against the
     same weights on the CPU (plain versions), ``train_100m``'s faulted run
-    bit-equal to an uninterrupted one.  Returns ``{twin run:
-    launches by row name}``, each run counted from 0."""
+    bit-equal to an uninterrupted one, ``pose_estimation_mpai``'s int8
+    evaluations bit-equal to the plain GEMM's (``pose_example``).  Returns
+    ``{twin run: launches by row name}``, each run counted from 0."""
     import shutil
     import tempfile
     from repro_torch.core.tree import tree_leaves
@@ -6116,8 +6123,151 @@ def examples_phase(dev, card: str, fa) -> dict:
     del a, b
     gc.collect()
     torch.cuda.empty_cache()
+    out.update(pose_example(card, wrong))
     if wrong:
         raise AssertionError(f"examples: {wrong}")
+    return out
+
+
+def pose_example(card: str, wrong: list) -> dict:
+    """``pose_estimation_mpai``'s ``main`` on the card at
+    ``EXAMPLE_POSE_STEPS`` steps of ``EXAMPLE_POSE_BATCH``: the paper's four
+    Table I conditions at the example's UrsoNet (96 x 128, widths 16-64,
+    fc 128).  Each condition's launches counted from 0 (its own run in
+    ``launches_by_plan``); every loss finite and the last below the first;
+    the int8 GEMM launched exactly 3 times an eval batch (fc, head_loc,
+    head_ori at ``POSE_EXAMPLE_GEMMS``) under the int8 heads and never
+    under ``fp32`` and ``mpai``; and each int8 evaluation equal, bit for
+    bit (LOCE, ORIE and the three head products of every batch), to the
+    same evaluation with ``int8_matmul_plain`` in the kernel's place."""
+    from repro_torch import pose
+    from repro_torch.kernels import int8_matmul as im
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+
+    # cuDNN's deterministic convolutions (``main`` sets them before the
+    # pose phases): an evaluation repeats bit for bit
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    twin = load_twin("pose_estimation_mpai")
+    batch, batches = EXAMPLE_POSE_BATCH, EXAMPLE_POSE_EVAL_BATCHES
+    seen, cur = {}, {}
+    real_run, real_train = twin.run_condition, pose.train_ursonet
+    real_step, real_eval = pose.train_step, pose.eval_ursonet
+
+    def run_condition(name, *a, **kw):
+        cur.clear()
+        cur["steps"] = []
+        torch.cuda.synchronize()
+        zero_counts()                 # this condition's run starts here
+        with Int8Shapes() as shapes:
+            row = real_run(name, *a, **kw)
+        torch.cuda.synchronize()
+        seen[name] = {**cur, "row": row, "launches": launch_counts(),
+                      "shapes": dict(shapes.counts)}
+        return row
+
+    def timed_step(*a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        res = real_step(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        cur["steps"].append((time.perf_counter() - t0, start, end))
+        return res
+
+    def kept_train(*a, **kw):
+        cur["params"], cur["hist"] = real_train(*a, **kw)
+        return cur["params"], cur["hist"]
+
+    def timed_eval(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real_eval(*a, **kw)
+        torch.cuda.synchronize()
+        cur["eval_s"] = time.perf_counter() - t0
+        return res
+
+    with patched(twin, "run_condition", run_condition), \
+            patched(pose, "train_step", timed_step), \
+            patched(pose, "train_ursonet", kept_train), \
+            patched(pose, "eval_ursonet", timed_eval):
+        res, lines, _, wall = run_twin(
+            twin.main, ["--steps", str(EXAMPLE_POSE_STEPS), "--batch",
+                        str(batch)])
+    cfg = twin.model_config()
+    want_shapes = {(batch, cfg.widths[-1], cfg.fc_dim): batches,
+                   (batch, cfg.fc_dim, 3): batches,
+                   (batch, cfg.fc_dim, 4): batches}
+    if set(want_shapes) != set(POSE_EXAMPLE_GEMMS) or len(lines) != 19:
+        wrong.append(f"pose_estimation_mpai: shapes {want_shapes}, "
+                     f"{len(lines)} lines of stdout")
+    out, conditions = {}, {}
+    for name, got in seen.items():
+        row, hist, n = got["row"], got["hist"], got["launches"]
+        losses = [loss for _, loss in hist]
+        _, _, sb, sh = pose.POLICIES[name]
+        int8_head = sh.precision.is_quantized
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]
+                and np.isfinite([row["loce"], row["orie"]]).all()):
+            wrong.append(f"pose_estimation_mpai {name}: history {hist}, "
+                         f"row {row}")
+        if n["int8_matmul"] != (3 * batches if int8_head else 0) or \
+                got["shapes"] != (want_shapes if int8_head else {}):
+            wrong.append(f"pose_estimation_mpai {name}: "
+                         f"{n['int8_matmul']} int8_matmul launches, shapes "
+                         f"{got['shapes']}")
+        equal = None
+        if int8_head:                 # the same eval with the plain GEMM
+            evals = {}
+            for tag, fn in (("kernel", ops.int8_matmul),
+                            ("plain", im.int8_matmul_plain)):
+                products = []
+
+                def kept_pdot(x, w, policy):
+                    products.append(real_pdot(x, w, policy))
+                    return products[-1]
+                with patched(ops, "int8_matmul", fn), \
+                        patched(cnn, "pdot", kept_pdot) as real_pdot:
+                    metrics = real_eval(got["params"], cfg, sb, sh,
+                                        batch=batch,
+                                        device=got["params"]["fc"].device)
+                evals[tag] = (metrics, products)
+            (mk, pk), (mp, pp) = evals["kernel"], evals["plain"]
+            equal = mk == mp == (row["loce"], row["orie"]) and \
+                len(pk) == len(pp) == 3 * batches and all(
+                    torch.equal(a, b) for a, b in zip(pk, pp))
+            if not equal:
+                wrong.append(f"pose_estimation_mpai {name}: eval with the "
+                             f"kernel {mk} vs plain {mp} vs run "
+                             f"{(row['loce'], row['orie'])}")
+        out[f"examples/pose_estimation_mpai/{name}"] = n
+        conditions[name] = {
+            "loce": row["loce"], "orie": row["orie"],
+            "final_train_loss": row["final_train_loss"],
+            "loss_history": hist,
+            "train_step_ms_wall": float(np.median(
+                [s * 1e3 for s, _, _ in got["steps"]])),
+            "train_step_ms_device": float(np.median(
+                [a.elapsed_time(b) for _, a, b in got["steps"]])),
+            "eval_images_per_s": batches * batch / got["eval_s"],
+            "int8_gemm_launches": n["int8_matmul"],
+            "eval_bit_equal_to_plain": equal}
+    if sorted(seen) != sorted(twin.CONDITIONS):
+        wrong.append(f"pose_estimation_mpai: conditions {sorted(seen)}")
+    emit("example", card=card, twin="pose_estimation_mpai", wall_s=wall,
+         config=cfg.name, image_hw=cfg.image_hw, widths=cfg.widths,
+         fc_dim=cfg.fc_dim, steps=EXAMPLE_POSE_STEPS, batch=batch,
+         eval_batches=batches, conditions=conditions,
+         int8_gemm_shapes=[list(s) for s in POSE_EXAMPLE_GEMMS],
+         stdout=lines[-10:],
+         reduced=[f"steps 400 -> {EXAMPLE_POSE_STEPS}"])
+    del seen, cur, res
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 

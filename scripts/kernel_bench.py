@@ -16,10 +16,11 @@ device time of the wrapper over CUDA events, twice, with ``chip_smoke.py``'s
 timer: ``ms`` with the L2 scrubbed by writing 128 MB before each launch
 (the launch then also pays for writing back up to the 50 MB of dirty lines
 it evicts), and ``ms_clean_l2`` with the L2 scrubbed by reading 128 MB
-(cold and clean); paged attention, wkv, the selective scan, the row-wise
-quant and the KV write also get ``device_ms``, one wrapper call captured in
-a CUDA graph and replayed after the write scrub (the kernel without the
-wrapper's host time); so does the flash-attention backward
+(cold and clean); paged attention, wkv, the flash-attention forward, the
+selective scan, the row-wise quant and the KV write also get
+``device_ms``, one wrapper call captured in a CUDA graph and replayed
+after the write scrub (the kernel without the wrapper's host time); so
+does the flash-attention backward
 (``flash_attention_bwd`` itself, not autograd), at the bf16 shapes of
 ``chip_smoke.FLASH_BWD_CASES``, with the route where the checkout names
 one; so do the wkv backward (``wkv_bwd`` at ``chip_smoke.RWKV_TRAIN_SHAPE``
@@ -29,12 +30,13 @@ the selective-scan backward (``selective_scan_bwd`` at
 gradient), with their launch plans where the checkout has them, and, where
 the checkout's scan backward has a plan (``bwd_plan``) and more than one
 chunk, also timed with the plan's sequence split turned the other way
-(``"split_flipped"``).  ``--only``
-names the result keys to time (default: all).  The int8 KV write is the fused
-``rowwise_quant_into`` where the checkout has it, else the checkout's own
-sequence of two row-wise quant launches and four slot copies
-(``"fused": false``), so that two checkouts compare like with like.  The
-inputs are ``chip_smoke.py``'s.  Needs a CUDA card.
+(``"split_flipped"``).  The flash-attention forward also gets its plain
+version's ``plain_ms`` (at the training layer, ~8.6 GB of f32 scores).
+``--only`` names the result keys to time (default: all).  The int8 KV
+write is the fused ``rowwise_quant_into`` where the checkout has it, else
+the checkout's own sequence of two row-wise quant launches and four slot
+copies (``"fused": false``), so that two checkouts compare like with
+like.  The inputs are ``chip_smoke.py``'s.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -53,9 +55,11 @@ from chip_smoke import (FLASH_BWD_CASES, KV_WRITE_CASES,  # noqa: E402
                         SCAN_SHAPES, Timer, kv_write_case, kv_write_sequence,
                         paged_case, quant_rows, scan_case)
 
-# (B, S, gp) with KVp 8, hd 128: the Qwen3-14B admission round, Jamba's
-# attention prefill window, a 2048-token Qwen3 prefill
-FLASH_SHAPES = [(8, 32, 5), (8, 128, 4), (1, 2048, 5)]
+# (B, S, KVp, gp, hd): the Qwen3-14B admission round, Jamba's attention
+# prefill window, a 2048-token Qwen3 prefill (KVp 8, hd 128), and a
+# StableLM-2 1.6B training layer (B 4, S 4096, 32 heads of 64)
+FLASH_SHAPES = [(8, 32, 8, 5, 128), (8, 128, 8, 4, 128), (1, 2048, 8, 5, 128),
+                (4, 4096, 32, 1, 64)]
 # (M, K, N): a Qwen3-14B layer at decode (M 8) and at the admission bucket
 # (M 256); RWKV-6 3B's and Jamba's widths at a window prefill (M 1024)
 QWEN_KN = [(5120, 5120), (5120, 1024), (5120, 17408), (17408, 5120)]
@@ -144,14 +148,18 @@ def main() -> int:
         result["wkv_bwd"].append(row)
         del r, k, v, w, u, dy, ds, ckpt
         torch.cuda.empty_cache()
-    for b, s, gp in FLASH_SHAPES if want("flash_attention") else ():
-        q = torch.randn((b, s, 8, gp, 128), generator=g,
-                        device=dev).bfloat16()
-        k = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
-        v = torch.randn((b, s, 8, 128), generator=g, device=dev).bfloat16()
-        result["flash_attention"].append(
-            {"B": b, "S": s, "gp": gp,
-             **times(lambda: fa.flash_attention(q, k, v))})
+    for b, s, kvp, gp, hd in FLASH_SHAPES if want("flash_attention") else ():
+        mk = lambda *shape: torch.randn(shape, generator=g,
+                                        device=dev).bfloat16()
+        q, k, v = mk(b, s, kvp, gp, hd), mk(b, s, kvp, hd), mk(b, s, kvp, hd)
+        row = {"B": b, "S": s, "KVp": kvp, "gp": gp, "hd": hd,
+               **times(lambda: fa.flash_attention(q, k, v), device_ms=True)}
+        if hasattr(fa, "flash_attention_plain"):
+            row["plain_ms"] = timers["ms"].ms(
+                lambda: fa.flash_attention_plain(q, k, v))
+        result["flash_attention"].append(row)
+        del q, k, v
+        torch.cuda.empty_cache()
     for b, s, kvp, gp, hd, dtype in FLASH_BWD_CASES:
         if dtype != "bfloat16" or not want("flash_attention_bwd"):
             continue

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: every ``repro_torch`` module (and every
 twin of an example) imports with JAX and ml_dtypes blocked, and no module
 (nor ``chip_smoke.py``, the port's scripts, its example twins or its
-tools' twins) imports JAX, ml_dtypes or the reference package ``repro``.
+tools' twins) imports JAX, ml_dtypes or the reference package ``repro``;
+an example twin imports nothing of the reference's ``benchmarks/`` either.
 Its entry points run on the card unless the caller asks for the CPU."""
 import ast
 import inspect
@@ -61,7 +62,7 @@ def test_every_example_twin_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert len(TWINS) == 5
+    assert len(TWINS) == 6
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -74,8 +75,10 @@ def test_port_file_imports_neither_jax_nor_repro(path):
             imported += [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.module:
             imported.append(node.module)
-    bad = [m for m in imported
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
+    refused = ("jax", "jaxlib", "repro", "ml_dtypes")
+    if path in TWINS:                 # a twin keeps its own copies
+        refused += ("benchmarks",)
+    bad = [m for m in imported if m.split(".")[0] in refused]
     assert not bad, f"{path}: imports {bad}"
 
 

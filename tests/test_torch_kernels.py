@@ -141,16 +141,25 @@ def test_int8_plan_fills_the_card_at_main_path_shapes(m, k, n):
             or m > 16 and p.splits == im.MAX_SPLITS
 
 
+# (M, K, N) of the pose example's int8 heads at its batch of 32
+# (``examples_torch/pose_estimation_mpai.py``): fc 64 -> 128, then
+# head_loc and head_ori 128 -> 3 and 4; K one and two 64-byte steps and N
+# far below a 128-column tile
+POSE_EXAMPLE_GEMMS = [(32, 64, 128), (32, 128, 3), (32, 128, 4)]
+
+
 @pytest.mark.parametrize("sms", [1, 7, 132])
 @pytest.mark.parametrize("m,k,n", [(15, 33, 17), (17, 4096, 1024),
-                                   (64, 100, 300), (65, 17408, 5120)])
+                                   (64, 100, 300), (65, 17408, 5120),
+                                   *POSE_EXAMPLE_GEMMS])
 def test_int8_plan_covers_k_at_ragged_shapes(m, k, n, sms):
     _check_plan(m, k, n, sms)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(8, 5120, 1024), (256, 5120, 5120),
-                                   (1, 5, 3), (33, 67, 65), (8, 17408, 512)])
+                                   (1, 5, 3), (33, 67, 65), (8, 17408, 512),
+                                   *POSE_EXAMPLE_GEMMS])
 def test_int8_kernel_equals_plain_on_card(cuda, m, k, n):
     x = torch.tensor(_int8((m, k)), device=cuda)
     w = torch.tensor(_int8((k, n)), device=cuda)
